@@ -1,0 +1,359 @@
+"""Timing engine: CUDA events around launches, and CUDA-graph fused loops.
+
+Port of `tpu_matmul_bench/utils/timing.py` (all but the program-variant
+and per-leg split timers, which the scaling slice brings):
+
+1. **Dispatch** (`time_jitted`): N launches between two
+   `torch.cuda.Event(enable_timing=True)` marks on the current stream,
+   after warmup — the reference's own protocol. The auto-scaling loop
+   stretches the window until it is long against the cost of a
+   synchronize.
+2. **Fused** (`fuse_iterations`/`time_fused`): one `torch.cuda.CUDAGraph`
+   captures K chained launches, so the host's launch rate cannot cap the
+   measurement. Each launch's operands carry a bounded scalar from the
+   previous output in element [0, ..., 0], which makes every launch depend
+   on the one before.
+
+On the CPU the calls run synchronously, `time.perf_counter` stands in for
+the events, and the fused protocol runs the same chained loop eagerly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from tpu_matmul_bench_torch.utils import telemetry
+
+
+def _last_tensor(out: Any) -> torch.Tensor | None:
+    """The last tensor in `out` (a tensor, or a tuple/list of them)."""
+    if isinstance(out, torch.Tensor):
+        return out
+    if isinstance(out, (tuple, list)):
+        for x in reversed(out):
+            leaf = _last_tensor(x)
+            if leaf is not None:
+                return leaf
+    return None
+
+
+def _on_card(out: Any) -> bool:
+    leaf = _last_tensor(out)
+    return leaf is not None and leaf.is_cuda
+
+
+def sync(out: Any) -> None:
+    """Wait until the device has produced `out` (no-op for CPU results)."""
+    leaf = _last_tensor(out)
+    if leaf is not None and leaf.is_cuda:
+        torch.cuda.synchronize(leaf.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Timing:
+    """Result of a timed loop, in device seconds."""
+
+    total_s: float
+    iterations: int
+    # measured cost of a synchronize on finished work, for reporting
+    sync_overhead_s: float = 0.0
+    # False when the timed window never cleared the synchronize cost
+    reliable: bool = True
+    # fused protocol only: how the loop was serialized — "operand" (each
+    # launch's operands depend on the previous output) or "none" (nothing
+    # to chain on). None for dispatch timings.
+    chain: str | None = None
+
+    @property
+    def avg_s(self) -> float:
+        return self.total_s / self.iterations
+
+
+def _warm(call: Callable[[], Any], warmup: int) -> tuple[Any, float]:
+    """Shared timed-loop preamble: run warmup (≥1), sync, and measure the
+    cost of a synchronize. The first call, which builds the kernel or
+    captures the graph, is the `compile` span; the other warmup calls are
+    `warmup`; the synchronize measurement is `sync-calibrate`."""
+    with telemetry.span("compile"):
+        out = call()
+        sync(out)
+    rest = max(warmup, 1) - 1
+    with telemetry.span("warmup", iterations=rest):
+        for _ in range(rest):
+            out = call()
+        sync(out)
+    with telemetry.span("sync-calibrate"):
+        overhead = _measure_sync_overhead(out)
+    return out, overhead
+
+
+def _measure_sync_overhead(out: Any, samples: int = 3) -> float:
+    """Fixed cost of `sync` on already-finished work."""
+    best = float("inf")
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        sync(out)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _timed_loop(call: Callable[[], Any], n: int, card: bool,
+                overhead: float) -> tuple[Any, float]:
+    """`n` calls and their device seconds. On the card: the time between
+    two CUDA events on the current stream around the launches. On the CPU:
+    the host clock to the end of a sync, less the sync's cost."""
+    if card:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            out = call()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = call()
+    sync(out)
+    return out, time.perf_counter() - t0 - overhead
+
+
+def time_jitted(
+    fn: Callable[..., Any],
+    args: Sequence[Any],
+    *,
+    iterations: int = 50,
+    warmup: int = 10,
+) -> Timing:
+    """Whole-loop timing: N launches between two events, after warmup.
+
+    The iteration count is scaled up until the window is at least five
+    times the cost of a synchronize (capped at 256×), so very short loops
+    are not read off the timer's noise.
+    """
+    out, overhead = _warm(lambda: fn(*args), warmup)
+    card = _on_card(out)
+    factor = 1
+    with telemetry.span("measure", protocol="dispatch") as meta:
+        while True:
+            n = iterations * factor
+            out, device_total = _timed_loop(lambda: fn(*args), n, card,
+                                            overhead)
+            if device_total >= 5 * overhead or factor >= 256:
+                break
+            per_iter = max(device_total / n, 1e-9)
+            need = int(5 * overhead / (per_iter * iterations)) + 1
+            factor = min(max(need, factor * 2), 256)
+        meta["iterations"] = n  # the auto-scaled count, known at close
+    return Timing(
+        total_s=max(device_total, 1e-12),
+        iterations=n,
+        sync_overhead_s=overhead,
+        reliable=device_total >= 2 * overhead,
+    )
+
+
+def _chainable(x: Any) -> bool:
+    return (isinstance(x, torch.Tensor) and x.ndim >= 1 and x.numel() >= 2
+            and x.dtype != torch.bool and not x.is_complex())
+
+
+def _chain(ops: Sequence[Any], src: torch.Tensor) -> None:
+    """Write a bounded scalar derived from `src` (the previous output)
+    into element [0, ..., 0] of every chainable operand, in place."""
+    patch = src.reshape(-1)[:1].float()
+    bounded = torch.where(torch.isfinite(patch), patch.clamp(0.0, 1.0), 0.5)
+    for op in ops:
+        if _chainable(op):
+            op.view(-1)[:1].copy_(bounded)
+
+
+def fuse_iterations(
+    fn: Callable[..., Any], iterations: int,
+    chain_state: dict | None = None,
+) -> Callable[..., Any]:
+    """A callable that runs `iterations` chained calls of `fn`.
+
+    Between calls, a bounded scalar from the previous output is written into
+    element [0, ..., 0] of each operand, so every call depends on the one
+    before and none can be skipped or merged. The chain writes into the
+    operands, so the loop runs on clones; the caller's tensors are not
+    touched.
+
+    On the card the first call captures the whole chain in one CUDA graph
+    and every call replays it: one launch from the host for `iterations`
+    kernels. On the CPU each call runs the chain eagerly.
+
+    `chain_state` (optional dict) receives {"chain": "operand" | "none"}:
+    how the loop was serialized.
+    """
+    if iterations < 1:
+        raise ValueError(f"iterations must be >= 1, got {iterations}")
+    graph: torch.cuda.CUDAGraph | None = None
+    result: Any = None
+
+    def run_chain(ops: list[Any]) -> Any:
+        out = fn(*ops)
+        chained = _chainable(_last_tensor(out))
+        if chain_state is not None:
+            chain_state["chain"] = "operand" if chained else "none"
+        for _ in range(iterations - 1):
+            if chained:
+                _chain(ops, _last_tensor(out))
+            out = fn(*ops)
+        return out
+
+    def fused(*args: Any) -> Any:
+        nonlocal graph, result
+        if graph is not None:
+            graph.replay()
+            return result
+        ops = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+        if not _on_card(ops):
+            return run_chain(ops)
+        # a first eager call on a side stream sets up whatever the callee
+        # creates lazily (library handles, workspaces), which the capture
+        # cannot; then capture the chain and run it once
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*ops)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            result = run_chain(ops)
+        graph.replay()
+        return result
+
+    return fused
+
+
+def time_fused(
+    fn: Callable[..., Any],
+    args: Sequence[Any],
+    *,
+    iterations: int = 50,
+    warmup: int = 10,  # noqa: ARG001 — one fused call runs a full K-call pass
+) -> Timing:
+    """Whole-loop timing of the fused chain (see fuse_iterations). The
+    Timing's `iterations` counts `fn` calls, so `avg_s` is per call as in
+    `time_jitted`."""
+    k = max(int(iterations), 1)
+    chain_state: dict = {}
+    fused = fuse_iterations(fn, k, chain_state=chain_state)
+    t = time_jitted(fused, args, iterations=1, warmup=1)
+    return Timing(
+        total_s=t.total_s,
+        iterations=t.iterations * k,
+        sync_overhead_s=t.sync_overhead_s,
+        reliable=t.reliable,
+        chain=chain_state.get("chain"),
+    )
+
+
+def choose_timer(timing: str) -> Callable[..., Timing]:
+    """Timer for a --timing protocol name."""
+    if timing not in ("dispatch", "fused"):
+        raise ValueError(f"unknown timing protocol {timing!r}")
+    return time_fused if timing == "fused" else time_jitted
+
+
+def protocol_extras(timing: str, t: Timing) -> dict:
+    """Record extras shared by every timed path: reliability + protocol."""
+    extras: dict = {} if t.reliable else {"timing_reliable": False}
+    if timing != "dispatch":
+        extras["timing"] = timing
+    if t.chain == "none":
+        # the fused loop ran without the serializing operand chain
+        extras["chain"] = "none"
+    return extras
+
+
+def effective_warmup(timing: str, iterations: int, warmup: int) -> int:
+    """What actually warmed the program: the fused protocol runs one warm
+    pass of the K-call chain, not `warmup` launches."""
+    return iterations if timing == "fused" else warmup
+
+
+def record_samples(
+    fn: Callable[..., Any],
+    args: Sequence[Any],
+    *,
+    iterations: int = 50,
+    warmup: int = 1,
+) -> list[float]:
+    """Per-iteration device seconds, each iteration timed and synced on its
+    own — the distribution the whole-loop protocols average away."""
+    out, overhead = _warm(lambda: fn(*args), warmup)
+    card = _on_card(out)
+    samples: list[float] = []
+    with telemetry.span("sample", iterations=iterations):
+        for _ in range(iterations):
+            out, seconds = _timed_loop(lambda: fn(*args), 1, card, overhead)
+            samples.append(max(seconds, 1e-9))
+    return samples
+
+
+def time_percentiles(
+    fn: Callable[..., Any],
+    args: Sequence[Any],
+    *,
+    iterations: int = 50,
+    warmup: int = 10,
+) -> dict[str, float]:
+    """Per-iteration latency distribution (seconds): p50/p90/p99/min/max."""
+    arr = np.asarray(record_samples(fn, args, iterations=iterations,
+                                    warmup=warmup))
+    return {
+        "p50_s": float(np.percentile(arr, 50)),
+        "p90_s": float(np.percentile(arr, 90)),
+        "p99_s": float(np.percentile(arr, 99)),
+        "min_s": float(arr.min()),
+        "max_s": float(arr.max()),
+    }
+
+
+def latency_percentiles_ms(fn, operands, config) -> dict[str, float]:
+    """--percentiles extras: per-iteration latency distribution in ms (the
+    kernel is already built by the main timing loop, so warmup=1)."""
+    pct = time_percentiles(fn, operands, iterations=config.iterations,
+                           warmup=1)
+    return {k.removesuffix("_s"): round(v * 1e3, 3) for k, v in pct.items()}
+
+
+def sample_stats(samples_s: Sequence[float]) -> dict[str, Any]:
+    """Distribution block for `extras["samples"]`: p50/p95/p99, stddev,
+    and the warmup-drift flag (first quartile slower than the last by
+    more than WARMUP_DRIFT_THRESHOLD_PCT)."""
+    arr = np.asarray(list(samples_s), dtype=float)
+    if arr.size == 0:
+        raise ValueError("need at least one sample")
+    ms = arr * 1e3
+    q = max(arr.size // 4, 1)
+    first, last = float(ms[:q].mean()), float(ms[-q:].mean())
+    drift_pct = 100.0 * (first - last) / last if last > 0 else 0.0
+    return {
+        "n": int(arr.size),
+        "mean_ms": round(float(ms.mean()), 4),
+        "stddev_ms": round(float(ms.std()), 4),
+        "p50_ms": round(float(np.percentile(ms, 50)), 4),
+        "p95_ms": round(float(np.percentile(ms, 95)), 4),
+        "p99_ms": round(float(np.percentile(ms, 99)), 4),
+        "min_ms": round(float(ms.min()), 4),
+        "max_ms": round(float(ms.max()), 4),
+        "warmup_drift_pct": round(drift_pct, 2),
+        "warmup_drift": bool(
+            drift_pct > telemetry.WARMUP_DRIFT_THRESHOLD_PCT),
+    }
+
+
+def sample_extras(fn, operands, config) -> dict[str, Any]:
+    """--samples extras: per-iteration times reduced to the distribution
+    block (warmup=1: the main timing loop has already run)."""
+    return sample_stats(record_samples(
+        fn, operands, iterations=config.iterations, warmup=1))
