@@ -47,11 +47,34 @@ def test_make_matmul_matches_jax(impls, dtype_name):
     assert rel_err(as_numpy(got), want) <= TOLERANCE[dtype_name]
 
 
+@pytest.mark.parametrize("blocks", [(64, 128, 32), (128, 256, 32)],
+                         ids=lambda t: "x".join(map(str, t)))
+@pytest.mark.parametrize("dtype_name", list(TOLERANCE))
+def test_make_matmul_blocks_match_jax(blocks, dtype_name):
+    # the kernel at an explicit tile against the Pallas kernel at the same
+    # block request (each package resolves it by its own rule)
+    a_np, b_np = numpy_operands(13, 256, 384, 128, dtype_name)
+    want = jax_make_matmul("pallas", blocks)(jnp.asarray(a_np), jnp.asarray(b_np))
+    got = make_matmul("cuda", blocks)(*operands_from_numpy(a_np, b_np, device="cpu"))
+    assert str(got.dtype).removeprefix("torch.") == want.dtype.name
+    assert rel_err(as_numpy(got), want) <= TOLERANCE[dtype_name]
+
+
+def test_auto_and_library_ignore_blocks_on_the_cpu():
+    a_np, b_np = numpy_operands(14, 64, 64, 64, "float32")
+    a, b = operands_from_numpy(a_np, b_np, device="cpu")
+    before = cm.LAUNCHES
+    for impl in ("auto", "torch"):
+        got = make_matmul(impl, (64, 128, 32), device_kind="cpu")(a, b)
+        assert torch.equal(got, torch.matmul(a, b))
+    assert cm.LAUNCHES == before
+
+
 def test_auto_routes_to_the_library_on_the_cpu():
     a_np, b_np = numpy_operands(12, 64, 64, 64, "float32")
     a, b = operands_from_numpy(a_np, b_np, device="cpu")
     before = cm.LAUNCHES
-    got = make_matmul("auto", "cpu")(a, b)
+    got = make_matmul("auto", device_kind="cpu")(a, b)
     assert torch.equal(got, torch.matmul(a, b))
     assert cm.LAUNCHES == before
 
@@ -205,3 +228,20 @@ def test_cli_program_table(capsys):
         main(["--help"])
     assert e.value.code == 0
     assert "matmul" in capsys.readouterr().out
+
+
+def test_main_block_flags_match_jax(tmp_path):
+    flags = ["--block-m", "128", "--block-n", "256", "--block-k", "32"]
+    (jrec,) = jax_bench.main(SMALL + flags + ["--num-devices", "1",
+                                              "--matmul-impl", "pallas"])
+    (prec,) = port_bench.main(SMALL + flags + ["--device", "cpu", "--matmul-impl",
+                                               "cuda", "--json-out",
+                                               str(tmp_path / "b.jsonl")])
+    for rec in (jrec, prec):
+        assert rec.extras["validation"] == "ok" and rec.size == 128
+
+
+def test_main_reports_non_positive_block_flags(capsys):
+    # the runner reports the size's error and skips it, as the JAX runner does
+    assert port_bench.main(SMALL + ["--device", "cpu", "--block-k", "-32"]) == []
+    assert "block sizes must be positive" in capsys.readouterr().out

@@ -11,6 +11,9 @@ import sys
 
 _PROGRAMS = {
     "matmul": "tpu_matmul_bench_torch.benchmarks.matmul_benchmark",
+    # the kernel tile sweep (benchmarks/cuda_tune.py); the JAX package's
+    # tuning-database subcommands are not ported yet and fail by name
+    "tune": "tpu_matmul_bench_torch.benchmarks.cuda_tune",
 }
 
 

@@ -90,7 +90,7 @@ def _bench_single(config: BenchConfig, size: int, device_kind: str,
                   device: torch.device) -> BenchmarkRecord:
     wl = MatmulWorkload(size, config.dtype, seed=config.seed)
     a, b = wl.operands(device)
-    mm = make_matmul(config.matmul_impl, device_kind)
+    mm = make_matmul(config.matmul_impl, config.blocks, device_kind)
     verdict = _validate(config, mm, a, b, VALIDATION_CORNER)
     t = _time(config, mm, (a, b))
     extras = _extras(config, t, mm, a, b, size, size, size, device_kind)
@@ -118,7 +118,7 @@ def _bench_rect(config: BenchConfig, mkn: tuple[int, int, int],
     m, k, n = mkn
     wl = RectMatmulWorkload(m, k, n, config.dtype, seed=config.seed)
     a, b = wl.operands(device)
-    mm = make_matmul(config.matmul_impl, device_kind)
+    mm = make_matmul(config.matmul_impl, config.blocks, device_kind)
     verdict = _validate(config, mm, a, b, min(VALIDATION_CORNER, m, n))
     t = _time(config, mm, (a, b))
     extras = {"shape": f"{m}x{k}x{n}",

@@ -1,48 +1,69 @@
-// Hand-written GEMM for Hopper (sm_90a): the port's `cuda` matmul kernel.
+// Hand-written GEMMs for Hopper (sm_90a): the port's `cuda` matmul kernel,
+// its split-K form, and the reduction that finishes the split-K.
 //
-// Replaces: tpu_matmul_bench/ops/pallas_matmul.py::_matmul_kernel (:37-50),
-// the blocked Pallas kernel that pallas_matmul (:240-345) runs on the TPU MXU.
+// Replaces:
+// - tpu_matmul_bench/ops/pallas_matmul.py::_matmul_kernel (:37-50), the
+//   blocked Pallas kernel that pallas_matmul (:240-345) runs on the TPU MXU,
+//   with its block sizes and grid_order;
+// - pallas_matmul_ksplit (:352-401), which runs that kernel once per K slab
+//   with accumulator-dtype stores and sums the partials before one downcast.
 //
-// What it computes: C[m,n] = A[m,k] . B[k,n] for row-major contiguous
-// operands. bf16/f16/f32 products accumulate in fp32 registers, int8 products
-// in int32, and each C element is stored once, converted to the output dtype
-// the caller names: the operand dtype by default (int32 for int8), or fp32
-// for bf16/f16 operands, which the K-split variant needs for its partials.
+// What it computes: C[m,n] = A[m,k] . B[k,n] for row-major operands whose
+// rows may be strided (lda, ldb), so a K slab A[:, k0:k0+kc] . B[k0:k0+kc, :]
+// is a view, never a copy. bf16/f16/f32 products accumulate in fp32
+// registers, int8 products in int32, and each C element is stored once,
+// converted to the output dtype the caller names: the operand dtype by
+// default (int32 for int8), or fp32 for bf16/f16 operands.
 //
 // Bound on this card: the headline product, 16384^3 in bf16, does
 // 2*16384^3 = 8.8e12 operations on 1.5 GiB of A, B and C, about 5,500 FLOP
 // per byte of device memory traffic, far above the H100's ridge of ~295
 // FLOP/byte. It is bound by the tensor cores: 8.9 ms at the SXM part's 989
-// dense bf16 TFLOP/s (NVIDIA H100 datasheet).
+// dense bf16 TFLOP/s (NVIDIA H100 datasheet). A split-K in two adds two fp32
+// partials written and read back (4 bytes x m x n each way): at 16384^3
+// that is 1.76 ms of traffic against 8.9 ms of operations, still bound by
+// operations.
 //
 // Design, against the TPU kernel:
 // - The Pallas grid walks K as its innermost, sequential axis and carries the
 //   sum in a VMEM scratch between grid steps. Blocks on a GPU run in no
-//   order, so here each block owns one 128x128 output tile and loops over K
+//   order, so here each block owns one BMxBN output tile and loops over K
 //   itself, with the sum in registers; nothing crosses blocks.
-// - A and B tiles (128x32, 32x128) are staged through shared memory in two
-//   buffers: cp.async brings in step k+1 while the tensor cores work on k.
-//   Eight warps each compute a 32x64 sub-tile as 2x4 wmma fragments of
-//   16x16x16 (bf16/f16 into fp32, s8 into s32).
-// - Tiles are kept in shared memory as 16-wide column slices, so that every
-//   fragment starts on the 32-byte boundary wmma requires, for 8-bit
-//   operands too.
+// - The tile (BM, BN, BK) is a template parameter with a small fixed set of
+//   instantiations (TMB_TILES). Every tile runs 8 warps; the warp layout is
+//   derived from the tile (4x2 warps when BM >= BN, else 2x4), and each warp
+//   computes its sub-tile as 16x16x16 wmma fragments (bf16/f16 into fp32, s8
+//   into s32).
+// - A and B tiles are staged through dynamic shared memory in two buffers:
+//   cp.async brings in step k+1 while the tensor cores work on k. Tiles are
+//   kept as 16-wide column slices, so that every fragment starts on the
+//   32-byte boundary wmma requires, for 8-bit operands too. Tiles above the
+//   default 48 KB of shared memory (128x128x64, the 256-wide ones) need the
+//   per-kernel limit raised: tmb_init does that for every instantiation.
+// - grid_order is the raster of output tiles: "mnk" puts N tiles on
+//   blockIdx.x, so M is the slowest axis and the blocks in flight share a
+//   band of A; "nmk" swaps the two axes and they share a band of B.
 // - pallas_matmul zero-pads awkward dimensions to multiples of 128 and slices
 //   the result. Here the ragged edge is zero-filled on the way into shared
 //   memory and masked on the store, so no padded copy is ever made. When a
 //   row of A or B is not a whole number of 16-byte vectors the tiles are
 //   loaded element by element instead of by cp.async.
-// - fp32 operands take a plain SIMT kernel (64x64 tiles, 4x4 outputs per
+// - Split-K: one launch with gridDim.z = S. Block z multiplies the slab
+//   [z*kc, (z+1)*kc) and stores its fp32 (int32 for int8) partial into slice
+//   z of a workspace [S, m, n]; reduce_partials then adds the slices in the
+//   order s = 0..S-1 and stores C once, as pallas_matmul_ksplit's
+//   `acc + part` loop followed by one astype.
+// - fp32 operands take a plain SIMT kernel (64x64x16 tiles, 4x4 outputs per
 //   thread, fp32 FMA): the tensor cores have no full-precision fp32 mode.
 //
 // Left for later work: wgmma and TMA with a multistage mbarrier pipeline,
-// warp specialisation, persistent blocks with tile rasterisation for L2
-// reuse (the TPU kernel's grid_order), and a tensor-core path for fp32
+// warp specialisation, persistent blocks, and a tensor-core path for fp32
 // under TF32.
 //
-// The C entry point launches on the caller's stream, allocates nothing and
-// does not synchronise, so it can be captured in a CUDA graph. It returns
-// cudaGetLastError() after the launch.
+// The C entry points launch on the caller's stream, allocate nothing and do
+// not synchronise, so they can be captured in a CUDA graph. They return
+// cudaGetLastError() after the launch. tmb_init must run once per device,
+// outside any capture, before the first launch.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -50,21 +71,25 @@
 #include <mma.h>
 
 #include <cstdint>
+#include <type_traits>
 
 using namespace nvcuda;
+
+// The instantiated tensor-core tiles (BM, BN, BK), smallest first;
+// ops/cuda_matmul.py TILES lists the same (tests/test_torch_tune.py holds
+// the two together).
+#define TMB_TILES(X) \
+  X(64, 128, 32) X(128, 64, 32) X(128, 128, 32) X(128, 128, 64) X(128, 256, 32) X(256, 128, 32)
 
 namespace {
 
 // dtype codes shared with ops/cuda_matmul.py
 enum DType : int { kF32 = 0, kF16 = 1, kBF16 = 2, kI8 = 3, kI32 = 4 };
+// grid orders shared with ops/cuda_matmul.py
+enum Order : int { kMNK = 0, kNMK = 1 };
 
 // ---------------------------------------------------------------- tensor cores
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int WARPS_M = 4, WARPS_N = 2;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int WM = BM / WARPS_M;  // 32 rows per warp
-constexpr int WN = BN / WARPS_N;  // 64 columns per warp
-constexpr int FM = WM / 16, FN = WN / 16;
+constexpr int THREADS = 256;  // 8 warps, for every tile
 constexpr int STAGES = 2;
 
 template <typename T> struct AccOf { using type = float; };
@@ -74,6 +99,23 @@ template <> struct AccOf<signed char> { using type = int; };
 // keeps the row a multiple of 16 bytes (cp.async) and every 16-row fragment
 // a multiple of 32 bytes (wmma), with ldm a multiple of 16 bytes.
 template <typename T> constexpr int kPitch = 16 + 16 / int(sizeof(T));
+
+// Geometry of one tile: warp layout, fragments per warp, shared memory.
+template <typename T, int BM_, int BN_, int BK_> struct Tile {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_;
+  static constexpr int WARPS_M = BM >= BN ? 4 : 2;
+  static constexpr int WARPS_N = THREADS / 32 / WARPS_M;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // per warp
+  static constexpr int FM = WM / 16, FN = WN / 16;            // fragments
+  static constexpr int P = kPitch<T>;
+  static constexpr int A_ELEMS = (BK / 16) * BM * P;
+  static constexpr int STAGE = A_ELEMS + (BN / 16) * BK * P;
+  static constexpr int PIPE_BYTES = STAGES * STAGE * int(sizeof(T));
+  static constexpr int EPI_BYTES = (THREADS / 32) * 256 * int(sizeof(typename AccOf<T>::type));
+  static constexpr int SMEM_BYTES = PIPE_BYTES > EPI_BYTES ? PIPE_BYTES : EPI_BYTES;
+  static_assert(WM % 16 == 0 && WN % 16 == 0 && BK % 16 == 0,
+                "a tile must split into 16x16x16 fragments over 8 warps");
+};
 
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ __nv_bfloat16 zero() { return __float2bfloat16(0.f); }
@@ -95,11 +137,11 @@ __device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wa
 
 // One K step's tiles into shared memory. A's tile is kept as BK/16 slices of
 // [BM][pitch], B's as BN/16 slices of [BK][pitch].
-template <typename T, bool VEC>
+template <typename T, typename G, bool VEC>
 __device__ __forceinline__ void load_tiles(T* As, T* Bs, const T* __restrict__ A,
                                            const T* __restrict__ B, int M, int N, int K,
-                                           int m0, int n0, int k0, int tid) {
-  constexpr int P = kPitch<T>;
+                                           int lda, int ldb, int m0, int n0, int k0, int tid) {
+  constexpr int BM = G::BM, BN = G::BN, BK = G::BK, P = G::P;
   if constexpr (VEC) {
     constexpr int V = 16 / int(sizeof(T));  // elements per 16-byte vector
     for (int v = tid; v < BM * BK / V; v += THREADS) {
@@ -107,81 +149,85 @@ __device__ __forceinline__ void load_tiles(T* As, T* Bs, const T* __restrict__ A
       const int gm = m0 + r, gk = k0 + kk;
       const bool ok = gm < M && gk < K;
       cp_async16(As + (kk / 16) * BM * P + r * P + kk % 16,
-                 ok ? A + static_cast<size_t>(gm) * K + gk : A, ok);
+                 ok ? A + static_cast<size_t>(gm) * lda + gk : A, ok);
     }
     for (int v = tid; v < BK * BN / V; v += THREADS) {
       const int r = v / (BN / V), nn = (v % (BN / V)) * V;
       const int gk = k0 + r, gn = n0 + nn;
       const bool ok = gk < K && gn < N;
       cp_async16(Bs + (nn / 16) * BK * P + r * P + nn % 16,
-                 ok ? B + static_cast<size_t>(gk) * N + gn : B, ok);
+                 ok ? B + static_cast<size_t>(gk) * ldb + gn : B, ok);
     }
   } else {
     for (int e = tid; e < BM * BK; e += THREADS) {
       const int r = e / BK, kk = e % BK;
       const int gm = m0 + r, gk = k0 + kk;
       As[(kk / 16) * BM * P + r * P + kk % 16] =
-          (gm < M && gk < K) ? A[static_cast<size_t>(gm) * K + gk] : zero<T>();
+          (gm < M && gk < K) ? A[static_cast<size_t>(gm) * lda + gk] : zero<T>();
     }
     for (int e = tid; e < BK * BN; e += THREADS) {
       const int r = e / BN, nn = e % BN;
       const int gk = k0 + r, gn = n0 + nn;
       Bs[(nn / 16) * BK * P + r * P + nn % 16] =
-          (gk < K && gn < N) ? B[static_cast<size_t>(gk) * N + gn] : zero<T>();
+          (gk < K && gn < N) ? B[static_cast<size_t>(gk) * ldb + gn] : zero<T>();
     }
   }
 }
 
-template <typename T, typename TO, bool VEC>
+// C (+ blockIdx.z * c_split) = A[:, z*K : (z+1)*K] . B[z*K : (z+1)*K, :].
+// C is int32 for int8 operands; otherwise fp32 when f32_out, else T.
+template <typename T, bool VEC, int BM, int BN, int BK>
 __global__ void __launch_bounds__(THREADS)
-    wmma_gemm(const T* __restrict__ A, const T* __restrict__ B, TO* __restrict__ C, int M,
-              int N, int K) {
+    wmma_gemm(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__ C, int M,
+              int N, int K, int lda, int ldb, size_t c_split, int order, bool f32_out) {
+  using G = Tile<T, BM, BN, BK>;
   using Acc = typename AccOf<T>::type;
-  constexpr int P = kPitch<T>;
-  constexpr int A_ELEMS = (BK / 16) * BM * P;
-  constexpr int STAGE = A_ELEMS + (BN / 16) * BK * P;
-  constexpr int PIPE_BYTES = STAGES * STAGE * int(sizeof(T));
-  constexpr int EPI_BYTES = (THREADS / 32) * 256 * int(sizeof(Acc));
-  __shared__ __align__(128) unsigned char smem[PIPE_BYTES > EPI_BYTES ? PIPE_BYTES : EPI_BYTES];
+  extern __shared__ __align__(128) unsigned char smem[];
   T* tiles = reinterpret_cast<T*>(smem);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int wm = warp / G::WARPS_N, wn = warp % G::WARPS_N;
+  const int m0 = (order == kMNK ? blockIdx.y : blockIdx.x) * BM;
+  const int n0 = (order == kMNK ? blockIdx.x : blockIdx.y) * BN;
+  A += static_cast<size_t>(blockIdx.z) * K;
+  B += static_cast<size_t>(blockIdx.z) * K * ldb;
+  const size_t c0 = blockIdx.z * c_split;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[FM][FN];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[G::FM][G::FN];
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+  for (int i = 0; i < G::FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], Acc(0));
+    for (int j = 0; j < G::FN; ++j) wmma::fill_fragment(acc[i][j], Acc(0));
 
   const int steps = (K + BK - 1) / BK;
-  if (steps > 0) load_tiles<T, VEC>(tiles, tiles + A_ELEMS, A, B, M, N, K, m0, n0, 0, tid);
+  if (steps > 0)
+    load_tiles<T, G, VEC>(tiles, tiles + G::A_ELEMS, A, B, M, N, K, lda, ldb, m0, n0, 0, tid);
   cp_async_commit();
   for (int s = 0; s < steps; ++s) {
     if (s + 1 < steps) {
-      T* next = tiles + ((s + 1) % STAGES) * STAGE;
-      load_tiles<T, VEC>(next, next + A_ELEMS, A, B, M, N, K, m0, n0, (s + 1) * BK, tid);
+      T* next = tiles + ((s + 1) % STAGES) * G::STAGE;
+      load_tiles<T, G, VEC>(next, next + G::A_ELEMS, A, B, M, N, K, lda, ldb, m0, n0,
+                            (s + 1) * BK, tid);
     }
     cp_async_commit();
     cp_async_wait_prev();  // step s has landed; step s+1 may still be in flight
     __syncthreads();
-    const T* As = tiles + (s % STAGES) * STAGE;
-    const T* Bs = As + A_ELEMS;
+    const T* As = tiles + (s % STAGES) * G::STAGE;
+    const T* Bs = As + G::A_ELEMS;
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[FN];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[G::FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[G::FN];
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], As + ks * BM * P + (wm * WM + i * 16) * P, P);
+      for (int i = 0; i < G::FM; ++i)
+        wmma::load_matrix_sync(a[i], As + ks * BM * G::P + (wm * G::WM + i * 16) * G::P, G::P);
 #pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], Bs + (wn * FN + j) * BK * P + ks * 16 * P, P);
+      for (int j = 0; j < G::FN; ++j)
+        wmma::load_matrix_sync(b[j], Bs + (wn * G::FN + j) * BK * G::P + ks * 16 * G::P, G::P);
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
+      for (int i = 0; i < G::FM; ++i)
 #pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+        for (int j = 0; j < G::FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
     }
     __syncthreads();  // the buffer of step s is refilled at step s+1
   }
@@ -191,33 +237,88 @@ __global__ void __launch_bounds__(THREADS)
   // masked to the ragged edge.
   Acc* stage = reinterpret_cast<Acc*>(smem) + warp * 256;
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+  for (int i = 0; i < G::FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j) {
+    for (int j = 0; j < G::FN; ++j) {
       wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
-        const int gm = m0 + wm * WM + i * 16 + e / 16;
-        const int gn = n0 + wn * WN + j * 16 + e % 16;
-        if (gm < M && gn < N) put(C + static_cast<size_t>(gm) * N + gn, stage[e]);
+        const int gm = m0 + wm * G::WM + i * 16 + e / 16;
+        const int gn = n0 + wn * G::WN + j * 16 + e % 16;
+        if (gm < M && gn < N) {
+          const size_t at = c0 + static_cast<size_t>(gm) * N + gn;
+          if constexpr (std::is_same_v<T, signed char>)
+            put(static_cast<int*>(C) + at, stage[e]);
+          else if (f32_out)
+            put(static_cast<float*>(C) + at, stage[e]);
+          else
+            put(static_cast<T*>(C) + at, stage[e]);
+        }
       }
       __syncwarp();
     }
 }
 
-template <typename T, typename TO>
-void launch_wmma(const void* a, const void* b, void* c, int m, int n, int k, cudaStream_t s) {
+template <typename T, int BM, int BN, int BK>
+cudaError_t launch_tile(const T* A, const T* B, void* C, int m, int n, int k, int lda, int ldb,
+                        int splits, int order, bool f32_out, cudaStream_t s) {
+  using G = Tile<T, BM, BN, BK>;
   constexpr int V = 16 / int(sizeof(T));
-  const bool vec = k % V == 0 && n % V == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  const bool vec = k % V == 0 && n % V == 0 && lda % V == 0 && ldb % V == 0 &&
+                   reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  const unsigned tm = (m + BM - 1) / BM, tn = (n + BN - 1) / BN;
+  const dim3 grid(order == kMNK ? tn : tm, order == kMNK ? tm : tn, splits);
+  if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
+  const size_t c_split = static_cast<size_t>(m) * n;
+  if (vec)
+    wmma_gemm<T, true, BM, BN, BK><<<grid, THREADS, G::SMEM_BYTES, s>>>(
+        A, B, C, m, n, k, lda, ldb, c_split, order, f32_out);
+  else
+    wmma_gemm<T, false, BM, BN, BK><<<grid, THREADS, G::SMEM_BYTES, s>>>(
+        A, B, C, m, n, k, lda, ldb, c_split, order, f32_out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wmma(const void* a, const void* b, void* c, int m, int n, int k, int lda,
+                        int ldb, int splits, int bm, int bn, int bk, int order, bool f32_out,
+                        cudaStream_t s) {
   const T* A = static_cast<const T*>(a);
   const T* B = static_cast<const T*>(b);
-  TO* C = static_cast<TO*>(c);
-  if (vec)
-    wmma_gemm<T, TO, true><<<grid, THREADS, 0, s>>>(A, B, C, m, n, k);
-  else
-    wmma_gemm<T, TO, false><<<grid, THREADS, 0, s>>>(A, B, C, m, n, k);
+#define TMB_LAUNCH(BM_, BN_, BK_)                                                       \
+  if (bm == BM_ && bn == BN_ && bk == BK_)                                              \
+    return launch_tile<T, BM_, BN_, BK_>(A, B, c, m, n, k, lda, ldb, splits, order, f32_out, \
+                                         s);
+  TMB_TILES(TMB_LAUNCH)
+#undef TMB_LAUNCH
+  return cudaErrorInvalidValue;  // not an instantiated tile
+}
+
+// Kernels above 48 KB of dynamic shared memory launch only after their limit
+// is raised; set it for every instantiation, at the size each one uses.
+template <typename T, int BM, int BN, int BK> cudaError_t init_tile() {
+  constexpr int bytes = Tile<T, BM, BN, BK>::SMEM_BYTES;
+  const cudaError_t e = cudaFuncSetAttribute(wmma_gemm<T, true, BM, BN, BK>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(wmma_gemm<T, false, BM, BN, BK>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Resident blocks per SM of the vector-load kernel of one tile, as the
+// runtime computes it from registers, shared memory and threads.
+template <typename T, int BM, int BN, int BK> cudaError_t occupancy_tile(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, wmma_gemm<T, true, BM, BN, BK>, THREADS, Tile<T, BM, BN, BK>::SMEM_BYTES);
+}
+
+template <typename T> cudaError_t occupancy_wmma(int bm, int bn, int bk, int* blocks) {
+#define TMB_OCCUPANCY(BM_, BN_, BK_) \
+  if (bm == BM_ && bn == BN_ && bk == BK_) return occupancy_tile<T, BM_, BN_, BK_>(blocks);
+  TMB_TILES(TMB_OCCUPANCY)
+#undef TMB_OCCUPANCY
+  return cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------------ fp32 SIMT
@@ -225,20 +326,25 @@ constexpr int SBM = 64, SBN = 64, SBK = 16, STHREADS = 256;
 
 __global__ void __launch_bounds__(STHREADS)
     simt_gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
-                  float* __restrict__ C, int M, int N, int K) {
+                  float* __restrict__ C, int M, int N, int K, int lda, int ldb, size_t c_split,
+                  int order) {
   __shared__ float As[SBK][SBM + 4];  // transposed: As[k][m]
   __shared__ float Bs[SBK][SBN + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * SBM, n0 = blockIdx.x * SBN;
+  const int m0 = (order == kMNK ? blockIdx.y : blockIdx.x) * SBM;
+  const int n0 = (order == kMNK ? blockIdx.x : blockIdx.y) * SBN;
+  A += static_cast<size_t>(blockIdx.z) * K;
+  B += static_cast<size_t>(blockIdx.z) * K * ldb;
+  C += blockIdx.z * c_split;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < K; k0 += SBK) {
     for (int e = tid; e < SBM * SBK; e += STHREADS) {
       const int r = e / SBK, kk = e % SBK, gm = m0 + r, gk = k0 + kk;
-      As[kk][r] = (gm < M && gk < K) ? A[static_cast<size_t>(gm) * K + gk] : 0.f;
+      As[kk][r] = (gm < M && gk < K) ? A[static_cast<size_t>(gm) * lda + gk] : 0.f;
     }
     for (int e = tid; e < SBK * SBN; e += STHREADS) {
       const int kk = e / SBN, cc = e % SBN, gk = k0 + kk, gn = n0 + cc;
-      Bs[kk][cc] = (gk < K && gn < N) ? B[static_cast<size_t>(gk) * N + gn] : 0.f;
+      Bs[kk][cc] = (gk < K && gn < N) ? B[static_cast<size_t>(gk) * ldb + gn] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -264,35 +370,168 @@ __global__ void __launch_bounds__(STHREADS)
     }
 }
 
+cudaError_t launch_simt(const void* a, const void* b, void* c, int m, int n, int k, int lda,
+                        int ldb, int splits, int bm, int bn, int bk, int order, cudaStream_t s) {
+  if (bm != SBM || bn != SBN || bk != SBK) return cudaErrorInvalidValue;
+  const unsigned tm = (m + SBM - 1) / SBM, tn = (n + SBN - 1) / SBN;
+  const dim3 grid(order == kMNK ? tn : tm, order == kMNK ? tm : tn, splits);
+  if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
+  simt_gemm_f32<<<grid, STHREADS, 0, s>>>(static_cast<const float*>(a),
+                                          static_cast<const float*>(b), static_cast<float*>(c),
+                                          m, n, k, lda, ldb, static_cast<size_t>(m) * n, order);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- split-K: sum of partials
+// C[i] = sum over s = 0..S-1, in that order, of ws[s][i], added in the
+// accumulator dtype and converted once. Bound by memory: S reads and one
+// write per element, in a grid-stride loop over 16-byte vectors of partials.
+constexpr int RTHREADS = 256, RMAX_BLOCKS = 4096;
+
+template <typename Acc> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<int> { using type = int4; };
+
+template <typename Acc, typename TO, bool VEC>
+__global__ void __launch_bounds__(RTHREADS)
+    reduce_partials(const Acc* __restrict__ ws, TO* __restrict__ C, int splits, size_t count) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * RTHREADS;
+  const size_t first = static_cast<size_t>(blockIdx.x) * RTHREADS + threadIdx.x;
+  if constexpr (VEC) {
+    using V4 = typename Vec4<Acc>::type;
+    const V4* w = reinterpret_cast<const V4*>(ws);
+    const size_t count4 = count / 4;
+    for (size_t i = first; i < count4; i += stride) {
+      V4 acc = w[i];
+      for (int s = 1; s < splits; ++s) {
+        const V4 p = w[s * count4 + i];
+        acc.x += p.x;
+        acc.y += p.y;
+        acc.z += p.z;
+        acc.w += p.w;
+      }
+      put(C + 4 * i, acc.x);
+      put(C + 4 * i + 1, acc.y);
+      put(C + 4 * i + 2, acc.z);
+      put(C + 4 * i + 3, acc.w);
+    }
+  } else {
+    for (size_t i = first; i < count; i += stride) {
+      Acc acc = ws[i];
+      for (int s = 1; s < splits; ++s) acc += ws[s * count + i];
+      put(C + i, acc);
+    }
+  }
+}
+
+template <typename Acc, typename TO>
+cudaError_t launch_reduce(const void* ws, void* c, int splits, size_t count, cudaStream_t s) {
+  const bool vec = count % 4 == 0 && reinterpret_cast<uintptr_t>(ws) % 16 == 0;
+  const size_t work = vec ? count / 4 : count;
+  const size_t want = (work + RTHREADS - 1) / RTHREADS;
+  const unsigned blocks = static_cast<unsigned>(want < RMAX_BLOCKS ? want : RMAX_BLOCKS);
+  const Acc* W = static_cast<const Acc*>(ws);
+  TO* C = static_cast<TO*>(c);
+  if (vec)
+    reduce_partials<Acc, TO, true><<<blocks, RTHREADS, 0, s>>>(W, C, splits, count);
+  else
+    reduce_partials<Acc, TO, false><<<blocks, RTHREADS, 0, s>>>(W, C, splits, count);
+  return cudaGetLastError();
+}
+
+// The GEMM for every dtype pair. `splits` slabs of width k each, partials
+// `m*n` apart in C.
+cudaError_t gemm(const void* a, const void* b, void* c, int m, int n, int k, int lda, int ldb,
+                 int splits, int in_dtype, int out_dtype, int bm, int bn, int bk, int order,
+                 cudaStream_t s) {
+  if (m < 0 || n < 0 || k < 0 || splits < 1 || splits > 65535 || ldb < n ||
+      static_cast<long long>(lda) < static_cast<long long>(k) * splits ||
+      (order != kMNK && order != kNMK))
+    return cudaErrorInvalidValue;
+  if (m == 0 || n == 0) return cudaSuccess;
+  if (in_dtype == kBF16 && (out_dtype == kBF16 || out_dtype == kF32))
+    return launch_wmma<__nv_bfloat16>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order,
+                                      out_dtype == kF32, s);
+  if (in_dtype == kF16 && (out_dtype == kF16 || out_dtype == kF32))
+    return launch_wmma<__half>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order,
+                               out_dtype == kF32, s);
+  if (in_dtype == kI8 && out_dtype == kI32)
+    return launch_wmma<signed char>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order,
+                                    false, s);
+  if (in_dtype == kF32 && out_dtype == kF32)
+    return launch_simt(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// C = A . B on `stream`. in_dtype/out_dtype are DType codes; the pairs taken
-// are bf16->{bf16,f32}, f16->{f16,f32}, f32->f32 and int8->int32. Returns 0
-// or a cudaError_t code.
-int tmb_matmul(const void* a, const void* b, void* c, int m, int n, int k, int in_dtype,
-               int out_dtype, void* stream) {
-  if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (m == 0 || n == 0) return 0;
+// Raise the dynamic shared-memory limit of every tensor-core instantiation on
+// the current device. Call once per device, outside any CUDA-graph capture.
+int tmb_init() {
+  cudaError_t e = cudaSuccess;
+#define TMB_INIT(BM_, BN_, BK_)                                                  \
+  if (e == cudaSuccess) e = init_tile<__nv_bfloat16, BM_, BN_, BK_>();           \
+  if (e == cudaSuccess) e = init_tile<__half, BM_, BN_, BK_>();                  \
+  if (e == cudaSuccess) e = init_tile<signed char, BM_, BN_, BK_>();
+  TMB_TILES(TMB_INIT)
+#undef TMB_INIT
+  return static_cast<int>(e);
+}
+
+// Resident blocks per SM of the tensor-core kernel for operands of
+// `in_dtype` (bf16, f16 or int8) at tile (bm, bn, bk), into *blocks. Call
+// after tmb_init.
+int tmb_occupancy(int in_dtype, int bm, int bn, int bk, int* blocks) {
+  cudaError_t e = cudaErrorInvalidValue;
+  if (in_dtype == kBF16) e = occupancy_wmma<__nv_bfloat16>(bm, bn, bk, blocks);
+  if (in_dtype == kF16) e = occupancy_wmma<__half>(bm, bn, bk, blocks);
+  if (in_dtype == kI8) e = occupancy_wmma<signed char>(bm, bn, bk, blocks);
+  return static_cast<int>(e);
+}
+
+// C = A . B on `stream`. A's rows are `lda` elements apart and B's `ldb`;
+// C is dense m x n. in_dtype/out_dtype are DType codes; the pairs taken are
+// bf16->{bf16,f32}, f16->{f16,f32}, f32->f32 and int8->int32. (bm, bn, bk)
+// is an instantiated tile (64x64x16 for fp32); grid_order is an Order code.
+// Returns 0 or a cudaError_t code.
+int tmb_matmul(const void* a, const void* b, void* c, int m, int n, int k, int lda, int ldb,
+               int in_dtype, int out_dtype, int bm, int bn, int bk, int grid_order,
+               void* stream) {
+  return static_cast<int>(gemm(a, b, c, m, n, k, lda, ldb, 1, in_dtype, out_dtype, bm, bn, bk,
+                               grid_order, static_cast<cudaStream_t>(stream)));
+}
+
+// The K-split partials: for s = 0..splits-1, ws[s] = A[:, s*kc:(s+1)*kc] .
+// B[s*kc:(s+1)*kc, :], stored in the accumulator dtype (fp32; int32 for
+// int8) into the dense [splits, m, n] workspace, in one launch.
+int tmb_matmul_ksplit(const void* a, const void* b, void* ws, int m, int n, int kc, int splits,
+                      int lda, int ldb, int in_dtype, int bm, int bn, int bk, int grid_order,
+                      void* stream) {
+  const int acc = in_dtype == kI8 ? kI32 : kF32;
+  return static_cast<int>(gemm(a, b, ws, m, n, kc, lda, ldb, splits, in_dtype, acc, bm, bn, bk,
+                               grid_order, static_cast<cudaStream_t>(stream)));
+}
+
+// C[i] = sum_{s<splits} ws[s][i] for i < count, summed in order in the
+// partials' dtype (int32 when out_dtype is int32, else fp32) and stored once
+// as out_dtype (f32, f16, bf16 or int32).
+int tmb_reduce_partials(const void* ws, void* c, int splits, long long count, int out_dtype,
+                        void* stream) {
+  if (splits < 1 || count < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (count == 0) return 0;
+  const size_t n = static_cast<size_t>(count);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == kBF16 && out_dtype == kBF16)
-    launch_wmma<__nv_bfloat16, __nv_bfloat16>(a, b, c, m, n, k, s);
-  else if (in_dtype == kBF16 && out_dtype == kF32)
-    launch_wmma<__nv_bfloat16, float>(a, b, c, m, n, k, s);
-  else if (in_dtype == kF16 && out_dtype == kF16)
-    launch_wmma<__half, __half>(a, b, c, m, n, k, s);
-  else if (in_dtype == kF16 && out_dtype == kF32)
-    launch_wmma<__half, float>(a, b, c, m, n, k, s);
-  else if (in_dtype == kI8 && out_dtype == kI32)
-    launch_wmma<signed char, int>(a, b, c, m, n, k, s);
-  else if (in_dtype == kF32 && out_dtype == kF32)
-    simt_gemm_f32<<<dim3((n + SBN - 1) / SBN, (m + SBM - 1) / SBM), STHREADS, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(c), m,
-        n, k);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e;
+  switch (out_dtype) {
+    case kF32: e = launch_reduce<float, float>(ws, c, splits, n, s); break;
+    case kF16: e = launch_reduce<float, __half>(ws, c, splits, n, s); break;
+    case kBF16: e = launch_reduce<float, __nv_bfloat16>(ws, c, splits, n, s); break;
+    case kI32: e = launch_reduce<int, int>(ws, c, splits, n, s); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
 }
 
 const char* tmb_error_string(int code) {

@@ -7,6 +7,10 @@ takes minutes. Libraries go to `build/kernels/` at the repository root,
 named by a hash of the source and the flags, so an edited source is
 rebuilt on its next use and an unchanged one is loaded as it is.
 
+`ptxas` reports each kernel's registers, stack and spill bytes (`-Xptxas
+-v`); the report is kept beside the library, as `<library>.ptxas.txt`, and
+`resource_usage` reads it back.
+
 A missing `nvcc` or a failed compile raises: nothing falls back.
 """
 
@@ -15,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -22,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -67,12 +72,18 @@ def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
     return lib, tmp, proc
 
 
+def _ptxas_log(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".ptxas.txt")
+
+
 def _finish(name: str, lib: Path, tmp: Path, proc: subprocess.Popen) -> None:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise KernelBuildError(f"nvcc failed on csrc/{name}.cu "
                                f"(exit {proc.returncode}):\n{out}")
+    # the report first, so that a built library always has one
+    _ptxas_log(lib).write_text(out)
     os.replace(tmp, lib)  # atomic: a reader never sees a half-written file
 
 
@@ -94,3 +105,88 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)[name]))
         _LOADED[name] = lib
     return lib
+
+
+def _demangler() -> list[str] | None:
+    """`cu++filt` beside nvcc, else `c++filt` on PATH."""
+    try:
+        cu = Path(nvcc_path()).with_name("cu++filt")
+    except KernelBuildError:
+        cu = None
+    if cu is not None and cu.is_file():
+        return [str(cu)]
+    found = shutil.which("c++filt")
+    return [found] if found else None
+
+
+def short_name(readable: str) -> str:
+    """A demangled kernel signature without its return type, anonymous
+    namespace and argument list, e.g. `wmma_gemm<__nv_bfloat16, true, 128,
+    128, 32>`."""
+    s = readable.removeprefix("void ")
+    for anonymous in ("(anonymous namespace)::", "<unnamed>::"):
+        s = s.replace(anonymous, "")
+    s = s.replace("(bool)1", "true").replace("(bool)0", "false")
+    s = re.sub(r"\((?:unsigned )?int\)(?=-?\d)", "", s)  # cu++filt's "(int)128"
+    lt, paren = s.find("<"), s.find("(")
+    if lt != -1 and (paren == -1 or lt < paren):
+        depth = 0
+        for i in range(lt, len(s)):
+            depth += {"<": 1, ">": -1}.get(s[i], 0)
+            if depth == 0:
+                return s[:i + 1]
+    return s.split("(", 1)[0].strip()
+
+
+def _demangle(names: list[str]) -> dict[str, str]:
+    """Mangled -> `short_name`; a name that cannot be demangled stays as
+    it is."""
+    tool = _demangler()
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run(tool, input="\n".join(names), capture_output=True,
+                         text=True, check=False).stdout.splitlines()
+    if len(out) != len(names):
+        return {n: n for n in names}
+    return {mangled: short_name(readable) or mangled
+            for mangled, readable in zip(names, out)}
+
+
+_ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?")
+_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                     r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(text: str) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name): registers per thread, stack frame and
+    spill bytes, from `nvcc -Xptxas -v` output."""
+    usage: dict[str, dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        if (m := _ENTRY.search(line)):
+            current = m.group(1)
+            usage.setdefault(current, {})
+        elif current is not None and (m := _SPILLS.search(line)):
+            usage[current].update(stack_bytes=int(m.group(1)),
+                                  spill_store_bytes=int(m.group(2)),
+                                  spill_load_bytes=int(m.group(3)))
+        elif current is not None and (m := _REGS.search(line)):
+            usage[current]["registers"] = int(m.group(1))
+    return usage
+
+
+def readable_usage(text: str) -> dict[str, dict[str, int]]:
+    """`parse_ptxas`, keyed by readable kernel name (`short_name`)."""
+    usage = parse_ptxas(text)
+    names = _demangle(sorted(usage))
+    return {names[k]: v for k, v in sorted(usage.items())}
+
+
+def resource_usage(name: str) -> dict[str, dict[str, int]]:
+    """Registers, stack and spill bytes of every kernel in the built
+    `csrc/<name>.cu`, keyed by readable kernel name (build it first)."""
+    log = _ptxas_log(library_path(name))
+    if not log.is_file():
+        raise KernelBuildError(f"csrc/{name}.cu has no ptxas report; build it first")
+    return readable_usage(log.read_text())

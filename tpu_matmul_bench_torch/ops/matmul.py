@@ -36,10 +36,14 @@ def _library(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b)
 
 
-def matmul_2d(impl: str = "torch", device_kind: str | None = None) -> Matmul:
-    """A 2-D C = A @ B. `impl="auto"` routes each call's (dtype, shape) to
-    the implementation `ops/impl_select.py` names for `device_kind`, the
-    name of the device the operands live on."""
+def matmul_2d(impl: str = "torch", blocks: tuple[int, int, int] | None = None,
+              device_kind: str | None = None) -> Matmul:
+    """A 2-D C = A @ B. `blocks` is the kernel's tile request
+    (config.blocks): the `cuda` impl runs at it, the library product
+    ignores it. `impl="auto"` routes each call's (dtype, shape) to the
+    implementation `ops/impl_select.py` names for `device_kind`, the name
+    of the device the operands live on; an explicit `blocks` goes with a
+    route to the kernel."""
     if impl == "auto":
         from tpu_matmul_bench_torch.ops.impl_select import select_impl
 
@@ -48,22 +52,23 @@ def matmul_2d(impl: str = "torch", device_kind: str | None = None) -> Matmul:
         def _auto(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             choice = select_impl(a.shape[0], b.shape[1], a.shape[1], kind,
                                  a.dtype)
-            return matmul_2d(choice.impl)(a, b)
+            return matmul_2d(choice.impl, blocks)(a, b)
 
         return _auto
     if impl == "cuda":
         from tpu_matmul_bench_torch.ops.cuda_matmul import cuda_matmul
 
-        return cuda_matmul
+        return lambda a, b: cuda_matmul(a, b, blocks=blocks)
     if impl != "torch":
         raise ValueError(f"unknown matmul impl {impl!r}")
     return _library
 
 
-def make_matmul(impl: str = "torch", device_kind: str | None = None) -> Matmul:
+def make_matmul(impl: str = "torch", blocks: tuple[int, int, int] | None = None,
+                device_kind: str | None = None) -> Matmul:
     """The timed C = A @ B. The JAX package jit-compiles `matmul_2d` here;
     PyTorch runs eagerly, so this is `matmul_2d` itself."""
-    return matmul_2d(impl, device_kind)
+    return matmul_2d(impl, blocks, device_kind)
 
 
 # Integer operands draw uniformly from [-INT_OPERAND_BOUND, INT_OPERAND_BOUND).

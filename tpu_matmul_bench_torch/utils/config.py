@@ -5,8 +5,8 @@ program consumes: the reference's --sizes (default 4096 8192 16384),
 --iterations (50), --warmup (10) and --dtype (default bfloat16, plus int8),
 and the benchmark's --device --num-devices --json-out --matmul-impl --seed
 --validate --precision --trace-out --samples --percentiles --repeats
---timing. The JAX package's flags that no program of the port consumes yet
-are left out rather than accepted and ignored.
+--timing --block-m/n/k. The JAX package's flags that no program of the port
+consumes yet are left out rather than accepted and ignored.
 """
 
 from __future__ import annotations
@@ -63,10 +63,28 @@ class BenchConfig:
     timing: str = "dispatch"
     # best-of-N repeats of the whole timed loop
     repeats: int = 1
+    # kernel tile request (None → the kernel's default tile); ignored by
+    # --matmul-impl torch
+    block_m: int | None = None
+    block_n: int | None = None
+    block_k: int | None = None
 
     @property
     def dtype(self) -> torch.dtype:
         return parse_dtype(self.dtype_name)
+
+    @property
+    def blocks(self) -> tuple[int, int, int] | None:
+        """(bm, bn, bk) when any block flag is set; unset dimensions come
+        from the kernel's default tile (ops/cuda_matmul.py DEFAULT_TILE)."""
+        given = (self.block_m, self.block_n, self.block_k)
+        if all(v is None for v in given):
+            return None
+        if any(v is not None and v <= 0 for v in given):
+            raise ValueError(f"block sizes must be positive, got {given}")
+        from tpu_matmul_bench_torch.ops.cuda_matmul import DEFAULT_TILE
+
+        return tuple(d if v is None else v for v, d in zip(given, DEFAULT_TILE))
 
 
 def build_parser(description: str,
@@ -151,6 +169,15 @@ def build_parser(description: str,
              "iterations, chained through their operands, in one CUDA "
              "graph, so host launch overhead cannot cap the measurement.",
     )
+    for dim in "mnk":
+        p.add_argument(
+            f"--block-{dim}", type=int, default=None,
+            help=f"Kernel tile along {dim} for --matmul-impl cuda (default: "
+                 "the default tile 128x128x32; a request resolves to an "
+                 "instantiated tile, ops/cuda_matmul.py effective_blocks). "
+                 "Ignored by --matmul-impl torch. Tune with the 'tune' "
+                 "program.",
+        )
     return p
 
 
@@ -172,5 +199,8 @@ def config_from_args(args: argparse.Namespace) -> BenchConfig:
         precision=args.precision,
         timing=args.timing,
         repeats=args.repeats,
+        block_m=args.block_m,
+        block_n=args.block_n,
+        block_k=args.block_k,
     )
 

@@ -1,7 +1,7 @@
 """Timing engine: CUDA events around launches, and CUDA-graph fused loops.
 
-Port of `tpu_matmul_bench/utils/timing.py` (all but the program-variant
-and per-leg split timers, which the scaling slice brings):
+Port of `tpu_matmul_bench/utils/timing.py` (all but the compute/comm
+variant split and the per-leg timers, which the scaling slice brings):
 
 1. **Dispatch** (`time_jitted`): N launches between two
    `torch.cuda.Event(enable_timing=True)` marks on the current stream,
@@ -13,6 +13,8 @@ and per-leg split timers, which the scaling slice brings):
    measurement. Each launch's operands carry a bounded scalar from the
    previous output in element [0, ..., 0], which makes every launch depend
    on the one before.
+3. **Interleaved variants** (`time_variants_n`): several callables timed
+   round-robin, median of `repeats` rounds each, under either protocol.
 
 On the CPU the calls run synchronously, `time.perf_counter` stands in for
 the events, and the fused protocol runs the same chained loop eagerly.
@@ -278,6 +280,54 @@ def effective_warmup(timing: str, iterations: int, warmup: int) -> int:
     """What actually warmed the program: the fused protocol runs one warm
     pass of the K-call chain, not `warmup` launches."""
     return iterations if timing == "fused" else warmup
+
+
+def time_variants_n(
+    fns: Sequence[Callable[..., Any]],
+    args: Sequence[Any],
+    *,
+    iterations: int = 50,
+    warmup: int = 10,
+    repeats: int = 3,
+    protocol: str = "dispatch",
+) -> list[Timing]:
+    """Time several variants interleaved, median-of-`repeats` each.
+
+    Timing candidates one after another lets drift (clock ramps, a
+    neighbour's load) bias whichever ran during it. Interleaving the
+    variants round-robin spreads drift across all of them, and each
+    variant's median by `avg_s` rejects a single slow round. Warmup runs
+    only in the first round.
+
+    With protocol="fused" each variant is wrapped by `fuse_iterations`
+    first (one CUDA graph of `iterations` chained calls per variant); each
+    round then times one replay per variant, and the returned Timings count
+    individual calls, so `avg_s` stays per call under either protocol.
+    """
+    k = 1
+    chain_states: list[dict] = [{} for _ in fns]
+    if protocol == "fused":
+        k = max(int(iterations), 1)
+        fns = [fuse_iterations(fn, k, chain_state=st)
+               for fn, st in zip(fns, chain_states)]
+        iterations = 1
+        warmup = 1  # the first fused call captures and runs a full pass
+    elif protocol != "dispatch":
+        raise ValueError(f"unknown timing protocol {protocol!r}")
+    rounds = [[time_jitted(fn, args, iterations=iterations,
+                           warmup=warmup if r == 0 else 1) for fn in fns]
+              for r in range(repeats)]
+    out = []
+    for i in range(len(fns)):
+        ts = sorted((row[i] for row in rounds), key=lambda t: t.avg_s)
+        med = ts[len(ts) // 2]
+        if protocol == "fused":
+            med = Timing(total_s=med.total_s, iterations=med.iterations * k,
+                         sync_overhead_s=med.sync_overhead_s,
+                         reliable=med.reliable,
+                         chain=chain_states[i].get("chain"))
+        out.append(med)
+    return out
 
 
 def record_samples(
