@@ -56,7 +56,8 @@ print(start.elapsed_time(end) / runs)
 def default_tile_kernels(checkout: Path) -> dict[str, dict[str, int]]:
     """ptxas's registers and spill bytes of the checkout's bf16 wmma
     kernels at the default tile (a checkout whose kernel has one fixed tile
-    names no tile in its template arguments)."""
+    names no tile in its template arguments; one with the pickup epilogue
+    adds its flag after the tile)."""
     source = checkout / "tpu_matmul_bench_torch" / "csrc" / "matmul.cu"
     with tempfile.TemporaryDirectory() as tmp:
         out = subprocess.run(
@@ -65,7 +66,7 @@ def default_tile_kernels(checkout: Path) -> dict[str, dict[str, int]]:
     usage = _build.readable_usage(out.stdout + out.stderr)
     return {name: v for name, v in usage.items()
             if name.startswith("wmma_gemm<__nv_bfloat16")
-            and ("128, 128, 32" in name or not re.search(r"\d+, \d+, \d+>", name))}
+            and ("128, 128, 32" in name or not re.search(r"\d+, \d+, \d+[,>]", name))}
 
 
 def time_k1(checkout: Path, size: int, runs: int) -> float:

@@ -79,7 +79,8 @@ def test_entry_points_need_the_card_unless_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_devices("cuda")
     assert resolve_devices("cpu") == [torch.device("cpu")]
-    with pytest.raises(ValueError, match="scaling slice"):
+    # one rank to a device unless TMB_RANKS_PER_CARD says more
+    with pytest.raises(ValueError, match="--num-devices 2: 1 available"):
         resolve_devices("cpu", num_devices=2)
 
 

@@ -6,7 +6,11 @@
 //   blocked Pallas kernel that pallas_matmul (:240-345) runs on the TPU MXU,
 //   with its block sizes and grid_order;
 // - pallas_matmul_ksplit (:352-401), which runs that kernel once per K slab
-//   with accumulator-dtype stores and sums the partials before one downcast.
+//   with accumulator-dtype stores and sums the partials before one downcast;
+// - tpu_matmul_bench/ops/pallas_ring_rs_hbm.py::_rs_acc_kernel (:52-66), the
+//   reduce-scatter ring's pickup: C = round_out(A.B + accin), the partial
+//   that arrived over the ring added to the product in fp32 (int32 for int8)
+//   and rounded once at the store (tmb_matmul_acc).
 //
 // What it computes: C[m,n] = A[m,k] . B[k,n] for row-major operands whose
 // rows may be strided (lda, ldb), so a K slab A[:, k0:k0+kc] . B[k0:k0+kc, :]
@@ -55,6 +59,14 @@
 //   `acc + part` loop followed by one astype.
 // - fp32 operands take a plain SIMT kernel (64x64x16 tiles, 4x4 outputs per
 //   thread, fp32 FMA): the tensor cores have no full-precision fp32 mode.
+// - The pickup is an epilogue option (template flag ACC) of both kernels:
+//   the Pallas kernel adds accin on its last K step, here the epilogue reads
+//   accin (output dtype, rows `ldacc` apart) beside each stored element and
+//   C's rows are `ldc` apart. With ACC off the kernel is K1 as it was. The
+//   extra traffic is one read of accin per output element, m*n*2 bytes in
+//   bf16: for one ring step of bf16 16384^2 over 4 ranks (4096x4096 .
+//   4096x16384) 128 MiB, 0.04 ms at 3.35 TB/s against 0.56 ms of
+//   operations at 989 TFLOP/s, so the pickup stays bound by operations.
 //
 // Left for later work: wgmma and TMA with a multistage mbarrier pipeline,
 // warp specialisation, persistent blocks, and a tensor-core path for fp32
@@ -127,6 +139,19 @@ __device__ __forceinline__ void put(__half* p, float x) { *p = __float2half_rn(x
 __device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 __device__ __forceinline__ void put(int* p, int x) { *p = x; }
 
+// accin's element, widened to the accumulator dtype
+__device__ __forceinline__ float get(const float* p) { return *p; }
+__device__ __forceinline__ float get(const __half* p) { return __half2float(*p); }
+__device__ __forceinline__ float get(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ int get(const int* p) { return *p; }
+
+// The pickup's store: C[at] = v + accin[ai], both in C's dtype O, summed in
+// the accumulator dtype and rounded once
+template <typename O, typename Acc>
+__device__ __forceinline__ void put_acc(void* C, const void* accin, size_t at, size_t ai, Acc v) {
+  put(static_cast<O*>(C) + at, v + get(static_cast<const O*>(accin) + ai));
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int bytes = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
@@ -176,10 +201,13 @@ __device__ __forceinline__ void load_tiles(T* As, T* Bs, const T* __restrict__ A
 
 // C (+ blockIdx.z * c_split) = A[:, z*K : (z+1)*K] . B[z*K : (z+1)*K, :].
 // C is int32 for int8 operands; otherwise fp32 when f32_out, else T.
-template <typename T, bool VEC, int BM, int BN, int BK>
+// With ACC (one split only), C[i, j] = A.B[i, j] + accin[i, j]: accin has
+// C's dtype, its rows `ldacc` apart, and C's rows are `ldc` apart.
+template <typename T, bool VEC, int BM, int BN, int BK, bool ACC = false>
 __global__ void __launch_bounds__(THREADS)
     wmma_gemm(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__ C, int M,
-              int N, int K, int lda, int ldb, size_t c_split, int order, bool f32_out) {
+              int N, int K, int lda, int ldb, size_t c_split, int order, bool f32_out,
+              const void* __restrict__ accin, int ldacc, int ldc) {
   using G = Tile<T, BM, BN, BK>;
   using Acc = typename AccOf<T>::type;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -246,23 +274,53 @@ __global__ void __launch_bounds__(THREADS)
         const int gm = m0 + wm * G::WM + i * 16 + e / 16;
         const int gn = n0 + wn * G::WN + j * 16 + e % 16;
         if (gm < M && gn < N) {
-          const size_t at = c0 + static_cast<size_t>(gm) * N + gn;
-          if constexpr (std::is_same_v<T, signed char>)
-            put(static_cast<int*>(C) + at, stage[e]);
-          else if (f32_out)
-            put(static_cast<float*>(C) + at, stage[e]);
-          else
-            put(static_cast<T*>(C) + at, stage[e]);
+          if constexpr (ACC) {
+            const size_t at = static_cast<size_t>(gm) * ldc + gn;
+            const size_t ai = static_cast<size_t>(gm) * ldacc + gn;
+            if constexpr (std::is_same_v<T, signed char>)
+              put_acc<int>(C, accin, at, ai, stage[e]);
+            else if (f32_out)
+              put_acc<float>(C, accin, at, ai, stage[e]);
+            else
+              put_acc<T>(C, accin, at, ai, stage[e]);
+          } else {
+            const size_t at = c0 + static_cast<size_t>(gm) * N + gn;
+            if constexpr (std::is_same_v<T, signed char>)
+              put(static_cast<int*>(C) + at, stage[e]);
+            else if (f32_out)
+              put(static_cast<float*>(C) + at, stage[e]);
+            else
+              put(static_cast<T*>(C) + at, stage[e]);
+          }
         }
       }
       __syncwarp();
     }
 }
 
+// The pickup operand of one launch: accin (nullptr for a plain product), its
+// row stride, and C's row stride.
+struct Pickup {
+  const void* accin;
+  int ldacc, ldc;
+};
+
+template <typename T, int BM, int BN, int BK, bool ACC>
+void launch_kernel(bool vec, dim3 grid, const T* A, const T* B, void* C, int m, int n, int k,
+                   int lda, int ldb, size_t c_split, int order, bool f32_out, Pickup p,
+                   cudaStream_t s) {
+  constexpr int smem = Tile<T, BM, BN, BK>::SMEM_BYTES;
+  if (vec)
+    wmma_gemm<T, true, BM, BN, BK, ACC><<<grid, THREADS, smem, s>>>(
+        A, B, C, m, n, k, lda, ldb, c_split, order, f32_out, p.accin, p.ldacc, p.ldc);
+  else
+    wmma_gemm<T, false, BM, BN, BK, ACC><<<grid, THREADS, smem, s>>>(
+        A, B, C, m, n, k, lda, ldb, c_split, order, f32_out, p.accin, p.ldacc, p.ldc);
+}
+
 template <typename T, int BM, int BN, int BK>
 cudaError_t launch_tile(const T* A, const T* B, void* C, int m, int n, int k, int lda, int ldb,
-                        int splits, int order, bool f32_out, cudaStream_t s) {
-  using G = Tile<T, BM, BN, BK>;
+                        int splits, int order, bool f32_out, Pickup p, cudaStream_t s) {
   constexpr int V = 16 / int(sizeof(T));
   const bool vec = k % V == 0 && n % V == 0 && lda % V == 0 && ldb % V == 0 &&
                    reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
@@ -271,24 +329,24 @@ cudaError_t launch_tile(const T* A, const T* B, void* C, int m, int n, int k, in
   const dim3 grid(order == kMNK ? tn : tm, order == kMNK ? tm : tn, splits);
   if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
   const size_t c_split = static_cast<size_t>(m) * n;
-  if (vec)
-    wmma_gemm<T, true, BM, BN, BK><<<grid, THREADS, G::SMEM_BYTES, s>>>(
-        A, B, C, m, n, k, lda, ldb, c_split, order, f32_out);
+  if (p.accin != nullptr)
+    launch_kernel<T, BM, BN, BK, true>(vec, grid, A, B, C, m, n, k, lda, ldb, c_split, order,
+                                       f32_out, p, s);
   else
-    wmma_gemm<T, false, BM, BN, BK><<<grid, THREADS, G::SMEM_BYTES, s>>>(
-        A, B, C, m, n, k, lda, ldb, c_split, order, f32_out);
+    launch_kernel<T, BM, BN, BK, false>(vec, grid, A, B, C, m, n, k, lda, ldb, c_split, order,
+                                        f32_out, p, s);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_wmma(const void* a, const void* b, void* c, int m, int n, int k, int lda,
                         int ldb, int splits, int bm, int bn, int bk, int order, bool f32_out,
-                        cudaStream_t s) {
+                        Pickup p, cudaStream_t s) {
   const T* A = static_cast<const T*>(a);
   const T* B = static_cast<const T*>(b);
-#define TMB_LAUNCH(BM_, BN_, BK_)                                                       \
-  if (bm == BM_ && bn == BN_ && bk == BK_)                                              \
-    return launch_tile<T, BM_, BN_, BK_>(A, B, c, m, n, k, lda, ldb, splits, order, f32_out, \
+#define TMB_LAUNCH(BM_, BN_, BK_)                                                            \
+  if (bm == BM_ && bn == BN_ && bk == BK_)                                                   \
+    return launch_tile<T, BM_, BN_, BK_>(A, B, c, m, n, k, lda, ldb, splits, order, f32_out, p, \
                                          s);
   TMB_TILES(TMB_LAUNCH)
 #undef TMB_LAUNCH
@@ -297,13 +355,19 @@ cudaError_t launch_wmma(const void* a, const void* b, void* c, int m, int n, int
 
 // Kernels above 48 KB of dynamic shared memory launch only after their limit
 // is raised; set it for every instantiation, at the size each one uses.
-template <typename T, int BM, int BN, int BK> cudaError_t init_tile() {
+template <typename T, int BM, int BN, int BK, bool ACC> cudaError_t init_kernels() {
   constexpr int bytes = Tile<T, BM, BN, BK>::SMEM_BYTES;
-  const cudaError_t e = cudaFuncSetAttribute(wmma_gemm<T, true, BM, BN, BK>,
+  const cudaError_t e = cudaFuncSetAttribute(wmma_gemm<T, true, BM, BN, BK, ACC>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(wmma_gemm<T, false, BM, BN, BK>,
+  return cudaFuncSetAttribute(wmma_gemm<T, false, BM, BN, BK, ACC>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename T, int BM, int BN, int BK> cudaError_t init_tile() {
+  const cudaError_t e = init_kernels<T, BM, BN, BK, false>();
+  if (e != cudaSuccess) return e;
+  return init_kernels<T, BM, BN, BK, true>();
 }
 
 // Resident blocks per SM of the vector-load kernel of one tile, as the
@@ -324,10 +388,11 @@ template <typename T> cudaError_t occupancy_wmma(int bm, int bn, int bk, int* bl
 // ------------------------------------------------------------------ fp32 SIMT
 constexpr int SBM = 64, SBN = 64, SBK = 16, STHREADS = 256;
 
+template <bool ACC = false>
 __global__ void __launch_bounds__(STHREADS)
     simt_gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
                   float* __restrict__ C, int M, int N, int K, int lda, int ldb, size_t c_split,
-                  int order) {
+                  int order, const float* __restrict__ accin, int ldacc, int ldc) {
   __shared__ float As[SBK][SBM + 4];  // transposed: As[k][m]
   __shared__ float Bs[SBK][SBN + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -366,19 +431,34 @@ __global__ void __launch_bounds__(STHREADS)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gm = m0 + ty + 16 * i, gn = n0 + tx + 16 * j;
-      if (gm < M && gn < N) C[static_cast<size_t>(gm) * N + gn] = acc[i][j];
+      if constexpr (ACC) {
+        if (gm < M && gn < N)
+          C[static_cast<size_t>(gm) * ldc + gn] =
+              acc[i][j] + accin[static_cast<size_t>(gm) * ldacc + gn];
+      } else {
+        if (gm < M && gn < N) C[static_cast<size_t>(gm) * N + gn] = acc[i][j];
+      }
     }
 }
 
 cudaError_t launch_simt(const void* a, const void* b, void* c, int m, int n, int k, int lda,
-                        int ldb, int splits, int bm, int bn, int bk, int order, cudaStream_t s) {
+                        int ldb, int splits, int bm, int bn, int bk, int order, Pickup p,
+                        cudaStream_t s) {
   if (bm != SBM || bn != SBN || bk != SBK) return cudaErrorInvalidValue;
   const unsigned tm = (m + SBM - 1) / SBM, tn = (n + SBN - 1) / SBN;
   const dim3 grid(order == kMNK ? tn : tm, order == kMNK ? tm : tn, splits);
   if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
-  simt_gemm_f32<<<grid, STHREADS, 0, s>>>(static_cast<const float*>(a),
-                                          static_cast<const float*>(b), static_cast<float*>(c),
-                                          m, n, k, lda, ldb, static_cast<size_t>(m) * n, order);
+  const float* A = static_cast<const float*>(a);
+  const float* B = static_cast<const float*>(b);
+  float* C = static_cast<float*>(c);
+  const float* acc = static_cast<const float*>(p.accin);
+  const size_t c_split = static_cast<size_t>(m) * n;
+  if (acc != nullptr)
+    simt_gemm_f32<true><<<grid, STHREADS, 0, s>>>(A, B, C, m, n, k, lda, ldb, c_split, order,
+                                                  acc, p.ldacc, p.ldc);
+  else
+    simt_gemm_f32<false><<<grid, STHREADS, 0, s>>>(A, B, C, m, n, k, lda, ldb, c_split, order,
+                                                   acc, p.ldacc, p.ldc);
   return cudaGetLastError();
 }
 
@@ -440,28 +520,31 @@ cudaError_t launch_reduce(const void* ws, void* c, int splits, size_t count, cud
 }
 
 // The GEMM for every dtype pair. `splits` slabs of width k each, partials
-// `m*n` apart in C.
+// `m*n` apart in C; or, with p.accin, one pass that adds accin at the store.
 cudaError_t gemm(const void* a, const void* b, void* c, int m, int n, int k, int lda, int ldb,
                  int splits, int in_dtype, int out_dtype, int bm, int bn, int bk, int order,
-                 cudaStream_t s) {
+                 Pickup p, cudaStream_t s) {
   if (m < 0 || n < 0 || k < 0 || splits < 1 || splits > 65535 || ldb < n ||
       static_cast<long long>(lda) < static_cast<long long>(k) * splits ||
-      (order != kMNK && order != kNMK))
+      (order != kMNK && order != kNMK) ||
+      (p.accin != nullptr && (splits != 1 || p.ldacc < n || p.ldc < n)))
     return cudaErrorInvalidValue;
   if (m == 0 || n == 0) return cudaSuccess;
   if (in_dtype == kBF16 && (out_dtype == kBF16 || out_dtype == kF32))
     return launch_wmma<__nv_bfloat16>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order,
-                                      out_dtype == kF32, s);
+                                      out_dtype == kF32, p, s);
   if (in_dtype == kF16 && (out_dtype == kF16 || out_dtype == kF32))
     return launch_wmma<__half>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order,
-                               out_dtype == kF32, s);
+                               out_dtype == kF32, p, s);
   if (in_dtype == kI8 && out_dtype == kI32)
     return launch_wmma<signed char>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order,
-                                    false, s);
+                                    false, p, s);
   if (in_dtype == kF32 && out_dtype == kF32)
-    return launch_simt(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order, s);
+    return launch_simt(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order, p, s);
   return cudaErrorInvalidValue;
 }
+
+constexpr Pickup kNoPickup = {nullptr, 0, 0};
 
 }  // namespace
 
@@ -500,7 +583,20 @@ int tmb_matmul(const void* a, const void* b, void* c, int m, int n, int k, int l
                int in_dtype, int out_dtype, int bm, int bn, int bk, int grid_order,
                void* stream) {
   return static_cast<int>(gemm(a, b, c, m, n, k, lda, ldb, 1, in_dtype, out_dtype, bm, bn, bk,
-                               grid_order, static_cast<cudaStream_t>(stream)));
+                               grid_order, kNoPickup, static_cast<cudaStream_t>(stream)));
+}
+
+// The reduce-scatter ring's pickup: C = A . B + accin, summed in fp32 (int32
+// for int8) and rounded once to out_dtype. accin and C are m x n in
+// out_dtype, their rows `ldacc` and `ldc` elements apart, in two buffers
+// that do not overlap. The other arguments are tmb_matmul's.
+int tmb_matmul_acc(const void* a, const void* b, const void* accin, void* c, int m, int n, int k,
+                   int lda, int ldb, int ldacc, int ldc, int in_dtype, int out_dtype, int bm,
+                   int bn, int bk, int grid_order, void* stream) {
+  if (accin == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(gemm(a, b, c, m, n, k, lda, ldb, 1, in_dtype, out_dtype, bm, bn, bk,
+                               grid_order, Pickup{accin, ldacc, ldc},
+                               static_cast<cudaStream_t>(stream)));
 }
 
 // The K-split partials: for s = 0..splits-1, ws[s] = A[:, s*kc:(s+1)*kc] .
@@ -511,7 +607,7 @@ int tmb_matmul_ksplit(const void* a, const void* b, void* ws, int m, int n, int 
                       void* stream) {
   const int acc = in_dtype == kI8 ? kI32 : kF32;
   return static_cast<int>(gemm(a, b, ws, m, n, kc, lda, ldb, splits, in_dtype, acc, bm, bn, bk,
-                               grid_order, static_cast<cudaStream_t>(stream)));
+                               grid_order, kNoPickup, static_cast<cudaStream_t>(stream)));
 }
 
 // C[i] = sum_{s<splits} ws[s][i] for i < count, summed in order in the

@@ -4,9 +4,11 @@ versions, tile rules and launch counters.
 Counterpart of `tpu_matmul_bench/ops/pallas_matmul.py`: `cuda_matmul` is
 `pallas_matmul` (the `--matmul-impl cuda` path, where the JAX package has
 `--matmul-impl pallas`) and `cuda_matmul_ksplit` is `pallas_matmul_ksplit`.
-Each launches its kernels for tensors on the card and runs its plain
-version for tensors on the CPU, where there is no kernel to launch. For a
-CUDA tensor it launches or raises: nothing falls back.
+`cuda_matmul_acc` is the reduce-scatter ring's pickup, `_rs_acc_kernel` of
+`tpu_matmul_bench/ops/pallas_ring_rs_hbm.py`. Each launches its kernels for
+tensors on the card and runs its plain version for tensors on the CPU,
+where there is no kernel to launch. For a CUDA tensor it launches or
+raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,9 +28,10 @@ from tpu_matmul_bench_torch.utils.metrics import (
 # Kernel launches, counted where each launch happens (a CUDA-graph replay
 # re-runs captured launches without counting them): LAUNCHES counts the GEMM
 # kernel (one per `cuda_matmul`, one per split `cuda_matmul_ksplit`),
-# REDUCE_LAUNCHES the split-K reduction.
+# REDUCE_LAUNCHES the split-K reduction, ACC_LAUNCHES the pickup kernel.
 LAUNCHES = 0
 REDUCE_LAUNCHES = 0
+ACC_LAUNCHES = 0
 
 # The tensor-core tiles (bm, bn, bk) instantiated in csrc/matmul.cu, ordered
 # by size: volume, then output area, then bm.
@@ -111,6 +114,19 @@ def _out_dtype(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _check_result_operand(x: torch.Tensor, name: str, a: torch.Tensor,
+                          b: torch.Tensor, out: torch.dtype) -> None:
+    """An m×n tensor of the output dtype beside the operands, with unit
+    column stride and rows at least n apart (accin, or a given `out`)."""
+    shape = (a.shape[0], b.shape[1])
+    if tuple(x.shape) != shape or x.dtype != out or x.device != a.device:
+        raise ValueError(f"{name} must be {shape} {out} on {a.device}, got "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if (x.stride(1) != 1 and shape[1] > 1) or (x.stride(0) < shape[1] and shape[0] > 1):
+        raise ValueError(f"{name} must have unit column stride and rows at "
+                         f"least {shape[1]} apart, got strides {x.stride()}")
+
+
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The plain PyTorch version of the kernel: upcast, multiply, and
@@ -122,6 +138,19 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
         wide = torch.int32 if a.device.type == "cpu" else torch.float64
         return (a.to(wide) @ b.to(wide)).to(out)
     return (a.float() @ b.float()).to(out)
+
+
+def matmul_acc_plain(a: torch.Tensor, b: torch.Tensor, accin: torch.Tensor, *,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The plain version of the pickup kernel: `matmul_plain`'s product,
+    plus accin, in the same wide dtype (fp32; int32 on the CPU and float64
+    on the card for int8), then one downcast."""
+    out = _out_dtype(a, b, out_dtype)
+    _check_result_operand(accin, "accin", a, b, out)
+    if is_integer_dtype(a.dtype):
+        wide = torch.int32 if a.device.type == "cpu" else torch.float64
+        return (a.to(wide) @ b.to(wide) + accin.to(wide)).to(out)
+    return (a.float() @ b.float() + accin.float()).to(out)
 
 
 def matmul_ksplit_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -179,7 +208,8 @@ def _raise_on(rc: int, what: str, lib: ctypes.CDLL) -> None:
 def cuda_matmul(a: torch.Tensor, b: torch.Tensor, *,
                 out_dtype: torch.dtype | None = None,
                 blocks: tuple[int, int, int] | None = None,
-                grid_order: str = "mnk") -> torch.Tensor:
+                grid_order: str = "mnk",
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """C = A @ B through the hand-written kernel.
 
     `out_dtype` overrides the store dtype: fp32 for bf16/f16 operands
@@ -187,25 +217,73 @@ def cuda_matmul(a: torch.Tensor, b: torch.Tensor, *,
     for int8. `blocks` is the requested (bm, bn, bk), resolved to an
     instantiated tile by `effective_blocks` (default DEFAULT_TILE).
     `grid_order` is the raster of output tiles: "mnk" (M slowest) or
-    "nmk" (N slowest).
+    "nmk" (N slowest). `out`, a contiguous m×n tensor of the output dtype,
+    receives C in place of a new tensor (the all-gather ring writes each
+    product straight into its row block of Y).
     """
     global LAUNCHES
     order = _check_grid_order(grid_order)
-    out = _out_dtype(a, b, out_dtype)
+    dtype = _out_dtype(a, b, out_dtype)
     bm, bn, bk = _resolve(a, b, blocks)
+    if out is not None:
+        _check_result_operand(out, "out", a, b, dtype)
+        if not out.is_contiguous():
+            raise ValueError(f"out must be contiguous, got strides {out.stride()}")
     if a.device.type == "cpu":
-        return matmul_plain(a, b, out_dtype=out)
+        c = matmul_plain(a, b, out_dtype=dtype)
+        return c if out is None else out.copy_(c)
     _check_card_operands(a, b, "cuda_matmul")
     (m, k), n = a.shape, b.shape[1]
-    c = torch.empty((m, n), dtype=out, device=a.device)
+    c = torch.empty((m, n), dtype=dtype, device=a.device) if out is None else out
     lib = _lib(a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.tmb_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                            _ld(a), _ld(b), _CODES[a.dtype], _CODES[out],
+                            _ld(a), _ld(b), _CODES[a.dtype], _CODES[dtype],
                             bm, bn, bk, order, stream)
     _raise_on(rc, "matmul", lib)
     LAUNCHES += 1
+    return c
+
+
+def cuda_matmul_acc(a: torch.Tensor, b: torch.Tensor, accin: torch.Tensor,
+                    out: torch.Tensor | None = None, *,
+                    out_dtype: torch.dtype | None = None,
+                    blocks: tuple[int, int, int] | None = None,
+                    grid_order: str = "mnk") -> torch.Tensor:
+    """C = A @ B + accin through the pickup kernel: the product in fp32
+    (int32 for int8) plus accin, rounded once to the output dtype.
+
+    accin and `out` (a new tensor when None) are m×n in the output dtype
+    (`out_dtype`, default as `cuda_matmul`), with unit column stride and
+    rows that may be further apart than n. The other arguments are
+    `cuda_matmul`'s. Counterpart of `_rs_acc_kernel`
+    (`tpu_matmul_bench/ops/pallas_ring_rs_hbm.py:52-66`).
+    """
+    global ACC_LAUNCHES
+    order = _check_grid_order(grid_order)
+    dtype = _out_dtype(a, b, out_dtype)
+    bm, bn, bk = _resolve(a, b, blocks)
+    _check_result_operand(accin, "accin", a, b, dtype)
+    if out is not None:
+        _check_result_operand(out, "out", a, b, dtype)
+    if a.device.type == "cpu":
+        c = matmul_acc_plain(a, b, accin, out_dtype=dtype)
+        return c if out is None else out.copy_(c)
+    _check_card_operands(a, b, "cuda_matmul_acc")
+    (m, k), n = a.shape, b.shape[1]
+    c = torch.empty((m, n), dtype=dtype, device=a.device) if out is None else out
+    if max(_ld(accin), _ld(c)) > _INT_MAX:
+        raise ValueError("cuda_matmul_acc: a row stride exceeds the kernel's int range")
+    lib = _lib(a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.tmb_matmul_acc(a.data_ptr(), b.data_ptr(), accin.data_ptr(),
+                                c.data_ptr(), m, n, k, _ld(a), _ld(b), _ld(accin),
+                                _ld(c), _CODES[a.dtype], _CODES[dtype],
+                                bm, bn, bk, order, stream)
+    _raise_on(rc, "pickup matmul", lib)
+    ACC_LAUNCHES += 1
     return c
 
 
@@ -276,11 +354,12 @@ def _lib(device: torch.device) -> ctypes.CDLL:
         i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
         lib.tmb_matmul.argtypes = [p, p, p] + [i] * 11 + [p]
         lib.tmb_matmul_ksplit.argtypes = [p, p, p] + [i] * 11 + [p]
+        lib.tmb_matmul_acc.argtypes = [p, p, p, p] + [i] * 13 + [p]
         lib.tmb_reduce_partials.argtypes = [p, p, i, ll, i, p]
         lib.tmb_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         lib.tmb_init.argtypes = []
-        for fn in (lib.tmb_matmul, lib.tmb_matmul_ksplit, lib.tmb_reduce_partials,
-                   lib.tmb_init, lib.tmb_occupancy):
+        for fn in (lib.tmb_matmul, lib.tmb_matmul_ksplit, lib.tmb_matmul_acc,
+                   lib.tmb_reduce_partials, lib.tmb_init, lib.tmb_occupancy):
             fn.restype = i
         lib.tmb_error_string.argtypes = [i]
         lib.tmb_error_string.restype = ctypes.c_char_p

@@ -1,12 +1,14 @@
 """CLI config: one argparse module for the port's programs.
 
-Port of `tpu_matmul_bench/utils/config.py` for the flags the matmul
-program consumes: the reference's --sizes (default 4096 8192 16384),
+Port of `tpu_matmul_bench/utils/config.py` for the flags the port's
+programs consume: the reference's --sizes (default 4096 8192 16384),
 --iterations (50), --warmup (10) and --dtype (default bfloat16, plus int8),
-and the benchmark's --device --num-devices --json-out --matmul-impl --seed
---validate --precision --trace-out --samples --percentiles --repeats
---timing --block-m/n/k. The JAX package's flags that no program of the port
-consumes yet are left out rather than accepted and ignored.
+and the benchmark's --mode --device --num-devices --json-out --matmul-impl
+--seed --validate --precision --trace-out --samples --percentiles --repeats
+--timing --block-m/n/k --wres. `--repeats` and `--timing` are offered only
+to programs whose timed loop reads them (`best_of`, `fused_timing`). The
+JAX package's flags that no program of the port consumes yet are left out
+rather than accepted and ignored.
 """
 
 from __future__ import annotations
@@ -68,6 +70,17 @@ class BenchConfig:
     block_m: int | None = None
     block_n: int | None = None
     block_k: int | None = None
+    # the benchmark mode of a program with several (overlap)
+    mode: str | None = None
+    # the ring kernels' W-resident mode: auto, on (error when it cannot
+    # engage), off; the port has no W-resident kernel (ops/cuda_ring.py)
+    wres: str = "auto"
+
+    @property
+    def wres_override(self) -> bool | None:
+        """--wres as the ring builders' tri-state kwarg (see
+        ops/cuda_ring.py resolve_wres)."""
+        return {"auto": None, "on": True, "off": False}[self.wres]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -88,12 +101,33 @@ class BenchConfig:
 
 
 def build_parser(description: str,
-                 extra_dtypes: Sequence[str] = ()) -> argparse.ArgumentParser:
+                 extra_dtypes: Sequence[str] = (),
+                 modes: Sequence[str] | None = None,
+                 default_mode: str | None = None,
+                 fused_timing: bool = True,
+                 best_of: bool = True) -> argparse.ArgumentParser:
+    """The shared parser. `modes` adds --mode (default `default_mode`, else
+    the first) and --wres, which the mode programs' ring kernels read;
+    `best_of` adds --repeats and `fused_timing` adds --timing, for the
+    programs whose timed loop reads them."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument(
         "--sizes", type=int, nargs="+", default=list(DEFAULT_SIZES),
         help=f"Matrix sizes to benchmark (default: {DEFAULT_SIZES})",
     )
+    if modes:
+        default = default_mode or modes[0]
+        p.add_argument(
+            "--mode", type=str, default=default, choices=list(modes),
+            help=f"Benchmark mode (default: {default})",
+        )
+        p.add_argument(
+            "--wres", type=str, default="auto", choices=["auto", "on", "off"],
+            help="W-resident mode of the ring kernels. The port has no "
+                 "W-resident kernel (a W shard is far larger than a block's "
+                 "shared memory): auto and off stream W from device memory "
+                 "and the record says why; on is an error.",
+        )
     p.add_argument(
         "--iterations", type=int, default=50,
         help="Number of timed iterations per benchmark (default: 50)",
@@ -115,7 +149,9 @@ def build_parser(description: str,
     )
     p.add_argument(
         "--num-devices", type=int, default=None,
-        help="Number of devices (the port runs on one device so far)",
+        help="Number of ranks (default: every place there is). Ranks fill "
+             "each device in turn, TMB_RANKS_PER_CARD (default 1) to a "
+             "device, all in one process (parallel/mesh.py).",
     )
     p.add_argument(
         "--json-out", type=str, default=None,
@@ -156,19 +192,22 @@ def build_parser(description: str,
         "--percentiles", action="store_true",
         help="Also measure per-iteration latency percentiles (p50/p90/p99)",
     )
-    p.add_argument(
-        "--repeats", type=int, default=1,
-        help="Best-of-N: repeat the whole timed loop N times and report "
-             "the fastest (default: 1).",
-    )
-    p.add_argument(
-        "--timing", type=str, default="dispatch",
-        choices=["dispatch", "fused"],
-        help="Timed-loop protocol: 'dispatch' launches each iteration from "
-             "the host between two CUDA events; 'fused' captures all "
-             "iterations, chained through their operands, in one CUDA "
-             "graph, so host launch overhead cannot cap the measurement.",
-    )
+    if best_of:
+        p.add_argument(
+            "--repeats", type=int, default=1,
+            help="Best-of-N: repeat the whole timed loop N times and report "
+                 "the fastest (default: 1).",
+        )
+    if fused_timing:
+        p.add_argument(
+            "--timing", type=str, default="dispatch",
+            choices=["dispatch", "fused"],
+            help="Timed-loop protocol: 'dispatch' launches each iteration "
+                 "from the host between two CUDA events; 'fused' captures "
+                 "all iterations, chained through their operands, in one "
+                 "CUDA graph, so host launch overhead cannot cap the "
+                 "measurement.",
+        )
     for dim in "mnk":
         p.add_argument(
             f"--block-{dim}", type=int, default=None,
@@ -197,10 +236,28 @@ def config_from_args(args: argparse.Namespace) -> BenchConfig:
         percentiles=args.percentiles,
         validate=args.validate,
         precision=args.precision,
-        timing=args.timing,
-        repeats=args.repeats,
+        timing=getattr(args, "timing", "dispatch"),
+        repeats=getattr(args, "repeats", 1),
         block_m=args.block_m,
         block_n=args.block_n,
         block_k=args.block_k,
+        mode=getattr(args, "mode", None),
+        wres=getattr(args, "wres", "auto"),
     )
+
+
+def parse_config(
+    argv: Sequence[str] | None,
+    description: str,
+    modes: Sequence[str] | None = None,
+    default_mode: str | None = None,
+    extra_dtypes: Sequence[str] = (),
+    fused_timing: bool = False,
+    best_of: bool = False,
+) -> BenchConfig:
+    """Parse a mode program's argv, as the JAX package's `parse_config`."""
+    parser = build_parser(description, extra_dtypes=extra_dtypes, modes=modes,
+                          default_mode=default_mode, fused_timing=fused_timing,
+                          best_of=best_of)
+    return config_from_args(parser.parse_args(argv))
 

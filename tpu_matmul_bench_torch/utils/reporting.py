@@ -156,9 +156,16 @@ def format_record(rec: BenchmarkRecord) -> str:
         )
         flops = rec.flops_per_op if rec.flops_per_op is not None \
             else matmul_flops(rec.size)
+        cards = rec.extras.get("cards", rec.world)
+        # ranks that share a card: per-device figures are per card, and
+        # the banner says so, so that one card is never read as several
+        where = (f"{rec.world} device(s)" if cards == rec.world else
+                 f"{rec.world} ranks; cards: {cards}, ranks_per_card: "
+                 f"{rec.extras.get('ranks_per_card')}")
         lines += [
-            f"  - {unit} per device: {rec.tflops_per_device:.2f}",
-            f"  - Total {unit} ({rec.world} device(s)): {rec.tflops_total:.2f}",
+            f"  - {unit} per {'device' if cards == rec.world else 'card'}: "
+            f"{rec.tflops_per_device:.2f}",
+            f"  - Total {unit} ({where}): {rec.tflops_total:.2f}",
             f"  - {ops_name} per operation: {flops / 1e12:.2f} {ops_unit}",
         ]
     if rec.algbw_gbps is not None:

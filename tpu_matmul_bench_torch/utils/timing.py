@@ -1,7 +1,7 @@
 """Timing engine: CUDA events around launches, and CUDA-graph fused loops.
 
-Port of `tpu_matmul_bench/utils/timing.py` (all but the compute/comm
-variant split and the per-leg timers, which the scaling slice brings):
+Port of `tpu_matmul_bench/utils/timing.py` (all but the per-leg timers,
+which the scaling slice brings):
 
 1. **Dispatch** (`time_jitted`): N launches between two
    `torch.cuda.Event(enable_timing=True)` marks on the current stream,
@@ -13,8 +13,14 @@ variant split and the per-leg timers, which the scaling slice brings):
    measurement. Each launch's operands carry a bounded scalar from the
    previous output in element [0, ..., 0], which makes every launch depend
    on the one before.
-3. **Interleaved variants** (`time_variants_n`): several callables timed
-   round-robin, median of `repeats` rounds each, under either protocol.
+3. **Interleaved variants** (`time_variants_n`, `time_variants`): several
+   callables timed round-robin, median of `repeats` rounds each, under
+   either protocol.
+
+A call may return per-rank shards: `sync` waits for every card they lie
+on. A program whose ranks run on their own streams joins the caller's
+current stream before it returns (`ops/cuda_ring.py`), so the events on
+that stream time all of it.
 
 On the CPU the calls run synchronously, `time.perf_counter` stands in for
 the events, and the fused protocol runs the same chained loop eagerly.
@@ -32,16 +38,20 @@ import torch
 from tpu_matmul_bench_torch.utils import telemetry
 
 
+def _tensors(out: Any) -> list[torch.Tensor]:
+    """Every tensor in `out`: a tensor, or a tuple/list of them, such as a
+    list of per-rank shards (nested any depth)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for x in out for t in _tensors(x)]
+    return []
+
+
 def _last_tensor(out: Any) -> torch.Tensor | None:
     """The last tensor in `out` (a tensor, or a tuple/list of them)."""
-    if isinstance(out, torch.Tensor):
-        return out
-    if isinstance(out, (tuple, list)):
-        for x in reversed(out):
-            leaf = _last_tensor(x)
-            if leaf is not None:
-                return leaf
-    return None
+    leaves = _tensors(out)
+    return leaves[-1] if leaves else None
 
 
 def _on_card(out: Any) -> bool:
@@ -50,10 +60,11 @@ def _on_card(out: Any) -> bool:
 
 
 def sync(out: Any) -> None:
-    """Wait until the device has produced `out` (no-op for CPU results)."""
-    leaf = _last_tensor(out)
-    if leaf is not None and leaf.is_cuda:
-        torch.cuda.synchronize(leaf.device)
+    """Wait until the devices have produced `out`: every card that one of
+    its tensors lies on (per-rank shards may span several). A no-op for CPU
+    results."""
+    for device in dict.fromkeys(t.device for t in _tensors(out) if t.is_cuda):
+        torch.cuda.synchronize(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,6 +339,26 @@ def time_variants_n(
                          chain=chain_states[i].get("chain"))
         out.append(med)
     return out
+
+
+def time_variants(
+    compute_fn: Callable[..., Any],
+    full_fn: Callable[..., Any],
+    args: Sequence[Any],
+    *,
+    iterations: int = 50,
+    warmup: int = 10,
+    repeats: int = 3,
+    protocol: str = "dispatch",
+) -> tuple[Timing, Timing, float]:
+    """The compute leg and the full program, interleaved and median-of-
+    `repeats` each (`time_variants_n`). Returns (compute, full, comm
+    seconds), comm = max(full − compute, 0) per call; the overlap modes
+    read the two as baseline and ring."""
+    t_compute, t_full = time_variants_n(
+        (compute_fn, full_fn), args, iterations=iterations, warmup=warmup,
+        repeats=repeats, protocol=protocol)
+    return t_compute, t_full, max(t_full.avg_s - t_compute.avg_s, 0.0)
 
 
 def record_samples(
