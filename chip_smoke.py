@@ -9,11 +9,12 @@ It builds every CUDA kernel of the port (`tpu_matmul_bench_torch/csrc/`)
 from the sources in the checkout, prints each kernel's registers and spill
 bytes, holds each kernel against its plain PyTorch version on the card
 (every tile and grid order of the GEMM, its split-K form with the
-reduction, its pickup form, and the two ring matmuls over 1, 2 and 4
-ranks, with a 20-call race check of each ring at 2048² and at the main
-path's 16384² over 4 ranks), drives the port's paths through their normal
-entry points, and then holds every shard of each ring's output at the main
-path's shape against its plain version:
+reduction, its pickup form, and the five ring matmuls over 1, 2 and 4
+ranks, with a 20-call race check of each HBM ring at 2048² and at the main
+path's 16384² over 4 ranks, and of the fused ring at its cap), drives the
+port's paths through their normal entry points, and then holds every shard
+of each ring's output at the main path's shape (the fused ring's at its
+cap) against its plain version:
 
 - the single-device bf16 16384x16384 matmul benchmark through the
   hand-written kernel, `tpu_matmul_bench_torch.benchmarks.matmul_benchmark
@@ -23,9 +24,12 @@ path's shape against its plain version:
   every tile at bf16 16384^3 in both grid orders, then with `--ksplit 2`
   at 16384^3 and at the tall-M 28672x4096x8192;
 - the overlap program, `tpu_matmul_bench_torch.benchmarks
-  .matmul_overlap_benchmark.main`, in its two ring modes at bf16 16384^2
-  over 4 ranks that share the card (`TMB_RANKS_PER_CARD=4`, set for these
-  phases only): their hops copy within the card's memory, not over NVLink.
+  .matmul_overlap_benchmark.main`, in its four HBM ring modes at bf16
+  16384^2 over 4 ranks that share the card (`TMB_RANKS_PER_CARD=4`, set
+  for these phases only; their hops copy within the card's memory, not
+  over NVLink), then in the fused ring mode `cuda_ring` and in
+  `cuda_ring_hbm` at the fused ring's cap, the largest size whose operands
+  fit the card's L2.
 
 Standard output is one JSON object per line: one per phase, then the
 `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
@@ -70,6 +74,9 @@ ACC_SHAPES = [(129, 64, 257), (1000, 1000, 1000)]
 # each chunk (136 rows) is ragged for the 128-row tile
 RANKS = (1, 2, 4)
 RING_SHAPES = [(256, 512, 256), (4 * 136, 264, 4 * 136)]
+# the rings that split chunks in halves, and the fused ring, also at odd
+# chunks: 137 rows over 4 ranks, halves of 68 and 69 rows
+SPLIT_SHAPES = RING_SHAPES + [(4 * 137, 264, 4 * 137)]
 RING_WORLD = 4  # ranks on the card for the overlap phases and the timings
 # the race check runs at 2048² (512-row chunks) and at the main path's
 # 16384² (128 MiB chunks)
@@ -405,14 +412,50 @@ def check_matmul_acc() -> None:
                 fail("kernel_vs_plain[matmul_acc]", f"{dtype_name} {(m, k, n)}: {result}")
 
 
-def ring_fns(reduce_scatter: bool):
-    """(label, builder, plain version) of one ring."""
-    from tpu_matmul_bench_torch.ops import cuda_ring as cr
+# the rings by label: reduce-scatter or all-gather, the constructor's and the
+# plain version's names, and the shapes of their kernel-vs-plain cases
+RINGS = {
+    "ring_ag": (False, "cuda_ring.ring_allgather_matmul_hbm",
+                "cuda_ring.ring_allgather_matmul_plain", RING_SHAPES),
+    "ring_rs": (True, "cuda_ring.ring_reduce_scatter_matmul_hbm",
+                "cuda_ring.ring_reduce_scatter_matmul_plain", RING_SHAPES),
+    "ring_ag_bidir": (False, "cuda_ring.ring_allgather_matmul_bidir_hbm",
+                      "cuda_ring.ring_allgather_matmul_plain", SPLIT_SHAPES),
+    "ring_rs_bidir": (True, "cuda_ring.ring_reduce_scatter_matmul_bidir_hbm",
+                      "cuda_ring.ring_reduce_scatter_matmul_bidir_plain", SPLIT_SHAPES),
+    "ring_fused": (False, "cuda_ring_fused.ring_allgather_matmul",
+                   "cuda_ring.ring_allgather_matmul_plain", SPLIT_SHAPES),
+}
 
-    if reduce_scatter:
-        return ("ring_rs", cr.ring_reduce_scatter_matmul_hbm,
-                cr.ring_reduce_scatter_matmul_plain)
-    return "ring_ag", cr.ring_allgather_matmul_hbm, cr.ring_allgather_matmul_plain
+
+def ring_fns(label: str):
+    """(reduce_scatter, constructor, plain version) of one ring."""
+    from tpu_matmul_bench_torch.ops import cuda_ring, cuda_ring_fused
+
+    modules = {"cuda_ring": cuda_ring, "cuda_ring_fused": cuda_ring_fused}
+    reduce_scatter, build, plain, _ = RINGS[label]
+
+    def resolve(name):
+        module, fn = name.split(".")
+        return getattr(modules[module], fn)
+
+    return reduce_scatter, resolve(build), resolve(plain)
+
+
+def ring_counts() -> tuple[int, int, int]:
+    """The rings' launch counters: products, hops, fused launches."""
+    from tpu_matmul_bench_torch.ops import cuda_ring as cr
+    from tpu_matmul_bench_torch.ops import cuda_ring_fused as crf
+
+    return cr.RING_STEPS, cr.HOP_LAUNCHES, crf.FUSED_RING_LAUNCHES
+
+
+def per_call(label: str, d: int) -> tuple[int, int, int]:
+    """The launches one call of a ring adds to `ring_counts`."""
+    if label == "ring_fused":
+        return 0, 0, 1
+    ways = 2 if label.endswith("_bidir") else 1
+    return ways * d * d, ways * d * (d - 1), 0
 
 
 def ring_operands(mesh, reduce_scatter: bool, mkn, dtype, seed: int):
@@ -430,26 +473,25 @@ def ring_operands(mesh, reduce_scatter: bool, mkn, dtype, seed: int):
 
 def check_rings() -> None:
     """Each ring on the card against its plain version, over 1, 2 and 4
-    ranks, in every dtype, at an even and a ragged chunk. One line per
-    (ring, ranks); the step and hop counts must rise by D² and D·(D−1)
-    per call."""
+    ranks, in every dtype, at its shapes (even, ragged and, for the rings
+    that split chunks in halves and the fused ring, odd chunks). One line
+    per (ring, ranks); the launch counts must rise by `per_call` a call."""
     import torch
 
-    from tpu_matmul_bench_torch.ops import cuda_ring as cr
     from tpu_matmul_bench_torch.parallel.mesh import gather
 
-    for reduce_scatter in (False, True):
-        label, build, plain = ring_fns(reduce_scatter)
+    for label, (_, _, _, shapes) in RINGS.items():
+        reduce_scatter, build, plain = ring_fns(label)
         for d in RANKS:
             fn = build(card_mesh(d))
             errors, problems = {}, []
             for dtype_name in TOLERANCE:
-                for mkn in RING_SHAPES:
+                for mkn in shapes:
                     x, w = ring_operands(fn.mesh, reduce_scatter, mkn,
                                          getattr(torch, dtype_name), seed=7)
-                    steps, hops = cr.RING_STEPS, cr.HOP_LAUNCHES
+                    before = ring_counts()
                     got = gather(fn(x, w))
-                    steps, hops = cr.RING_STEPS - steps, cr.HOP_LAUNCHES - hops
+                    launched = tuple(a - b for a, b in zip(ring_counts(), before))
                     want = gather(plain(x, w))
                     torch.cuda.synchronize()
                     rel = ((got.double() - want.double()).abs().max().item()
@@ -461,8 +503,9 @@ def check_rings() -> None:
                     if not (rel <= TOLERANCE[dtype_name]
                             and bool(torch.isfinite(got.double()).all())):
                         problems.append(f"{case}: max rel err {rel}")
-                    if (steps, hops) != (d * d, d * (d - 1)):
-                        problems.append(f"{case}: {steps} steps, {hops} hops")
+                    if launched != per_call(label, d):
+                        problems.append(f"{case}: launched (products, hops, fused) "
+                                        f"{launched}, not {per_call(label, d)}")
             emit({"phase": f"kernel_vs_plain[{label}]", "ranks": d,
                   "max_rel_err": errors, "tolerance": TOLERANCE, "ok": not problems})
             if problems:
@@ -470,13 +513,13 @@ def check_rings() -> None:
             torch.cuda.empty_cache()
 
 
-def check_races(s: int) -> None:
+def check_races(s: int, labels) -> None:
     """The JAX tests' placement case (all-gather: X's row block r holds r,
     W = I) and every-rank case (reduce-scatter: X's column block j holds
     2**j, W = I), at s×s, each RACE_REPEATS calls in a row over RING_WORLD
     ranks before one synchronize; every result must equal X exactly. A
-    missing event between the streams shows here as a wrong block now and
-    then."""
+    missing event between the streams, or a missing barrier in the fused
+    ring, shows here as a wrong block now and then."""
     import torch
 
     from tpu_matmul_bench_torch.parallel.mesh import COLS, ROWS, gather, shard_tensor
@@ -486,11 +529,11 @@ def check_races(s: int) -> None:
     block = torch.arange(d, device="cuda", dtype=torch.float32).repeat_interleave(s // d)
     ones = torch.ones(s, device="cuda")
     eye = torch.eye(s, device="cuda", dtype=torch.bfloat16)
-    cases = [(False, (block[:, None] * ones[None, :]).to(torch.bfloat16), ROWS, COLS),
-             (True, (ones[:, None] * (2.0 ** block)[None, :]).to(torch.bfloat16),
-              COLS, ROWS)]
-    for reduce_scatter, xg, x_spec, w_spec in cases:
-        label, build, _ = ring_fns(reduce_scatter)
+    cases = {False: ((block[:, None] * ones[None, :]).to(torch.bfloat16), ROWS, COLS),
+             True: ((ones[:, None] * (2.0 ** block)[None, :]).to(torch.bfloat16), COLS, ROWS)}
+    for label in labels:
+        reduce_scatter, build, _ = ring_fns(label)
+        xg, x_spec, w_spec = cases[reduce_scatter]
         fn = build(mesh)
         x, w = shard_tensor(xg, x_spec, mesh), shard_tensor(eye, w_spec, mesh)
         outs = [fn(x, w) for _ in range(RACE_REPEATS)]
@@ -501,29 +544,33 @@ def check_races(s: int) -> None:
               "calls": RACE_REPEATS, "wrong_calls": bad, "ok": not bad})
         if bad:
             fail(f"races[{label}]", f"calls {bad} of {RACE_REPEATS} differ from X")
+    del cases, eye
     torch.cuda.empty_cache()
 
 
-def drive_overlap(mode: str, out_dir: str) -> tuple[dict, dict]:
+def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict]:
     """One overlap run through the program's entry point, its ranks on the
     card; returns the record's summary and the launches counted during it."""
     from tpu_matmul_bench_torch.benchmarks import matmul_overlap_benchmark
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
     from tpu_matmul_bench_torch.ops import cuda_ring as cr
+    from tpu_matmul_bench_torch.ops import cuda_ring_fused as crf
     from tpu_matmul_bench_torch.utils.telemetry import is_manifest
 
-    path = f"{out_dir}/{mode}.jsonl"
-    argv = ["--mode", mode, "--sizes", str(SIZE), "--dtype", "bfloat16",
+    path = f"{out_dir}/{mode}-{size}.jsonl"
+    argv = ["--mode", mode, "--sizes", str(size), "--dtype", "bfloat16",
             "--num-devices", str(RING_WORLD), "--matmul-impl", "cuda",
             "--iterations", str(OVERLAP_ITERATIONS), "--warmup", str(OVERLAP_WARMUP),
             "--validate", "--json-out", path]
     cm.LAUNCHES = cm.ACC_LAUNCHES = 0
     cr.RING_STEPS = cr.HOP_LAUNCHES = 0
+    crf.FUSED_RING_LAUNCHES = 0
     with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
         records = matmul_overlap_benchmark.main(argv)
     counts = {"matmul": cm.LAUNCHES, "matmul_acc": cm.ACC_LAUNCHES,
-              "ring_steps": cr.RING_STEPS, "ring_hops": cr.HOP_LAUNCHES}
-    phase = f"overlap[{mode}]"
+              "ring_steps": cr.RING_STEPS, "ring_hops": cr.HOP_LAUNCHES,
+              "fused": crf.FUSED_RING_LAUNCHES}
+    phase = f"overlap[{mode}]" if size == SIZE else f"overlap[{mode},{size}]"
     if len(records) != 1:
         fail(phase, f"expected one record, got {len(records)} (the runner "
                     "reports a failed size and returns no record for it)")
@@ -532,7 +579,8 @@ def drive_overlap(mode: str, out_dir: str) -> tuple[dict, dict]:
     rec = records[0]
     peak = rec.peak_efficiency_pct
     x = rec.extras
-    summary = {"phase": phase, "avg_ms": rec.avg_time_s * 1e3,
+    fused = mode == "cuda_ring"
+    summary = {"phase": phase, "size": size, "avg_ms": rec.avg_time_s * 1e3,
                "baseline_ms": rec.compute_time_s * 1e3,
                "overlap_speedup_x": x.get("overlap_speedup_x"),
                "tflops_per_card": rec.tflops_per_device, "peak_efficiency_pct": peak,
@@ -551,15 +599,19 @@ def drive_overlap(mode: str, out_dir: str) -> tuple[dict, dict]:
                         f"not {RING_WORLD} on 1")
     if x.get("timing", "dispatch") != "dispatch":
         problems.append(f"timing {x.get('timing')}, not dispatch")
-    if x.get("wres_engaged") is not False:
+    if not fused and x.get("wres_engaged") is not False:
         problems.append(f"wres_engaged {x.get('wres_engaged')}, not False")
+    if fused and x.get("superseded_by") != "cuda_ring_hbm":
+        problems.append(f"superseded_by {x.get('superseded_by')}, not cuda_ring_hbm")
     if not lines or not is_manifest(lines[0]):
         problems.append("the JSONL does not start with its manifest")
     if len(lines) != 2 or lines[1].get("mode") != mode:
         problems.append("the JSONL does not hold the record after the manifest")
-    if counts["matmul"] <= 0 or counts["ring_steps"] <= 0 or counts["ring_hops"] <= 0:
+    ring_ran = counts["fused"] > 0 if fused else min(counts["ring_steps"],
+                                                     counts["ring_hops"]) > 0
+    if counts["matmul"] <= 0 or not ring_ran:
         problems.append(f"a kernel of the path was not launched: {counts}")
-    if mode == "cuda_ring_rs_hbm" and counts["matmul_acc"] <= 0:
+    if "_rs_" in mode and counts["matmul_acc"] <= 0:
         problems.append("the pickup kernel was not launched")
     summary["ok"] = not problems
     emit(summary)
@@ -585,55 +637,59 @@ def ring_bound(reduce_scatter: bool, m: int, k: int, n: int, d: int,
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
-def ring_entry(reduce_scatter: bool, counts: dict, baseline_ms: float,
-               card: str, peak: float, bw: float) -> dict:
-    """Times and bound of one ring at bf16 SIZE², RING_WORLD ranks on the
+def ring_entry(label: str, counts: dict, baseline_ms: float, card: str,
+               peak: float, bw: float, size: int = SIZE) -> tuple[dict, tuple]:
+    """Times and bound of one ring at bf16 size², RING_WORLD ranks on the
     card: the ring, its plain version and torch.matmul of the gathered
     operands, with the main path's launches and its baseline leg. Every
     shard of the ring's output is first held against the plain version's,
-    max|ring − plain| / max|plain| within the bf16 tolerance."""
+    max|ring − plain| / max|plain| within the bf16 tolerance. Returns the
+    entry, the ring and its operands (X, W)."""
     import torch
 
     from tpu_matmul_bench_torch.parallel.mesh import gather
 
-    label, build, plain = ring_fns(reduce_scatter)
+    reduce_scatter, build, plain = ring_fns(label)
     fn = build(card_mesh(RING_WORLD))
-    x, w = ring_operands(fn.mesh, reduce_scatter, (SIZE, SIZE, SIZE),
+    x, w = ring_operands(fn.mesh, reduce_scatter, (size, size, size),
                          torch.bfloat16, seed=11)
     got, want = gather(fn(x, w)), gather(plain(x, w))
     torch.cuda.synchronize()
     max_abs_err = (got.float() - want.float()).abs().max().item()
     max_rel_err = max_abs_err / (want.float().abs().max().item() or 1.0)
     finite = bool(torch.isfinite(got.float()).all())
-    ok = (tuple(got.shape) == (SIZE, SIZE) and got.dtype == want.dtype == torch.bfloat16
+    ok = (tuple(got.shape) == (size, size) and got.dtype == want.dtype == torch.bfloat16
           and finite and max_rel_err <= TOLERANCE["bfloat16"])
-    phase = f"kernel_vs_plain[{label},{SIZE}]"
-    emit({"phase": phase, "ranks": RING_WORLD, "shape": [SIZE] * 3,
+    phase = f"kernel_vs_plain[{label},{size}]"
+    emit({"phase": phase, "ranks": RING_WORLD, "shape": [size] * 3,
           "max_abs_err": max_abs_err, "max_rel_err": max_rel_err,
           "tolerance": TOLERANCE["bfloat16"], "finite": finite, "ok": ok})
     if not ok:
         fail(phase, f"{tuple(got.shape)} {got.dtype}, finite {finite}, "
                     f"max rel err {max_rel_err}")
     del got, want
-    kernel_ms = events_ms(lambda: fn(x, w), runs=5)
-    plain_ms = events_ms(lambda: plain(x, w), runs=2)
+    kernel_ms = events_ms(lambda: fn(x, w), runs=5 if size == SIZE else 50)
+    plain_ms = events_ms(lambda: plain(x, w), runs=2 if size == SIZE else 20)
     xg, wg = gather(x), gather(w)
-    library_ms = events_ms(lambda: torch.matmul(xg, wg), runs=5)
-    del x, w, xg, wg
+    library_ms = events_ms(lambda: torch.matmul(xg, wg), runs=5 if size == SIZE else 50)
+    del xg, wg
     torch.cuda.empty_cache()
-    bound_ms, bound_by = ring_bound(reduce_scatter, SIZE, SIZE, SIZE, RING_WORLD,
+    bound_ms, bound_by = ring_bound(reduce_scatter, size, size, size, RING_WORLD,
                                     2, 2, peak, bw)
-    products = counts["ring_steps"]
+    products, hops = counts["ring_steps"], counts["ring_hops"]
+    if label == "ring_fused":
+        launches = {"ring_fused": counts["fused"]}
+    else:
+        launches = {"products": products, "hops": hops,
+                    **({"matmul_acc": counts["matmul_acc"]} if reduce_scatter else {})}
     return {"route": "cuda", "dtype": "bfloat16", "card": card,
-            "shape": f"{SIZE}x{SIZE}x{SIZE}", "ranks": RING_WORLD, "cards": 1,
-            "launches": products + counts["ring_hops"],
-            "launches_by_kernel": {"products": products, "hops": counts["ring_hops"],
-                                   **({"matmul_acc": counts["matmul_acc"]}
-                                      if reduce_scatter else {})},
+            "shape": f"{size}x{size}x{size}", "ranks": RING_WORLD, "cards": 1,
+            "launches": counts["fused"] if label == "ring_fused" else products + hops,
+            "launches_by_kernel": launches,
             "max_abs_err": max_abs_err, "max_rel_err": max_rel_err,
             "tolerance": TOLERANCE["bfloat16"], "ms": kernel_ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "baseline_ms": baseline_ms}
+            "library_ms": library_ms, "baseline_ms": baseline_ms}, (fn, x, w)
 
 
 def main() -> None:
@@ -650,6 +706,7 @@ def main() -> None:
             occupancy,
         )
         from tpu_matmul_bench_torch.ops.matmul import random_operands
+        from tpu_matmul_bench_torch.parallel.overlap import cuda_ring_max_size, l2_bytes
         from tpu_matmul_bench_torch.utils.device import apply_matmul_precision
         from tpu_matmul_bench_torch.utils.metrics import (
             hbm_spec_gbps,
@@ -703,7 +760,12 @@ def main() -> None:
     check_matmul_acc()
     check_rings()
     for size in RACE_SIZES:
-        check_races(size)
+        check_races(size, ["ring_ag", "ring_rs", "ring_ag_bidir", "ring_rs_bidir"])
+    # the fused ring's cap: 4 ranks' operands in the card's L2, as it reports it
+    l2 = l2_bytes(torch.device("cuda", 0))
+    cap = cuda_ring_max_size(RING_WORLD, torch.bfloat16, l2, RING_WORLD)
+    emit({"phase": "fused_cap", "l2_bytes": l2, "ranks": RING_WORLD, "cap": cap})
+    check_races(cap, ["ring_fused"])
 
     # 4. the paths through their entry points; launch counts are set to 0
     # just before each run and read just after
@@ -721,8 +783,12 @@ def main() -> None:
             "tune[ksplit,{}x{}x{},nmk]".format(*TALL),
             ["--mkn", *map(str, TALL), "--grid-order", "nmk", "--ksplit", "2"],
             out_dir, ksplit=2)
-        ring_ag, ring_ag_counts = drive_overlap("cuda_ring_hbm", out_dir)
-        ring_rs, ring_rs_counts = drive_overlap("cuda_ring_rs_hbm", out_dir)
+        rings = {label: drive_overlap(mode, out_dir) for label, mode in (
+            ("ring_ag", "cuda_ring_hbm"), ("ring_rs", "cuda_ring_rs_hbm"),
+            ("ring_ag_bidir", "cuda_ring_bidir_hbm"),
+            ("ring_rs_bidir", "cuda_ring_bidir_rs_hbm"))}
+        rings["ring_fused"] = drive_overlap("cuda_ring", out_dir, size=cap)
+        k2_at_cap, _ = drive_overlap("cuda_ring_hbm", out_dir, size=cap)
 
     # 5. the plain version's time at the headline shape
     a, b = random_operands(0, (SIZE, SIZE), torch.bfloat16, device="cuda")
@@ -744,9 +810,21 @@ def main() -> None:
     tall = ksplit_entry(TALL, ksplit_errors[TALL], gemm_tall, reduce_tall,
                         peak, bw)
 
-    # 7. the rings at bf16 16384^2 over RING_WORLD ranks on the card
-    ag = ring_entry(False, ring_ag_counts, ring_ag["baseline_ms"], card, peak, bw)
-    rs = ring_entry(True, ring_rs_counts, ring_rs["baseline_ms"], card, peak, bw)
+    # 7. the rings at bf16 16384^2 over RING_WORLD ranks on the card, the
+    # fused ring at its cap, beside K2 on the same operands
+    fused_summary, fused_counts = rings.pop("ring_fused")
+    entries = {label: ring_entry(label, counts, summary["baseline_ms"], card, peak, bw)[0]
+               for label, (summary, counts) in rings.items()}
+    entries["ring_fused"], (fused_ring, x, w) = ring_entry(
+        "ring_fused", fused_counts, fused_summary["baseline_ms"], card, peak, bw, size=cap)
+    k2 = ring_fns("ring_ag")[1](fused_ring.mesh)
+    entries["ring_fused"].update(
+        cap=cap, l2_bytes=l2, grid_blocks=fused_ring.grid_blocks,
+        overlap_ms=fused_summary["avg_ms"],
+        k2_ms_at_cap=events_ms(lambda: k2(x, w), runs=50),
+        k2_overlap_ms_at_cap=k2_at_cap["avg_ms"])
+    del fused_ring, x, w, k2
+    torch.cuda.empty_cache()
     emit({"kernels": [{
         "name": "matmul", "route": "cuda",
         "source": "tpu_matmul_bench_torch/csrc/matmul.cu",
@@ -775,7 +853,7 @@ def main() -> None:
         "replaces": "tpu_matmul_bench/ops/pallas_ring_hbm.py:291",
         "replaces_function": "ring_allgather_matmul_hbm",
         "kernels": ["csrc/matmul.cu tmb_matmul", "csrc/ring.cu tmb_ring_hop"],
-        **ag,
+        **entries["ring_ag"],
     }, {
         "name": "ring_reduce_scatter_matmul",
         "source": "tpu_matmul_bench_torch/ops/cuda_ring.py",
@@ -783,7 +861,29 @@ def main() -> None:
         "replaces_function": "ring_reduce_scatter_matmul_hbm",
         "kernels": ["csrc/matmul.cu tmb_matmul", "csrc/matmul.cu tmb_matmul_acc",
                     "csrc/ring.cu tmb_ring_hop"],
-        **rs,
+        **entries["ring_rs"],
+    }, {
+        "name": "ring_allgather_matmul_bidir",
+        "source": "tpu_matmul_bench_torch/ops/cuda_ring.py",
+        "replaces": "tpu_matmul_bench/ops/pallas_ring_bidir_hbm.py:143",
+        "replaces_function": "ring_allgather_matmul_bidir_hbm",
+        "kernels": ["csrc/matmul.cu tmb_matmul", "csrc/ring.cu tmb_ring_hop"],
+        **entries["ring_ag_bidir"],
+    }, {
+        "name": "ring_reduce_scatter_matmul_bidir",
+        "source": "tpu_matmul_bench_torch/ops/cuda_ring.py",
+        "replaces": "tpu_matmul_bench/ops/pallas_ring_bidir_rs_hbm.py:165",
+        "replaces_function": "ring_reduce_scatter_matmul_bidir_hbm",
+        "kernels": ["csrc/matmul.cu tmb_matmul", "csrc/matmul.cu tmb_matmul_acc",
+                    "csrc/ring.cu tmb_ring_hop"],
+        **entries["ring_rs_bidir"],
+    }, {
+        "name": "ring_allgather_matmul_fused",
+        "source": "tpu_matmul_bench_torch/csrc/ring_fused.cu",
+        "replaces": "tpu_matmul_bench/ops/pallas_ring.py:121",
+        "replaces_function": "ring_allgather_matmul",
+        "kernels": ["csrc/ring_fused.cu ring_fused"],
+        **entries["ring_fused"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

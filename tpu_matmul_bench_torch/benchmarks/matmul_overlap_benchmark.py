@@ -1,10 +1,12 @@
 """Overlap benchmark: the ring matmuls against their serialized baselines.
 
 Port of `tpu_matmul_bench/benchmarks/matmul_overlap_benchmark.py`. The
-ported modes are `cuda_ring_hbm` (the all-gather ring, K2) and
-`cuda_ring_rs_hbm` (the reduce-scatter ring, K3), over a world of
---num-devices ranks (`parallel/mesh.py`; `TMB_RANKS_PER_CARD` ranks may
-share a card). `--mode` accepts the JAX suite's twelve names with
+ported modes are the five rings: `cuda_ring_hbm` (all-gather, K2),
+`cuda_ring_rs_hbm` (reduce-scatter, K3), their bidirectional forms
+`cuda_ring_bidir_hbm` (K4) and `cuda_ring_bidir_rs_hbm` (K5), and the fused
+`cuda_ring` (K6, capped at the card's L2), over a world of --num-devices
+ranks (`parallel/mesh.py`; `TMB_RANKS_PER_CARD` ranks may share a card).
+`--mode` accepts the JAX suite's twelve names with
 `pallas_` → `cuda_`; a name not ported yet exits with an error that names
 it and the ROADMAP item that brings it. The default is `cuda_ring_hbm`
 until the JAX default, `overlap`, is ported (ROADMAP A7).

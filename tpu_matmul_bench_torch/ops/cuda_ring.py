@@ -1,11 +1,15 @@
 """The ring matmuls over a world of ranks: all-gather (K2) and
-reduce-scatter (K3), as a schedule of hand-written GEMMs and ring hops on
-each rank's CUDA streams.
+reduce-scatter (K3), and their bidirectional forms (K4, K5), as a schedule
+of hand-written GEMMs and ring hops on each rank's CUDA streams.
 
 Replaces `tpu_matmul_bench/ops/pallas_ring_hbm.py` (`_hbm_ring_kernel`,
-`_chunk_pipeline`, `ring_allgather_matmul_hbm`) and
+`_chunk_pipeline`, `ring_allgather_matmul_hbm`),
 `tpu_matmul_bench/ops/pallas_ring_rs_hbm.py` (`_hbm_ring_rs_kernel`,
-`_rs_chunk_pipeline`, `ring_reduce_scatter_matmul_hbm`). The Pallas kernels
+`_rs_chunk_pipeline`, `ring_reduce_scatter_matmul_hbm`),
+`tpu_matmul_bench/ops/pallas_ring_bidir_hbm.py` (`_bidir_ring_kernel`,
+`ring_allgather_matmul_bidir_hbm`) and
+`tpu_matmul_bench/ops/pallas_ring_bidir_rs_hbm.py` (`_bidir_rs_kernel`,
+`ring_reduce_scatter_matmul_bidir_hbm`). The Pallas kernels
 run one program per TPU core that multiplies a resident chunk while
 `make_async_remote_copy` moves it to the right neighbour, with semaphores
 for flow control. On Hopper, copies between cards leave the GEMM kernel:
@@ -26,6 +30,15 @@ stream), and each semaphore becomes a CUDA event:
 |                | product, and for K2 its forwarding hop); the writer    |
 |                | waits on them before it overwrites the slot            |
 
+The bidirectional rings split each chunk (K4) or each output chunk's
+accumulator (K5) into a top half of h = mshard // 2 rows that hops right
+and a bottom half of mshard − h rows that hops left. Each rank has a second
+copy stream for the left-going hops, so the two directions run
+independently, as the Pallas kernels' two DMA streams do, and each
+direction has its own slots and its own `free_sem` events: the forward
+writer waits on its right neighbour's reads, the backward writer on its
+left neighbour's.
+
 At exit the caller's current stream waits on every rank stream, so events
 on it time the whole ring and nothing races a later call. Every buffer is
 allocated on the caller's stream before the ring starts, and a later
@@ -40,16 +53,18 @@ run the same slot, chunk and homing arithmetic the card runs. For CUDA
 tensors every product launches a kernel and every hop a copy, or raises:
 nothing falls back to the plain versions.
 
-Bound on the card: both rings do the work of one m×k·k×n product, 2mnk
-operations, and move each input once, each output once and D·(D−1)
-chunks through the hops; at bf16 16384² over 4 ranks that is 8.9 ms of
-operations at 989 TFLOP/s against about 1.4 ms (K2) and 2.4 ms (K3) of
-bytes at 3.35 TB/s, so both are bound by operations. The products are K1,
-so the rings run about as fast as K1 does.
+Bound on the card: every ring does the work of one m×k·k×n product, 2mnk
+operations, and moves each input once, each output once and D·(D−1)
+chunks through the hops (the bidirectional rings move two half chunks a
+hop); at bf16 16384² over 4 ranks that is 8.9 ms of operations at 989
+TFLOP/s against about 1.4 ms (K2, K4) and 2.4 ms (K3, K5) of bytes at
+3.35 TB/s, so all four are bound by operations. The products are K1, so
+the rings run about as fast as K1 does.
 
-Left for later: one fused kernel per rank, where SM stores or TMA move the
-chunk and flags in peer memory replace the events; the W-resident mode
-(see `resolve_wres`).
+Left for later: one fused kernel per rank across cards, where SM stores or
+TMA move the chunk and flags in peer memory replace the events (the fused
+ring of ranks that share one card is `ops/cuda_ring_fused.py`, K6); the
+W-resident mode (see `resolve_wres`).
 """
 
 from __future__ import annotations
@@ -66,8 +81,9 @@ from tpu_matmul_bench_torch.parallel.mesh import COLS, ROWS, Mesh, Sharded, gath
 from tpu_matmul_bench_torch.utils.metrics import matmul_out_dtype
 
 # Counted where each launch happens, on the card only: RING_STEPS counts the
-# ring's products (D² a call), HOP_LAUNCHES its hops (D·(D−1) a call). The
-# products also count in cuda_matmul's LAUNCHES and ACC_LAUNCHES.
+# ring's products (D² a call; 2·D² for K4 and K5), HOP_LAUNCHES its hops
+# (D·(D−1) a call; 2·D·(D−1) for K4 and K5). The products also count in
+# cuda_matmul's LAUNCHES and ACC_LAUNCHES.
 RING_STEPS = 0
 HOP_LAUNCHES = 0
 
@@ -94,14 +110,16 @@ def resolve_wres(wres: bool | None, d: int,
     return False, reason
 
 
-_COMPUTE, _COPY = 0, 1
+# a rank's streams: products, hops (the right-going ones in K4 and K5), and
+# the left-going hops of K4 and K5
+_COMPUTE, _COPY, _COPY_BACK = 0, 1, 2
 
 
 class _Schedule:
     """The streams and events of one ring call on the card; on the CPU
     every method is a no-op and each step runs at once, in issue order."""
 
-    def __init__(self, mesh: Mesh, streams: list[tuple[Any, Any]] | None):
+    def __init__(self, mesh: Mesh, streams: list[tuple[Any, ...]] | None):
         self.mesh = mesh
         self.streams = streams
 
@@ -135,8 +153,8 @@ class _Schedule:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(card))
             marks.append(event)
-        for pair in self.streams:
-            for s in pair:
+        for rank_streams in self.streams:
+            for s in rank_streams:
                 for event in marks:
                     s.wait_event(event)
 
@@ -145,8 +163,8 @@ class _Schedule:
         stream."""
         if self.streams is None:
             return
-        ends = [self.mark(r, which) for r in range(len(self.streams))
-                for which in (_COMPUTE, _COPY)]
+        ends = [self.mark(r, which) for r, rank_streams in enumerate(self.streams)
+                for which in range(len(rank_streams))]
         for card in self.mesh.cards:
             current = torch.cuda.current_stream(card)
             for event in ends:
@@ -165,9 +183,10 @@ def _ring_lib() -> ctypes.CDLL:
     return lib
 
 
-def _hop(sched: _Schedule, r: int, dst: torch.Tensor, src: torch.Tensor) -> None:
-    """One hop: rank r copies `src` into the next rank's slot `dst`, on its
-    copy stream (on the CPU, at once)."""
+def _hop(sched: _Schedule, r: int, dst: torch.Tensor, src: torch.Tensor,
+         which: int = _COPY) -> None:
+    """One hop: rank r copies `src` into a neighbour's slot `dst`, on its
+    copy stream `which` (on the CPU, at once)."""
     global HOP_LAUNCHES
     if dst.shape != src.shape or dst.dtype != src.dtype:
         raise ValueError(f"hop of {tuple(src.shape)} {src.dtype} into "
@@ -181,7 +200,7 @@ def _hop(sched: _Schedule, r: int, dst: torch.Tensor, src: torch.Tensor) -> None
     with torch.cuda.device(src.device):
         rc = lib.tmb_ring_hop(dst.data_ptr(), src.data_ptr(),
                               src.numel() * src.element_size(), dst.device.index,
-                              src.device.index, sched.stream(r, _COPY).cuda_stream)
+                              src.device.index, sched.stream(r, which).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ring hop failed: "
                            f"{lib.tmb_ring_error_string(rc).decode()} (code {rc})")
@@ -194,54 +213,92 @@ def _count_step(device: torch.device) -> None:
         RING_STEPS += 1
 
 
+def check_shards(mesh: Mesh, x: Sequence[torch.Tensor], w: Sequence[torch.Tensor],
+                 reduce_scatter: bool) -> None:
+    """One contiguous X and W shard per rank, on the rank's device, of one
+    shape and dtype, with matching inner dimensions; for a reduce-scatter
+    ring, X's rows cut into D chunks."""
+    d = len(mesh.ranks)
+    if len(x) != d or len(w) != d:
+        raise ValueError(f"{len(x)} X and {len(w)} W shards for {d} ranks")
+    for r, (xr, wr) in enumerate(zip(x, w)):
+        want = mesh.devices[r]
+        if xr.device != want or wr.device != want:
+            raise ValueError(f"rank {r} lives on {want}, its shards on "
+                             f"{xr.device} and {wr.device}")
+        if xr.shape != x[0].shape or wr.shape != w[0].shape:
+            raise ValueError("every rank's shards must have one shape")
+        if xr.dtype != x[0].dtype or wr.dtype != x[0].dtype:
+            raise TypeError("every shard must have one dtype")
+        if not (xr.is_contiguous() and wr.is_contiguous()):
+            raise ValueError("the ring takes contiguous shards")
+    if x[0].ndim != 2 or w[0].ndim != 2 or x[0].shape[1] != w[0].shape[0]:
+        raise ValueError(f"bad shard shapes {tuple(x[0].shape)} @ {tuple(w[0].shape)}")
+    if reduce_scatter and x[0].shape[0] % d:
+        raise ValueError(f"m = {x[0].shape[0]} does not split into {d} row chunks")
+
+
 class RingMatmul:
     """A ring matmul over `mesh`: `fn(x_shards, w_shards) -> y_shards`.
 
     `reduce_scatter=False` is K2: Y = X·W with X row-sharded P("x", None),
     W column-sharded P(None, "x"), Y column-sharded P(None, "x").
     `reduce_scatter=True` is K3: X column-sharded P(None, "x"), W
-    row-sharded P("x", None), Y row-sharded P("x", None).
+    row-sharded P("x", None), Y row-sharded P("x", None). `bidir=True`
+    gives the bidirectional form of either, K4 or K5, with the same
+    contract.
     """
 
     def __init__(self, mesh: Mesh, *, reduce_scatter: bool,
-                 blocks: tuple[int, int, int], wres: bool | None):
+                 blocks: tuple[int, int, int], wres: bool | None,
+                 bidir: bool = False):
         resolve_wres(wres, len(mesh.ranks))  # wres=True raises
         self.mesh = mesh
         self.reduce_scatter = reduce_scatter
+        self.bidir = bidir
         self.blocks = blocks
-        self._streams: list[tuple[Any, Any]] | None = None
+        self._streams: list[tuple[Any, ...]] | None = None
 
     def _schedule(self, card: bool) -> _Schedule:
         if card and self._streams is None:
-            self._streams = [(torch.cuda.Stream(device=dev), torch.cuda.Stream(device=dev))
+            per_rank = 3 if self.bidir else 2
+            self._streams = [tuple(torch.cuda.Stream(device=dev) for _ in range(per_rank))
                              for dev in self.mesh.devices]
         return _Schedule(self.mesh, self._streams if card else None)
 
     def _check(self, x: Sequence[torch.Tensor], w: Sequence[torch.Tensor]) -> None:
+        check_shards(self.mesh, x, w, self.reduce_scatter)
+        if not self.bidir:
+            return
         d = len(self.mesh.ranks)
-        if len(x) != d or len(w) != d:
-            raise ValueError(f"{len(x)} X and {len(w)} W shards for {d} ranks")
-        for r, (xr, wr) in enumerate(zip(x, w)):
-            want = self.mesh.devices[r]
-            if xr.device != want or wr.device != want:
-                raise ValueError(f"rank {r} lives on {want}, its shards on "
-                                 f"{xr.device} and {wr.device}")
-            if xr.shape != x[0].shape or wr.shape != w[0].shape:
-                raise ValueError("every rank's shards must have one shape")
-            if xr.dtype != x[0].dtype or wr.dtype != x[0].dtype:
-                raise TypeError("every shard must have one dtype")
-            if not (xr.is_contiguous() and wr.is_contiguous()):
-                raise ValueError("the ring takes contiguous shards")
-        if x[0].ndim != 2 or w[0].ndim != 2 or x[0].shape[1] != w[0].shape[0]:
-            raise ValueError(f"bad shard shapes {tuple(x[0].shape)} @ {tuple(w[0].shape)}")
-        if self.reduce_scatter and x[0].shape[0] % d:
-            raise ValueError(f"m = {x[0].shape[0]} does not split into {d} row chunks")
+        if self.reduce_scatter and x[0].shape[0] // d < 2:
+            raise ValueError(
+                f"bidirectional RS ring needs ≥ 2 output rows per device "
+                f"(m/d = {x[0].shape[0] // d}) — use ring_reduce_scatter_matmul_hbm")
+        if not self.reduce_scatter and x[0].shape[0] < 2:
+            raise ValueError(
+                f"bidirectional ring needs ≥ 2 rows per shard, got {x[0].shape[0]}"
+                " — use the unidirectional ring_allgather_matmul_hbm")
 
     def __call__(self, x: Sequence[torch.Tensor], w: Sequence[torch.Tensor]) -> Sharded:
         self._check(x, w)
         sched = self._schedule(x[0].is_cuda)
-        run = self._reduce_scatter if self.reduce_scatter else self._allgather
+        run = {(False, False): self._allgather, (True, False): self._reduce_scatter,
+               (False, True): self._allgather_bidir,
+               (True, True): self._reduce_scatter_bidir}[self.reduce_scatter, self.bidir]
         return run(sched, x, w)
+
+    def _product(self, sched: _Schedule, r: int, a: torch.Tensor, w: torch.Tensor,
+                 dest: torch.Tensor, accin: torch.Tensor | None = None):
+        """dest = a·w (+ accin, the pickup) on rank r's compute stream;
+        returns the event after it."""
+        with sched.on(r, _COMPUTE):
+            if accin is None:
+                cm.cuda_matmul(a, w, blocks=self.blocks, out=dest)
+            else:
+                cm.cuda_matmul_acc(a, w, accin, dest, blocks=self.blocks)
+        _count_step(a.device)
+        return sched.mark(r, _COMPUTE)
 
     def _allgather(self, sched: _Schedule, x, w) -> Sharded:
         """K2 (`_hbm_ring_kernel`): at step t rank r holds the chunk that
@@ -266,11 +323,8 @@ class RingMatmul:
                 arrived = hop_done.get((left, t - 1))  # recv_sem
                 src = (r - t) % d
                 sched.wait(r, _COMPUTE, arrived)
-                with sched.on(r, _COMPUTE):
-                    cm.cuda_matmul(chunk, w[r], blocks=self.blocks,
-                                   out=y[r][src * mshard:(src + 1) * mshard])
-                _count_step(chunk.device)
-                product = sched.mark(r, _COMPUTE)
+                product = self._product(sched, r, chunk, w[r],
+                                        y[r][src * mshard:(src + 1) * mshard])
                 if t + 1 < d:
                     # free_sem: the right neighbour read its slot (t+1) mod 2
                     # at step t−1 (a slot from t−1 = 1 on; its step 0 read
@@ -317,14 +371,8 @@ class RingMatmul:
                 # last read this staging slot, two steps ago
                 sched.wait(r, _COMPUTE, hop_done.get((left, t - 1)),
                            hop_done.get((r, t - 2)))
-                with sched.on(r, _COMPUTE):
-                    if t == 0:
-                        cm.cuda_matmul(rows, w[r], blocks=self.blocks, out=dest)
-                    else:
-                        cm.cuda_matmul_acc(rows, w[r], recv[r][t % 2], dest,
-                                           blocks=self.blocks)
-                _count_step(rows.device)
-                product[(r, t)] = sched.mark(r, _COMPUTE)
+                product[(r, t)] = self._product(sched, r, rows, w[r], dest,
+                                                recv[r][t % 2] if t else None)
                 if not last:
                     # free_sem: the right neighbour's pickup read its slot
                     # (t+1) mod 2 at step t−1 (a slot from t−1 = 1 on)
@@ -332,6 +380,126 @@ class RingMatmul:
                     sched.wait(r, _COPY, product[(r, t)], freed)
                     _hop(sched, r, recv[right][(t + 1) % 2], dest)
                     hop_done[(r, t)] = sched.mark(r, _COPY)
+        sched.leave()
+        return Sharded(y, ROWS)
+
+    def _allgather_bidir(self, sched: _Schedule, x, w) -> Sharded:
+        """K4 (`_bidir_ring_kernel`): K2 with each chunk split. At step t
+        rank r multiplies the forward half (the top h rows of the chunk that
+        started at src_f = (r − t) mod D) into Y rows [src_f·mshard,
+        src_f·mshard + h) and the backward half (the bottom mshard − h rows
+        of the chunk that started at src_b = (r + t) mod D) into Y rows
+        [src_b·mshard + h, (src_b+1)·mshard). Its first copy stream forwards
+        the top half into the right neighbour's forward slot (t+1) mod 2,
+        its second copy stream the bottom half into the left neighbour's
+        backward slot (t+1) mod 2.
+
+        Each direction's `free_sem` is the events of its own reader: the
+        forward writer waits on its right neighbour's forward product and
+        hop, the backward writer on its left neighbour's backward product
+        and hop. Unlike `_bidir_ring_kernel:98-102`, where one program waits
+        on both directions' acks before either DMA starts, a hop here never
+        waits on the other direction."""
+        d = len(self.mesh.ranks)
+        mshard, k = x[0].shape
+        nshard = w[0].shape[1]
+        h = mshard // 2
+        out = matmul_out_dtype(x[0].dtype)
+        y = [torch.empty((mshard * d, nshard), dtype=out, device=dev)
+             for dev in self.mesh.devices]
+        fslots, bslots = [], []
+        if d > 1:
+            fslots = [torch.empty((2, h, k), dtype=x[0].dtype, device=dev)
+                      for dev in self.mesh.devices]
+            bslots = [torch.empty((2, mshard - h, k), dtype=x[0].dtype, device=dev)
+                      for dev in self.mesh.devices]
+        hop_done: dict[tuple[str, int, int], Any] = {}
+        reads: dict[tuple[str, int, int], tuple] = {}
+        sched.enter()
+        for t in range(d):
+            for r in range(d):
+                left, right = (r - 1) % d, (r + 1) % d
+                # (direction, its copy stream, chunk, where its Y rows start,
+                # whose hop filled the slot, whose reads free the next one,
+                # the next rank's slot)
+                fwd = ("f", _COPY, x[r][:h] if t == 0 else fslots[r][t % 2],
+                       (r - t) % d * mshard, left, right,
+                       fslots[right][(t + 1) % 2] if t + 1 < d else None)
+                bwd = ("b", _COPY_BACK, x[r][h:] if t == 0 else bslots[r][t % 2],
+                       (r + t) % d * mshard + h, right, left,
+                       bslots[left][(t + 1) % 2] if t + 1 < d else None)
+                for way, copy, chunk, row0, writer, reader, dst in (fwd, bwd):
+                    arrived = hop_done.get((way, writer, t - 1))  # recv_sem
+                    sched.wait(r, _COMPUTE, arrived)
+                    product = self._product(sched, r, chunk, w[r],
+                                            y[r][row0:row0 + chunk.shape[0]])
+                    if dst is not None:
+                        # free_sem: the reader read its slot (t+1) mod 2 at
+                        # step t−1 (a slot from t−1 = 1 on)
+                        freed = reads[(way, reader, t - 1)] if t >= 2 else ()
+                        sched.wait(r, copy, arrived, *freed)
+                        _hop(sched, r, dst, chunk, copy)
+                        hop_done[(way, r, t)] = sched.mark(r, copy)
+                    reads[(way, r, t)] = (product, hop_done.get((way, r, t)))
+        sched.leave()
+        return Sharded(y, COLS)
+
+    def _reduce_scatter_bidir(self, sched: _Schedule, x, w) -> Sharded:
+        """K5 (`_bidir_rs_kernel`): K3 with each output chunk's
+        accumulator split. At step t rank r adds its product of the top h
+        rows of chunk cf = (r − 1 − t) mod D to the forward partial in its
+        forward receive slot t mod 2 and sends the sum right; it adds its
+        product of the bottom mshard − h rows of chunk cb = (r + 1 + t) mod
+        D to the backward partial and sends that left. Each direction has 2
+        receive slots and 2 staging slots; a staging slot is written again
+        only after the hop that read it two steps earlier. Step 0 is plain
+        K1, later steps the pickup; the last step writes both halves
+        straight into Y rows [0, h) and [h, mshard). Partials are carried in
+        the output dtype, rounded at every hop. A hop waits only on its own
+        direction's events."""
+        d = len(self.mesh.ranks)
+        m, _ = x[0].shape
+        n = w[0].shape[1]
+        mshard = m // d
+        h = mshard // 2
+        out = matmul_out_dtype(x[0].dtype)
+        y = [torch.empty((mshard, n), dtype=out, device=dev) for dev in self.mesh.devices]
+
+        def slots(rows: int) -> list[torch.Tensor]:
+            return [torch.empty((2, rows, n), dtype=out, device=dev)
+                    for dev in self.mesh.devices] if d > 1 else []
+
+        frecv, fstage, brecv, bstage = slots(h), slots(h), slots(mshard - h), slots(mshard - h)
+        hop_done: dict[tuple[str, int, int], Any] = {}
+        product: dict[tuple[str, int, int], Any] = {}
+        sched.enter()
+        for t in range(d):
+            last = t + 1 == d
+            for r in range(d):
+                left, right = (r - 1) % d, (r + 1) % d
+                cf, cb = (r - 1 - t) % d, (r + 1 + t) % d
+                # (direction, its copy stream, rows of X, receive and staging
+                # slots, the rows of Y it ends in, who writes our receive
+                # slot, whose receive slot we write)
+                fwd = ("f", _COPY, x[r][cf * mshard:cf * mshard + h], frecv, fstage,
+                       y[r][:h], left, right)
+                bwd = ("b", _COPY_BACK, x[r][cb * mshard + h:(cb + 1) * mshard], brecv,
+                       bstage, y[r][h:], right, left)
+                for way, copy, rows, recv, stage, home, writer, reader in (fwd, bwd):
+                    dest = home if last else stage[r][t % 2]
+                    # recv_sem of this step's partial; send_sem of the hop
+                    # that last read this staging slot, two steps ago
+                    sched.wait(r, _COMPUTE, hop_done.get((way, writer, t - 1)),
+                               hop_done.get((way, r, t - 2)))
+                    product[(way, r, t)] = self._product(
+                        sched, r, rows, w[r], dest, recv[r][t % 2] if t else None)
+                    if not last:
+                        # free_sem: the reader's pickup read its slot
+                        # (t+1) mod 2 at step t−1 (a slot from t−1 = 1 on)
+                        freed = product[(way, reader, t - 1)] if t >= 2 else None
+                        sched.wait(r, copy, product[(way, r, t)], freed)
+                        _hop(sched, r, recv[reader][(t + 1) % 2], dest, copy)
+                        hop_done[(way, r, t)] = sched.mark(r, copy)
         sched.leave()
         return Sharded(y, ROWS)
 
@@ -367,6 +535,30 @@ def ring_reduce_scatter_matmul_hbm(mesh: Mesh, block_m: int | None = None,
                       blocks=_tile_request(block_m, block_n, block_k), wres=wres)
 
 
+def ring_allgather_matmul_bidir_hbm(mesh: Mesh, block_m: int | None = None,
+                                    block_n: int | None = None,
+                                    block_k: int | None = None,
+                                    wres: bool | None = None) -> RingMatmul:
+    """K4: K2's contract with each chunk split into two counter-rotating
+    halves (`ring_allgather_matmul_bidir_hbm`,
+    `pallas_ring_bidir_hbm.py:143-238`). Needs ≥ 2 rows per shard. `wres`:
+    see `resolve_wres`."""
+    return RingMatmul(mesh, reduce_scatter=False, bidir=True,
+                      blocks=_tile_request(block_m, block_n, block_k), wres=wres)
+
+
+def ring_reduce_scatter_matmul_bidir_hbm(mesh: Mesh, block_m: int | None = None,
+                                         block_n: int | None = None,
+                                         block_k: int | None = None,
+                                         wres: bool | None = None) -> RingMatmul:
+    """K5: K3's contract with each output chunk's accumulator split into
+    two counter-rotating halves (`ring_reduce_scatter_matmul_bidir_hbm`,
+    `pallas_ring_bidir_rs_hbm.py:165-272`). Needs ≥ 2 output rows per rank.
+    `wres`: see `resolve_wres`."""
+    return RingMatmul(mesh, reduce_scatter=True, bidir=True,
+                      blocks=_tile_request(block_m, block_n, block_k), wres=wres)
+
+
 def ring_allgather_matmul_plain(x: Sequence[torch.Tensor],
                                 w: Sequence[torch.Tensor]) -> Sharded:
     """The plain version of K2, its dense definition: each rank's Y is
@@ -384,13 +576,34 @@ def ring_reduce_scatter_matmul_plain(x: Sequence[torch.Tensor],
     270-272`)."""
     d = len(x)
     mshard = x[0].shape[0] // d
-    out = []
-    for c in range(d):
-        acc = None
-        for j in range(1, d + 1):
-            q = (c + j) % d
-            rows = x[q][c * mshard:(c + 1) * mshard]
-            acc = (cm.matmul_plain(rows, w[q]) if acc is None
-                   else cm.matmul_acc_plain(rows, w[q], acc.to(rows.device)))
-        out.append(acc)
-    return Sharded(out, ROWS)
+    return Sharded([_hop_sum(x, w, c * mshard, (c + 1) * mshard, c, +1)
+                    for c in range(d)], ROWS)
+
+
+def ring_reduce_scatter_matmul_bidir_plain(x: Sequence[torch.Tensor],
+                                           w: Sequence[torch.Tensor]) -> Sharded:
+    """The plain version of K5, in its hop orders and with its rounding: the
+    top h = mshard // 2 rows of chunk c sum ranks c+1, c+2, …, c (the
+    forward ring), the bottom rows ranks c−1, c−2, …, c (the backward
+    ring), each rounded to the output dtype after every contribution."""
+    d = len(x)
+    mshard = x[0].shape[0] // d
+    h = mshard // 2
+    return Sharded([torch.cat([_hop_sum(x, w, c * mshard, c * mshard + h, c, +1),
+                               _hop_sum(x, w, c * mshard + h, (c + 1) * mshard, c, -1)])
+                    for c in range(d)], ROWS)
+
+
+def _hop_sum(x: Sequence[torch.Tensor], w: Sequence[torch.Tensor], row0: int,
+             row1: int, c: int, step: int) -> torch.Tensor:
+    """Σ over ranks q = c+step, c+2·step, …, c (mod D) of X_q[row0:row1]·W_q,
+    rounded to the output dtype after every rank's contribution; on rank
+    c's device."""
+    d = len(x)
+    acc = None
+    for j in range(1, d + 1):
+        q = (c + step * j) % d
+        rows = x[q][row0:row1]
+        acc = (cm.matmul_plain(rows, w[q]) if acc is None
+               else cm.matmul_acc_plain(rows, w[q], acc.to(rows.device)))
+    return acc

@@ -189,6 +189,12 @@ def ring_perm(n: int) -> list[tuple[int, int]]:
     return [(i, (i + 1) % n) for i in range(n)]
 
 
+def ring_perm_rev(n: int) -> list[tuple[int, int]]:
+    """Reverse-direction ring permutation (rank d sends to d−1 mod n): the
+    counter-rotating half of a bidirectional ring."""
+    return [(i, (i - 1) % n) for i in range(n)]
+
+
 def mesh_device_kind(mesh: Mesh) -> str:
     """The ranks' device kind: the card's name, or 'cpu'."""
     first = mesh.devices[0]

@@ -1,12 +1,14 @@
 """Overlap suite: the collective-matmul baselines and the ring modes.
 
-Port of `tpu_matmul_bench/parallel/overlap.py:260-352, 451-495, 650-705,
-764-803` for the two HBM ring modes: `cuda_ring_hbm` (K2, the all-gather
-ring) and `cuda_ring_rs_hbm` (K3, the reduce-scatter ring), each timed
-against its serialized baseline over the world of ranks
-(`parallel/mesh.py`). The JAX package's mode names keep their form, with
-`pallas_` → `cuda_`. The other modes of the JAX suite are not ported yet
-(`OVERLAP_MODE_NAMES` says which queue item brings each).
+Port of `tpu_matmul_bench/parallel/overlap.py:260-352, 451-495, 584-803`
+for the five ring modes: `cuda_ring_hbm` (K2, the all-gather ring),
+`cuda_ring_rs_hbm` (K3, the reduce-scatter ring), their bidirectional
+forms `cuda_ring_bidir_hbm` (K4) and `cuda_ring_bidir_rs_hbm` (K5), and
+`cuda_ring` (K6, the fused ring with its operands resident in L2, capped by
+`cuda_ring_max_size`), each timed against its serialized baseline over the
+world of ranks (`parallel/mesh.py`). The JAX package's mode names keep
+their form, with `pallas_` → `cuda_`. The other modes of the JAX suite are
+not ported yet (`OVERLAP_MODE_NAMES` says which queue item brings each).
 """
 
 from __future__ import annotations
@@ -35,7 +37,11 @@ from tpu_matmul_bench_torch.parallel.modes import (
     make_corner_validate,
 )
 from tpu_matmul_bench_torch.utils.config import BenchConfig
-from tpu_matmul_bench_torch.utils.metrics import bytes_per_element, calculate_tflops
+from tpu_matmul_bench_torch.utils.metrics import (
+    bytes_per_element,
+    calculate_tflops,
+    matmul_out_dtype,
+)
 from tpu_matmul_bench_torch.utils.reporting import BenchmarkRecord
 from tpu_matmul_bench_torch.utils.timing import Timing
 
@@ -196,9 +202,113 @@ def cuda_ring_rs_hbm_mode(config: BenchConfig, mesh: Mesh, size: int,
     )
 
 
+def cuda_ring_bidir_hbm_mode(config: BenchConfig, mesh: Mesh, size: int,
+                             benchmark: str = "overlap") -> ModeSetup:
+    """The bidirectional all-gather ring (`ops/cuda_ring.py`, K4):
+    counter-rotating half chunks on two copy streams per rank, two
+    half-chunk products a step, against the gather-then-matmul baseline."""
+    from tpu_matmul_bench_torch.ops.cuda_ring import ring_allgather_matmul_bidir_hbm
+
+    fn = ring_allgather_matmul_bidir_hbm(mesh, **_hbm_ring_kwargs(config))
+    return _vs_baseline_mode(
+        config, mesh, size, "cuda_ring_bidir_hbm",
+        collective_matmul_program(mesh, overlap=False, impl=config.matmul_impl,
+                                  blocks=config.blocks),
+        fn,
+        "all_gather-then-matmul",
+        {"kernel": "CUDA bidirectional HBM ring all-gather matmul (two K1 "
+                   "half-chunk products a step, counter-rotating copy-engine "
+                   "hops on two copy streams per rank)",
+         **_wres_extras(config, mesh, size)}, benchmark,
+        fusable=False,
+    )
+
+
+def cuda_ring_bidir_rs_hbm_mode(config: BenchConfig, mesh: Mesh, size: int,
+                                benchmark: str = "overlap") -> ModeSetup:
+    """The bidirectional reduce-scatter ring (`ops/cuda_ring.py`, K5):
+    counter-rotating half accumulators on two copy streams per rank, against
+    the matmul-then-psum_scatter baseline."""
+    from tpu_matmul_bench_torch.ops.cuda_ring import ring_reduce_scatter_matmul_bidir_hbm
+
+    fn = ring_reduce_scatter_matmul_bidir_hbm(mesh, **_hbm_ring_kwargs(config))
+    return _vs_baseline_mode(
+        config, mesh, size, "cuda_ring_bidir_rs_hbm",
+        collective_matmul_rs_program(mesh, overlap=False,
+                                     impl=config.matmul_impl,
+                                     blocks=config.blocks),
+        fn,
+        "matmul-then-psum_scatter",
+        {"kernel": "CUDA bidirectional HBM ring reduce-scatter matmul (two "
+                   "pickup-GEMM half products a step, counter-rotating "
+                   "copy-engine hops on two copy streams per rank)",
+         **_wres_extras(config, mesh, size)}, benchmark,
+        x_spec=COLS, w_spec=ROWS,
+        fusable=False,
+    )
+
+
+def cuda_ring_max_size(world: int, dtype, budget: int, ranks_per_card: int = 1) -> int:
+    """Largest size whose fused-ring footprint fits `budget` bytes on one
+    card: per rank the X shard, its 2 slots and the W shard (operand dtype)
+    and the Y block (output dtype, int32 for int8), (3·mshard·k + k·nshard)
+    · item + m·nshard · out_item (`pallas_ring.py:147-148`), that is
+    size²/world · (4·item + out_item), summed over the `ranks_per_card` ranks
+    that share the card. Rounded down to a multiple of 128·world, at least
+    one. The form of `pallas_ring_max_size` (`overlap.py:597-606`), whose
+    budget is the VMEM one and whose device holds one rank."""
+    item = bytes_per_element(dtype)
+    out_item = bytes_per_element(matmul_out_dtype(dtype))
+    s = int((budget * world / (ranks_per_card * (4 * item + out_item))) ** 0.5)
+    step = 128 * world  # keep shards lane-aligned and divisible by world
+    return max((s // step) * step, step)
+
+
+def l2_bytes(device: torch.device) -> int:
+    """The card's L2, as it reports it: where the fused ring's operands stay
+    between steps."""
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
+def cuda_ring_mode(config: BenchConfig, mesh: Mesh, size: int,
+                   benchmark: str = "overlap") -> ModeSetup:
+    """The fused ring (`ops/cuda_ring_fused.py`, K6): the whole ring, every
+    rank on the card, in one cooperative launch, against the
+    gather-then-matmul baseline. On the card the size is capped by
+    `cuda_ring_max_size` at the card's L2 (the CPU has no such cap, as the
+    JAX package's interpreter has no VMEM cap)."""
+    from tpu_matmul_bench_torch.ops.cuda_ring_fused import ring_allgather_matmul
+
+    d = world_size(mesh)
+    card = mesh.devices[0]
+    if card.type == "cuda":
+        limit = cuda_ring_max_size(d, config.dtype, l2_bytes(card), mesh.ranks_per_card)
+        if size > limit:
+            raise ValueError(
+                f"cuda_ring at size {size} exceeds the L2-residency budget (max "
+                f"size for {d} ranks, {mesh.ranks_per_card} per card/"
+                f"{config.dtype_name}: {limit}); use --sizes {limit} or the "
+                "HBM-blocked cuda_ring_hbm")
+    return _vs_baseline_mode(
+        config, mesh, size, "cuda_ring",
+        collective_matmul_program(mesh, overlap=False, impl=config.matmul_impl,
+                                  blocks=config.blocks),
+        ring_allgather_matmul(mesh),
+        "all_gather-then-matmul",
+        {"kernel": "CUDA fused ring all-gather matmul (one cooperative launch, "
+                   "SM-store hops, a grid barrier a step)",
+         # as the JAX package's pallas_ring: the HBM ring is the headline
+         "superseded_by": "cuda_ring_hbm"}, benchmark,
+        fusable=False,
+    )
+
+
 OVERLAP_MODES: dict[str, Callable[..., ModeSetup]] = {
+    "cuda_ring": cuda_ring_mode,
     "cuda_ring_hbm": cuda_ring_hbm_mode,
+    "cuda_ring_bidir_hbm": cuda_ring_bidir_hbm_mode,
     "cuda_ring_rs_hbm": cuda_ring_rs_hbm_mode,
+    "cuda_ring_bidir_rs_hbm": cuda_ring_bidir_rs_hbm_mode,
 }
 
 # The JAX suite's twelve modes, `pallas_` → `cuda_`: ported ones map to
@@ -211,9 +321,9 @@ OVERLAP_MODE_NAMES: dict[str, str | None] = {
     "collective_matmul_bidir": "ROADMAP A7 (the collective-matmul rings)",
     "collective_matmul_rs": "ROADMAP A7 (the collective-matmul rings)",
     "collective_matmul_bidir_rs": "ROADMAP A7 (the collective-matmul rings)",
-    "cuda_ring": "ROADMAP B6 (the shared-memory-resident ring, K6)",
+    "cuda_ring": None,
     "cuda_ring_hbm": None,
-    "cuda_ring_bidir_hbm": "ROADMAP B4 (the bidirectional ring, K4)",
+    "cuda_ring_bidir_hbm": None,
     "cuda_ring_rs_hbm": None,
-    "cuda_ring_bidir_rs_hbm": "ROADMAP B5 (the bidirectional reduce-scatter ring, K5)",
+    "cuda_ring_bidir_rs_hbm": None,
 }
