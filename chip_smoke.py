@@ -12,9 +12,10 @@ bytes, holds each kernel against its plain PyTorch version on the card
 reduction, its pickup form, and the five ring matmuls over 1, 2 and 4
 ranks, with a 20-call race check of each HBM ring at 2048² and at the main
 path's 16384² over 4 ranks, and of the fused ring at its cap), drives the
-port's paths through their normal entry points, and then holds every shard
-of each ring's output at the main path's shape (the fused ring's at its
-cap) against its plain version:
+port's paths through their normal entry points, then holds every shard of
+each ring's output at the main path's shape (the fused ring's at its cap)
+against its plain version, and times the fused ring and its HBM form at
+half its cap, at the cap and at twice it. The paths:
 
 - the single-device bf16 16384x16384 matmul benchmark through the
   hand-written kernel, `tpu_matmul_bench_torch.benchmarks.matmul_benchmark
@@ -412,34 +413,24 @@ def check_matmul_acc() -> None:
                 fail("kernel_vs_plain[matmul_acc]", f"{dtype_name} {(m, k, n)}: {result}")
 
 
-# the rings by label: reduce-scatter or all-gather, the constructor's and the
-# plain version's names, and the shapes of their kernel-vs-plain cases
-RINGS = {
-    "ring_ag": (False, "cuda_ring.ring_allgather_matmul_hbm",
-                "cuda_ring.ring_allgather_matmul_plain", RING_SHAPES),
-    "ring_rs": (True, "cuda_ring.ring_reduce_scatter_matmul_hbm",
-                "cuda_ring.ring_reduce_scatter_matmul_plain", RING_SHAPES),
-    "ring_ag_bidir": (False, "cuda_ring.ring_allgather_matmul_bidir_hbm",
-                      "cuda_ring.ring_allgather_matmul_plain", SPLIT_SHAPES),
-    "ring_rs_bidir": (True, "cuda_ring.ring_reduce_scatter_matmul_bidir_hbm",
-                      "cuda_ring.ring_reduce_scatter_matmul_bidir_plain", SPLIT_SHAPES),
-    "ring_fused": (False, "cuda_ring_fused.ring_allgather_matmul",
-                   "cuda_ring.ring_allgather_matmul_plain", SPLIT_SHAPES),
-}
+def rings() -> dict:
+    """The rings by label: (reduce-scatter or all-gather, constructor, plain
+    version, the shapes of their kernel-vs-plain cases)."""
+    from tpu_matmul_bench_torch.ops import cuda_ring as cr
+    from tpu_matmul_bench_torch.ops import cuda_ring_fused as crf
 
-
-def ring_fns(label: str):
-    """(reduce_scatter, constructor, plain version) of one ring."""
-    from tpu_matmul_bench_torch.ops import cuda_ring, cuda_ring_fused
-
-    modules = {"cuda_ring": cuda_ring, "cuda_ring_fused": cuda_ring_fused}
-    reduce_scatter, build, plain, _ = RINGS[label]
-
-    def resolve(name):
-        module, fn = name.split(".")
-        return getattr(modules[module], fn)
-
-    return reduce_scatter, resolve(build), resolve(plain)
+    return {
+        "ring_ag": (False, cr.ring_allgather_matmul_hbm,
+                    cr.ring_allgather_matmul_plain, RING_SHAPES),
+        "ring_rs": (True, cr.ring_reduce_scatter_matmul_hbm,
+                    cr.ring_reduce_scatter_matmul_plain, RING_SHAPES),
+        "ring_ag_bidir": (False, cr.ring_allgather_matmul_bidir_hbm,
+                          cr.ring_allgather_matmul_plain, SPLIT_SHAPES),
+        "ring_rs_bidir": (True, cr.ring_reduce_scatter_matmul_bidir_hbm,
+                          cr.ring_reduce_scatter_matmul_bidir_plain, SPLIT_SHAPES),
+        "ring_fused": (False, crf.ring_allgather_matmul,
+                       cr.ring_allgather_matmul_plain, SPLIT_SHAPES),
+    }
 
 
 def ring_counts() -> tuple[int, int, int]:
@@ -480,8 +471,7 @@ def check_rings() -> None:
 
     from tpu_matmul_bench_torch.parallel.mesh import gather
 
-    for label, (_, _, _, shapes) in RINGS.items():
-        reduce_scatter, build, plain = ring_fns(label)
+    for label, (reduce_scatter, build, plain, shapes) in rings().items():
         for d in RANKS:
             fn = build(card_mesh(d))
             errors, problems = {}, []
@@ -532,7 +522,7 @@ def check_races(s: int, labels) -> None:
     cases = {False: ((block[:, None] * ones[None, :]).to(torch.bfloat16), ROWS, COLS),
              True: ((ones[:, None] * (2.0 ** block)[None, :]).to(torch.bfloat16), COLS, ROWS)}
     for label in labels:
-        reduce_scatter, build, _ = ring_fns(label)
+        reduce_scatter, build, _, _ = rings()[label]
         xg, x_spec, w_spec = cases[reduce_scatter]
         fn = build(mesh)
         x, w = shard_tensor(xg, x_spec, mesh), shard_tensor(eye, w_spec, mesh)
@@ -620,20 +610,14 @@ def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict
     return summary, counts
 
 
-def ring_bound(reduce_scatter: bool, m: int, k: int, n: int, d: int,
-               item: int, out_item: int, peak: float, bw: float) -> tuple[float, str]:
-    """The least time for one ring call: its 2mnk operations at the peak,
-    or the bytes it must move at the memory rate: X, W read once, Y written
-    once, and each of the D·(D−1) hops reading and writing its chunk; K3
-    also writes each staged partial once and reads each as accin once."""
+def ring_bound(m: int, k: int, n: int, item: int, out_item: int, peak: float,
+               bw: float) -> tuple[float, str]:
+    """The least time for the function a ring computes, Y = X·W over the
+    world: its 2mnk operations at the peak, or its bytes at the memory
+    rate, X and W read once and Y written once. The hops and staged
+    partials are the ring's own traffic, not the function's."""
     ops_s = 2.0 * m * n * k / (peak * 1e12)
-    moved = (m * k + k * n) * item + m * n * out_item
-    hops = d * (d - 1)
-    if reduce_scatter:
-        moved += 4 * hops * (m // d) * n * out_item
-    else:
-        moved += 2 * hops * (m // d) * k * item
-    bytes_s = moved / (bw * 1e9)
+    bytes_s = ((m * k + k * n) * item + m * n * out_item) / (bw * 1e9)
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
@@ -649,7 +633,7 @@ def ring_entry(label: str, counts: dict, baseline_ms: float, card: str,
 
     from tpu_matmul_bench_torch.parallel.mesh import gather
 
-    reduce_scatter, build, plain = ring_fns(label)
+    reduce_scatter, build, plain, _ = rings()[label]
     fn = build(card_mesh(RING_WORLD))
     x, w = ring_operands(fn.mesh, reduce_scatter, (size, size, size),
                          torch.bfloat16, seed=11)
@@ -674,8 +658,7 @@ def ring_entry(label: str, counts: dict, baseline_ms: float, card: str,
     library_ms = events_ms(lambda: torch.matmul(xg, wg), runs=5 if size == SIZE else 50)
     del xg, wg
     torch.cuda.empty_cache()
-    bound_ms, bound_by = ring_bound(reduce_scatter, size, size, size, RING_WORLD,
-                                    2, 2, peak, bw)
+    bound_ms, bound_by = ring_bound(size, size, size, 2, 2, peak, bw)
     products, hops = counts["ring_steps"], counts["ring_hops"]
     if label == "ring_fused":
         launches = {"ring_fused": counts["fused"]}
@@ -690,6 +673,48 @@ def ring_entry(label: str, counts: dict, baseline_ms: float, card: str,
             "tolerance": TOLERANCE["bfloat16"], "ms": kernel_ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "baseline_ms": baseline_ms}, (fn, x, w)
+
+
+def residency_probe(cap: int, l2: int, runs: int = 20) -> dict:
+    """K6 and K2 through their wrappers at half the fused ring's cap, at
+    the cap and at twice it, bf16 over RING_WORLD ranks on the card: ms and
+    TFLOP/s per size, K6's output held against its plain version, and the
+    operands' footprint (every rank's X, 2 slots, W and Y) beside the L2 the
+    card reports. If residency in L2 set K6's time, its TFLOP/s would drop
+    past the cap, where the footprint no longer fits."""
+    import torch
+
+    from tpu_matmul_bench_torch.parallel.mesh import gather
+
+    step = 128 * RING_WORLD
+    _, fused, plain, _ = rings()["ring_fused"]
+    k2 = rings()["ring_ag"][1]
+    mesh = card_mesh(RING_WORLD)
+    fn, ring = fused(mesh), k2(mesh)
+    sizes = {}
+    for size in (max(cap // 2 // step * step, step), cap, 2 * cap):
+        x, w = ring_operands(mesh, False, (size, size, size), torch.bfloat16, seed=13)
+        got, want = gather(fn(x, w)), gather(plain(x, w))
+        torch.cuda.synchronize()
+        rel = ((got.float() - want.float()).abs().max().item()
+               / (want.float().abs().max().item() or 1.0))
+        del got, want
+        ms = events_ms(lambda: fn(x, w), runs=runs)
+        k2_ms = events_ms(lambda: ring(x, w), runs=runs)
+        footprint = size * size * (4 * 2 + 2)
+        sizes[str(size)] = {
+            "footprint_bytes": footprint, "fits_l2": footprint <= l2,
+            "ms": ms, "tflops": 2.0 * size ** 3 / (ms * 1e9),
+            "k2_ms": k2_ms, "k2_tflops": 2.0 * size ** 3 / (k2_ms * 1e9),
+            "grid_blocks": fn.grid_blocks, "max_rel_err": rel}
+        del x, w
+        torch.cuda.empty_cache()
+    ok = all(v["max_rel_err"] <= TOLERANCE["bfloat16"] for v in sizes.values())
+    emit({"phase": "fused_residency", "ranks": RING_WORLD, "l2_bytes": l2,
+          "cap": cap, "sizes": sizes, "ok": ok})
+    if not ok:
+        fail("fused_residency", f"K6 differs from its plain version: {sizes}")
+    return sizes
 
 
 def main() -> None:
@@ -783,11 +808,11 @@ def main() -> None:
             "tune[ksplit,{}x{}x{},nmk]".format(*TALL),
             ["--mkn", *map(str, TALL), "--grid-order", "nmk", "--ksplit", "2"],
             out_dir, ksplit=2)
-        rings = {label: drive_overlap(mode, out_dir) for label, mode in (
+        overlaps = {label: drive_overlap(mode, out_dir) for label, mode in (
             ("ring_ag", "cuda_ring_hbm"), ("ring_rs", "cuda_ring_rs_hbm"),
             ("ring_ag_bidir", "cuda_ring_bidir_hbm"),
             ("ring_rs_bidir", "cuda_ring_bidir_rs_hbm"))}
-        rings["ring_fused"] = drive_overlap("cuda_ring", out_dir, size=cap)
+        overlaps["ring_fused"] = drive_overlap("cuda_ring", out_dir, size=cap)
         k2_at_cap, _ = drive_overlap("cuda_ring_hbm", out_dir, size=cap)
 
     # 5. the plain version's time at the headline shape
@@ -812,12 +837,12 @@ def main() -> None:
 
     # 7. the rings at bf16 16384^2 over RING_WORLD ranks on the card, the
     # fused ring at its cap, beside K2 on the same operands
-    fused_summary, fused_counts = rings.pop("ring_fused")
+    fused_summary, fused_counts = overlaps.pop("ring_fused")
     entries = {label: ring_entry(label, counts, summary["baseline_ms"], card, peak, bw)[0]
-               for label, (summary, counts) in rings.items()}
+               for label, (summary, counts) in overlaps.items()}
     entries["ring_fused"], (fused_ring, x, w) = ring_entry(
         "ring_fused", fused_counts, fused_summary["baseline_ms"], card, peak, bw, size=cap)
-    k2 = ring_fns("ring_ag")[1](fused_ring.mesh)
+    k2 = rings()["ring_ag"][1](fused_ring.mesh)
     entries["ring_fused"].update(
         cap=cap, l2_bytes=l2, grid_blocks=fused_ring.grid_blocks,
         overlap_ms=fused_summary["avg_ms"],
@@ -825,6 +850,7 @@ def main() -> None:
         k2_overlap_ms_at_cap=k2_at_cap["avg_ms"])
     del fused_ring, x, w, k2
     torch.cuda.empty_cache()
+    entries["ring_fused"]["by_size"] = residency_probe(cap, l2)
     emit({"kernels": [{
         "name": "matmul", "route": "cuda",
         "source": "tpu_matmul_bench_torch/csrc/matmul.cu",

@@ -39,8 +39,10 @@
 //   227 KB of shared memory holds no useful chunk, so here the operands stay
 //   in the card's 50 MB L2 between steps: ops/cuda_ring_fused.py caps the
 //   problem so that every rank's X, two slots, W and Y fit it together, as
-//   pallas_ring_max_size caps it to the VMEM budget. Nothing pins the lines;
-//   at the cap the working set simply fits.
+//   pallas_ring_max_size caps it to the VMEM budget. Nothing pins the lines:
+//   at the cap the working set fits the L2 the card reports, but whether
+//   the lines stay there between steps is assumed, not measured (the H100's
+//   L2 is two partitions, so what every SM sees may be less).
 // - The chunk is read with ld.global.cg (L2 only, never L1): another block
 //   wrote the slot during this launch, and the barrier orders that write
 //   before the read in L2, not in a block's L1. Nothing in the kernel is
@@ -55,11 +57,12 @@
 //   accumulation in fp32 or int32, one downcast per output element), not
 //   K1's code.
 //
-// Bound on this card: the ring does 2*m*n*k operations and moves X, W and Y
-// once plus D*(D-1) chunks (read and written). At its cap, bf16 2048^2 over 4
-// ranks on one card, that is 0.0174 ms of operations at 989 TFLOP/s against
-// 0.0225 ms of bytes at 3.35 TB/s, so it is bound by bytes; the launch and
-// the 3 barriers (a few microseconds each) are of the same order.
+// Bound on this card: the function is 2*m*n*k operations with X and W read
+// once and Y written once (the hops are the ring's own traffic). At its cap,
+// bf16 2048^2 over 4 ranks on one card, that is 0.0174 ms of operations at
+// 989 TFLOP/s against 0.0075 ms of bytes at 3.35 TB/s, so it is bound by
+// operations; the launch and the 3 barriers (a few microseconds each) are
+// of the same order.
 //
 // The entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() after the launch. A grid

@@ -37,7 +37,8 @@ copy stream for the left-going hops, so the two directions run
 independently, as the Pallas kernels' two DMA streams do, and each
 direction has its own slots and its own `free_sem` events: the forward
 writer waits on its right neighbour's reads, the backward writer on its
-left neighbour's.
+left neighbour's. One loop serves each contract: it runs over the ring's
+directions (`_Way`), one for K2 and K3, two for K4 and K5.
 
 At exit the caller's current stream waits on every rank stream, so events
 on it time the whole ring and nothing races a later call. Every buffer is
@@ -53,13 +54,13 @@ run the same slot, chunk and homing arithmetic the card runs. For CUDA
 tensors every product launches a kernel and every hop a copy, or raises:
 nothing falls back to the plain versions.
 
-Bound on the card: every ring does the work of one m×k·k×n product, 2mnk
-operations, and moves each input once, each output once and D·(D−1)
-chunks through the hops (the bidirectional rings move two half chunks a
-hop); at bf16 16384² over 4 ranks that is 8.9 ms of operations at 989
-TFLOP/s against about 1.4 ms (K2, K4) and 2.4 ms (K3, K5) of bytes at
-3.35 TB/s, so all four are bound by operations. The products are K1, so
-the rings run about as fast as K1 does.
+Bound on the card: every ring computes the function of one m×k·k×n
+product, 2mnk operations, reading each input once and writing each output
+once (the hops and staged partials are the ring's own traffic, not the
+function's); at bf16 16384² over 4 ranks that is 8.9 ms of operations at
+989 TFLOP/s against 0.48 ms of bytes at 3.35 TB/s, so all four are bound
+by operations. The products are K1, so the rings run about as fast as K1
+does.
 
 Left for later: one fused kernel per rank across cards, where SM stores or
 TMA move the chunk and flags in peer memory replace the events (the fused
@@ -71,13 +72,21 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
 import torch
 
 from tpu_matmul_bench_torch.ops import _build
 from tpu_matmul_bench_torch.ops import cuda_matmul as cm
-from tpu_matmul_bench_torch.parallel.mesh import COLS, ROWS, Mesh, Sharded, gather
+from tpu_matmul_bench_torch.parallel.mesh import (
+    COLS,
+    ROWS,
+    Mesh,
+    Sharded,
+    gather,
+    ring_perm,
+    ring_perm_rev,
+)
 from tpu_matmul_bench_torch.utils.metrics import matmul_out_dtype
 
 # Counted where each launch happens, on the card only: RING_STEPS counts the
@@ -113,6 +122,24 @@ def resolve_wres(wres: bool | None, d: int,
 # a rank's streams: products, hops (the right-going ones in K4 and K5), and
 # the left-going hops of K4 and K5
 _COMPUTE, _COPY, _COPY_BACK = 0, 1, 2
+
+
+class _Way(NamedTuple):
+    """One direction of a ring: its name, the copy stream its hops run on,
+    the rows [lo, hi) of each chunk (or accumulator) it carries, and
+    `step`, +1 for hops to the right (`ring_perm`) or −1 to the left
+    (`ring_perm_rev`)."""
+    name: str
+    copy: int
+    lo: int
+    hi: int
+    step: int
+
+    def neighbours(self, d: int, r: int) -> tuple[int, int]:
+        """(writer, reader) of rank r in this direction: the rank whose hops
+        fill r's slots, and the rank whose slots r's hops fill."""
+        right, left = dict(ring_perm(d))[r], dict(ring_perm_rev(d))[r]
+        return (left, right) if self.step > 0 else (right, left)
 
 
 class _Schedule:
@@ -283,10 +310,17 @@ class RingMatmul:
     def __call__(self, x: Sequence[torch.Tensor], w: Sequence[torch.Tensor]) -> Sharded:
         self._check(x, w)
         sched = self._schedule(x[0].is_cuda)
-        run = {(False, False): self._allgather, (True, False): self._reduce_scatter,
-               (False, True): self._allgather_bidir,
-               (True, True): self._reduce_scatter_bidir}[self.reduce_scatter, self.bidir]
+        run = self._reduce_scatter if self.reduce_scatter else self._allgather
         return run(sched, x, w)
+
+    def _ways(self, rows: int) -> list[_Way]:
+        """The ring's directions over a chunk of `rows` rows: every row
+        hops right (K2, K3), or the top rows // 2 hop right and the rest
+        left (K4, K5)."""
+        if not self.bidir:
+            return [_Way("f", _COPY, 0, rows, +1)]
+        h = rows // 2
+        return [_Way("f", _COPY, 0, h, +1), _Way("b", _COPY_BACK, h, rows, -1)]
 
     def _product(self, sched: _Schedule, r: int, a: torch.Tensor, w: torch.Tensor,
                  dest: torch.Tensor, accin: torch.Tensor | None = None):
@@ -301,49 +335,69 @@ class RingMatmul:
         return sched.mark(r, _COMPUTE)
 
     def _allgather(self, sched: _Schedule, x, w) -> Sharded:
-        """K2 (`_hbm_ring_kernel`): at step t rank r holds the chunk that
-        started at rank src = (r − t) mod D and multiplies it into Y rows
-        [src·mshard, (src+1)·mshard), while its copy stream forwards the
-        chunk into the right neighbour's slot (t+1) mod 2."""
+        """K2 (`_hbm_ring_kernel`) and K4 (`_bidir_ring_kernel`). In each
+        direction, at step t rank r holds rows [lo, hi) of the chunk that
+        started at rank src = (r − step·t) mod D and multiplies them into Y
+        rows [src·mshard + lo, src·mshard + hi), while the direction's copy
+        stream forwards them into the next rank's slot (t+1) mod 2. K2 has
+        one direction over whole chunks; K4 splits each chunk, its top half
+        going right on the first copy stream and its bottom half left on
+        the second.
+
+        Each direction's `free_sem` is the events of its own reader (its
+        product and forwarding hop): the forward writer waits on its right
+        neighbour's reads, the backward writer on its left neighbour's.
+        Unlike `_bidir_ring_kernel:98-102`, where one program waits on both
+        directions' acks before either DMA starts, a hop here never waits
+        on the other direction."""
         d = len(self.mesh.ranks)
         mshard, k = x[0].shape
         nshard = w[0].shape[1]
         out = matmul_out_dtype(x[0].dtype)
         y = [torch.empty((mshard * d, nshard), dtype=out, device=dev)
              for dev in self.mesh.devices]
-        slots = [torch.empty((2, mshard, k), dtype=x[0].dtype, device=dev)
-                 for dev in self.mesh.devices] if d > 1 else []
-        hop_done: dict[tuple[int, int], Any] = {}
-        reads: dict[tuple[int, int], tuple] = {}
+        ways = self._ways(mshard)
+        slots = {way.name: [torch.empty((2, way.hi - way.lo, k), dtype=x[0].dtype,
+                                        device=dev) for dev in self.mesh.devices]
+                 for way in ways} if d > 1 else {}
+        hop_done: dict[tuple[str, int, int], Any] = {}
+        reads: dict[tuple[str, int, int], tuple] = {}
         sched.enter()
         for t in range(d):
             for r in range(d):
-                left, right = (r - 1) % d, (r + 1) % d
-                chunk = x[r] if t == 0 else slots[r][t % 2]
-                arrived = hop_done.get((left, t - 1))  # recv_sem
-                src = (r - t) % d
-                sched.wait(r, _COMPUTE, arrived)
-                product = self._product(sched, r, chunk, w[r],
-                                        y[r][src * mshard:(src + 1) * mshard])
-                if t + 1 < d:
-                    # free_sem: the right neighbour read its slot (t+1) mod 2
-                    # at step t−1 (a slot from t−1 = 1 on; its step 0 read
-                    # its own X)
-                    freed = reads[(right, t - 1)] if t >= 2 else ()
-                    sched.wait(r, _COPY, arrived, *freed)
-                    _hop(sched, r, slots[right][(t + 1) % 2], chunk)
-                    hop_done[(r, t)] = sched.mark(r, _COPY)
-                reads[(r, t)] = (product, hop_done.get((r, t)))
+                for way in ways:
+                    writer, reader = way.neighbours(d, r)
+                    chunk = x[r][way.lo:way.hi] if t == 0 else slots[way.name][r][t % 2]
+                    row0 = (r - way.step * t) % d * mshard
+                    arrived = hop_done.get((way.name, writer, t - 1))  # recv_sem
+                    sched.wait(r, _COMPUTE, arrived)
+                    product = self._product(sched, r, chunk, w[r],
+                                            y[r][row0 + way.lo:row0 + way.hi])
+                    if t + 1 < d:
+                        # free_sem: the reader read its slot (t+1) mod 2 at
+                        # step t−1 (a slot from t−1 = 1 on; its step 0 read
+                        # its own X)
+                        freed = reads[(way.name, reader, t - 1)] if t >= 2 else ()
+                        sched.wait(r, way.copy, arrived, *freed)
+                        _hop(sched, r, slots[way.name][reader][(t + 1) % 2], chunk,
+                             way.copy)
+                        hop_done[(way.name, r, t)] = sched.mark(r, way.copy)
+                    reads[(way.name, r, t)] = (product, hop_done.get((way.name, r, t)))
         sched.leave()
         return Sharded(y, COLS)
 
     def _reduce_scatter(self, sched: _Schedule, x, w) -> Sharded:
-        """K3 (`_hbm_ring_rs_kernel`): at step t rank r holds the
-        accumulator of row chunk c = (r − 1 − t) mod D, adds its own
-        product of those rows to the partial that arrived in receive slot
-        t mod 2 (the pickup kernel; plain K1 at t = 0), and sends the sum
-        from staging slot t mod 2 into the right neighbour's receive slot
-        (t+1) mod 2. After D−1 hops chunk r is home; the last step writes Y.
+        """K3 (`_hbm_ring_rs_kernel`) and K5 (`_bidir_rs_kernel`). In each
+        direction, at step t rank r holds rows [lo, hi) of the accumulator
+        of row chunk c = (r − step·(1+t)) mod D, adds its own product of
+        those rows to the partial that arrived in its receive slot t mod 2
+        (the pickup kernel; plain K1 at t = 0), and sends the sum from
+        staging slot t mod 2 into the next rank's receive slot (t+1) mod 2.
+        A staging slot is written again only after the hop that read it,
+        two steps earlier. After D−1 hops chunk r is home; the last step
+        writes Y rows [lo, hi). K3 has one direction over whole chunks; K5
+        splits each accumulator, its top half going right and its bottom
+        half left, and a hop waits only on its own direction's events.
         Partials are carried in the output dtype, rounded at every hop."""
         d = len(self.mesh.ranks)
         m, _ = x[0].shape
@@ -351,155 +405,38 @@ class RingMatmul:
         mshard = m // d
         out = matmul_out_dtype(x[0].dtype)
         y = [torch.empty((mshard, n), dtype=out, device=dev) for dev in self.mesh.devices]
-        recv, stage = [], []
-        if d > 1:
-            recv = [torch.empty((2, mshard, n), dtype=out, device=dev)
-                    for dev in self.mesh.devices]
-            stage = [torch.empty((2, mshard, n), dtype=out, device=dev)
-                     for dev in self.mesh.devices]
-        hop_done: dict[tuple[int, int], Any] = {}
-        product: dict[tuple[int, int], Any] = {}
-        sched.enter()
-        for t in range(d):
-            for r in range(d):
-                left, right = (r - 1) % d, (r + 1) % d
-                c = (r - 1 - t) % d
-                rows = x[r][c * mshard:(c + 1) * mshard]
-                last = t + 1 == d
-                dest = y[r] if last else stage[r][t % 2]
-                # recv_sem of this step's partial; send_sem of the hop that
-                # last read this staging slot, two steps ago
-                sched.wait(r, _COMPUTE, hop_done.get((left, t - 1)),
-                           hop_done.get((r, t - 2)))
-                product[(r, t)] = self._product(sched, r, rows, w[r], dest,
-                                                recv[r][t % 2] if t else None)
-                if not last:
-                    # free_sem: the right neighbour's pickup read its slot
-                    # (t+1) mod 2 at step t−1 (a slot from t−1 = 1 on)
-                    freed = product[(right, t - 1)] if t >= 2 else None
-                    sched.wait(r, _COPY, product[(r, t)], freed)
-                    _hop(sched, r, recv[right][(t + 1) % 2], dest)
-                    hop_done[(r, t)] = sched.mark(r, _COPY)
-        sched.leave()
-        return Sharded(y, ROWS)
+        ways = self._ways(mshard)
 
-    def _allgather_bidir(self, sched: _Schedule, x, w) -> Sharded:
-        """K4 (`_bidir_ring_kernel`): K2 with each chunk split. At step t
-        rank r multiplies the forward half (the top h rows of the chunk that
-        started at src_f = (r − t) mod D) into Y rows [src_f·mshard,
-        src_f·mshard + h) and the backward half (the bottom mshard − h rows
-        of the chunk that started at src_b = (r + t) mod D) into Y rows
-        [src_b·mshard + h, (src_b+1)·mshard). Its first copy stream forwards
-        the top half into the right neighbour's forward slot (t+1) mod 2,
-        its second copy stream the bottom half into the left neighbour's
-        backward slot (t+1) mod 2.
+        def slots() -> dict[str, list[torch.Tensor]]:
+            return {way.name: [torch.empty((2, way.hi - way.lo, n), dtype=out, device=dev)
+                               for dev in self.mesh.devices]
+                    for way in ways} if d > 1 else {}
 
-        Each direction's `free_sem` is the events of its own reader: the
-        forward writer waits on its right neighbour's forward product and
-        hop, the backward writer on its left neighbour's backward product
-        and hop. Unlike `_bidir_ring_kernel:98-102`, where one program waits
-        on both directions' acks before either DMA starts, a hop here never
-        waits on the other direction."""
-        d = len(self.mesh.ranks)
-        mshard, k = x[0].shape
-        nshard = w[0].shape[1]
-        h = mshard // 2
-        out = matmul_out_dtype(x[0].dtype)
-        y = [torch.empty((mshard * d, nshard), dtype=out, device=dev)
-             for dev in self.mesh.devices]
-        fslots, bslots = [], []
-        if d > 1:
-            fslots = [torch.empty((2, h, k), dtype=x[0].dtype, device=dev)
-                      for dev in self.mesh.devices]
-            bslots = [torch.empty((2, mshard - h, k), dtype=x[0].dtype, device=dev)
-                      for dev in self.mesh.devices]
-        hop_done: dict[tuple[str, int, int], Any] = {}
-        reads: dict[tuple[str, int, int], tuple] = {}
-        sched.enter()
-        for t in range(d):
-            for r in range(d):
-                left, right = (r - 1) % d, (r + 1) % d
-                # (direction, its copy stream, chunk, where its Y rows start,
-                # whose hop filled the slot, whose reads free the next one,
-                # the next rank's slot)
-                fwd = ("f", _COPY, x[r][:h] if t == 0 else fslots[r][t % 2],
-                       (r - t) % d * mshard, left, right,
-                       fslots[right][(t + 1) % 2] if t + 1 < d else None)
-                bwd = ("b", _COPY_BACK, x[r][h:] if t == 0 else bslots[r][t % 2],
-                       (r + t) % d * mshard + h, right, left,
-                       bslots[left][(t + 1) % 2] if t + 1 < d else None)
-                for way, copy, chunk, row0, writer, reader, dst in (fwd, bwd):
-                    arrived = hop_done.get((way, writer, t - 1))  # recv_sem
-                    sched.wait(r, _COMPUTE, arrived)
-                    product = self._product(sched, r, chunk, w[r],
-                                            y[r][row0:row0 + chunk.shape[0]])
-                    if dst is not None:
-                        # free_sem: the reader read its slot (t+1) mod 2 at
-                        # step t−1 (a slot from t−1 = 1 on)
-                        freed = reads[(way, reader, t - 1)] if t >= 2 else ()
-                        sched.wait(r, copy, arrived, *freed)
-                        _hop(sched, r, dst, chunk, copy)
-                        hop_done[(way, r, t)] = sched.mark(r, copy)
-                    reads[(way, r, t)] = (product, hop_done.get((way, r, t)))
-        sched.leave()
-        return Sharded(y, COLS)
-
-    def _reduce_scatter_bidir(self, sched: _Schedule, x, w) -> Sharded:
-        """K5 (`_bidir_rs_kernel`): K3 with each output chunk's
-        accumulator split. At step t rank r adds its product of the top h
-        rows of chunk cf = (r − 1 − t) mod D to the forward partial in its
-        forward receive slot t mod 2 and sends the sum right; it adds its
-        product of the bottom mshard − h rows of chunk cb = (r + 1 + t) mod
-        D to the backward partial and sends that left. Each direction has 2
-        receive slots and 2 staging slots; a staging slot is written again
-        only after the hop that read it two steps earlier. Step 0 is plain
-        K1, later steps the pickup; the last step writes both halves
-        straight into Y rows [0, h) and [h, mshard). Partials are carried in
-        the output dtype, rounded at every hop. A hop waits only on its own
-        direction's events."""
-        d = len(self.mesh.ranks)
-        m, _ = x[0].shape
-        n = w[0].shape[1]
-        mshard = m // d
-        h = mshard // 2
-        out = matmul_out_dtype(x[0].dtype)
-        y = [torch.empty((mshard, n), dtype=out, device=dev) for dev in self.mesh.devices]
-
-        def slots(rows: int) -> list[torch.Tensor]:
-            return [torch.empty((2, rows, n), dtype=out, device=dev)
-                    for dev in self.mesh.devices] if d > 1 else []
-
-        frecv, fstage, brecv, bstage = slots(h), slots(h), slots(mshard - h), slots(mshard - h)
+        recv, stage = slots(), slots()
         hop_done: dict[tuple[str, int, int], Any] = {}
         product: dict[tuple[str, int, int], Any] = {}
         sched.enter()
         for t in range(d):
             last = t + 1 == d
             for r in range(d):
-                left, right = (r - 1) % d, (r + 1) % d
-                cf, cb = (r - 1 - t) % d, (r + 1 + t) % d
-                # (direction, its copy stream, rows of X, receive and staging
-                # slots, the rows of Y it ends in, who writes our receive
-                # slot, whose receive slot we write)
-                fwd = ("f", _COPY, x[r][cf * mshard:cf * mshard + h], frecv, fstage,
-                       y[r][:h], left, right)
-                bwd = ("b", _COPY_BACK, x[r][cb * mshard + h:(cb + 1) * mshard], brecv,
-                       bstage, y[r][h:], right, left)
-                for way, copy, rows, recv, stage, home, writer, reader in (fwd, bwd):
-                    dest = home if last else stage[r][t % 2]
+                for way in ways:
+                    writer, reader = way.neighbours(d, r)
+                    row0 = (r - way.step * (1 + t)) % d * mshard
+                    rows = x[r][row0 + way.lo:row0 + way.hi]
+                    dest = y[r][way.lo:way.hi] if last else stage[way.name][r][t % 2]
                     # recv_sem of this step's partial; send_sem of the hop
                     # that last read this staging slot, two steps ago
-                    sched.wait(r, _COMPUTE, hop_done.get((way, writer, t - 1)),
-                               hop_done.get((way, r, t - 2)))
-                    product[(way, r, t)] = self._product(
-                        sched, r, rows, w[r], dest, recv[r][t % 2] if t else None)
+                    sched.wait(r, _COMPUTE, hop_done.get((way.name, writer, t - 1)),
+                               hop_done.get((way.name, r, t - 2)))
+                    product[(way.name, r, t)] = self._product(
+                        sched, r, rows, w[r], dest, recv[way.name][r][t % 2] if t else None)
                     if not last:
-                        # free_sem: the reader's pickup read its slot
-                        # (t+1) mod 2 at step t−1 (a slot from t−1 = 1 on)
-                        freed = product[(way, reader, t - 1)] if t >= 2 else None
-                        sched.wait(r, copy, product[(way, r, t)], freed)
-                        _hop(sched, r, recv[reader][(t + 1) % 2], dest, copy)
-                        hop_done[(way, r, t)] = sched.mark(r, copy)
+                        # free_sem: the reader's pickup read its slot (t+1)
+                        # mod 2 at step t−1 (a slot from t−1 = 1 on)
+                        freed = product[(way.name, reader, t - 1)] if t >= 2 else None
+                        sched.wait(r, way.copy, product[(way.name, r, t)], freed)
+                        _hop(sched, r, recv[way.name][reader][(t + 1) % 2], dest, way.copy)
+                        hop_done[(way.name, r, t)] = sched.mark(r, way.copy)
         sched.leave()
         return Sharded(y, ROWS)
 

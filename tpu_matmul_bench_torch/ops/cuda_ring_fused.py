@@ -7,8 +7,9 @@ Replaces `tpu_matmul_bench/ops/pallas_ring.py` (`_ring_kernel`,
 P("x", None), W column-sharded P(None, "x") and Y column-sharded
 P(None, "x"), with every operand resident on the chip and the whole ring
 inside one kernel. The Pallas kernel keeps the operands in VMEM; here they
-stay in the card's L2, and `parallel/overlap.py cuda_ring_max_size` caps
-the size as `pallas_ring_max_size` caps it to the VMEM budget. The source
+are meant to stay in the card's L2 (nothing pins them, and no run has
+measured it), and `parallel/overlap.py cuda_ring_max_size` caps the size
+as `pallas_ring_max_size` caps it to the VMEM budget. The source
 says why one grid-wide barrier a step replaces the three semaphores.
 
 It runs on the caller's current stream, with no rank streams and no events,
