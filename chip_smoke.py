@@ -7,15 +7,21 @@ Run from the repository root, on a machine with one NVIDIA card:
 
 It builds every CUDA kernel of the port (`tpu_matmul_bench_torch/csrc/`)
 from the sources in the checkout, prints each kernel's registers and spill
-bytes, holds each kernel against its plain PyTorch version on the card
-(every tile and grid order of the GEMM, its split-K form with the
-reduction, its pickup form, and the five ring matmuls over 1, 2 and 4
-ranks, with a 20-call race check of each HBM ring at 2048² and at the main
-path's 16384² over 4 ranks, and of the fused ring at its cap), drives the
-port's paths through their normal entry points, then holds every shard of
-each ring's output at the main path's shape (the fused ring's at its cap)
-against its plain version, and times the fused ring and its HBM form at
-half its cap, at the cap and at twice it. The paths:
+bytes and the resident blocks per SM of the tensor-core kernels, and fails
+if ptxas serialised a wgmma kernel's wgmma or ignored its setmaxnreg. It
+holds each kernel against its plain PyTorch version on the card (every tile
+and grid order of the GEMM, every tile and epilogue of its wgmma route,
+its split-K form with the reduction, its pickup form, and the five ring
+matmuls over 1, 2 and 4 ranks, with a 20-call race check of each HBM ring
+at 2048² and at the main path's 16384² over 4 ranks, and of the fused ring
+at its cap), drives the port's paths through their normal entry points,
+then holds every shard of each ring's output at the main path's shape (the
+fused ring's at its cap) against its plain version, and times the fused
+ring and its HBM form at half its cap, at the cap and at twice it. Each GEMM
+launch is counted by route (`cuda_matmul.LAUNCHES_BY_ROUTE`): the headline
+run, the split-K tune runs and every ring product at 16384² must take the
+wgmma route, the fused ring its wgmma form, and the unaligned shapes the
+wmma route. The paths:
 
 - the single-device bf16 16384x16384 matmul benchmark through the
   hand-written kernel, `tpu_matmul_bench_torch.benchmarks.matmul_benchmark
@@ -58,7 +64,20 @@ SHAPES = [(7, 13, 5), (129, 64, 257), (1000, 1000, 1000), (8192, 4096, 28672)]
 TOLERANCE = {"bfloat16": 1e-2, "float16": 2e-3, "float32": 1e-4, "int8": 0.0}
 ITERATIONS, WARMUP = 50, 10
 # every tensor-core tile x grid order: the ragged and the vector load paths
+# of the wmma route (129x64x257) and the wgmma route (1000^3)
 TILE_SHAPES = [(129, 64, 257), (1000, 1000, 1000)]
+# SHAPES whose rows TMA cannot describe (26 and 514 bytes): the wmma route
+UNALIGNED = [(7, 13, 5), (129, 64, 257)]
+# the wgmma route's cases at every tile, in bf16 and f16: the aligned ragged
+# SHAPES with the plain and the fp32 store, K-split partials at S = 2 and 3
+# (K = 3072 splits both ways into 128-aligned slabs), the pickup at
+# ACC_SHAPES' aligned shape and at a ragged one with strided accin and C,
+# and a K slab of a wider A (a strided view)
+WGMMA_DTYPES = ["bfloat16", "float16"]
+WGMMA_SHAPES = [(1000, 1000, 1000), (8192, 4096, 28672)]
+WGMMA_KSPLIT = [((1000, 3072, 1000), 2), ((1000, 3072, 1000), 3), ((8192, 4096, 28672), 2)]
+WGMMA_PICKUP = [((1000, 1000, 1000), 0), ((520, 264, 1000), 24)]  # (m, k, n), extra row pad
+WGMMA_SLAB = (1000, 1000, 1000, 128)  # (m, k, n, k0): A[:, k0:k0+k] of an m x (k + 256) A
 TILE_DTYPES = ["bfloat16", "float16", "int8"]
 TALL = (28672, 4096, 8192)  # (m, k, n): the tall-M rectangle of the split-K
 # split-K cases: (dtype, (m, k, n), splits); K=512 with 3 splits has no
@@ -143,12 +162,40 @@ def compare(dtype_name: str, mkn, kernel, plain) -> dict:
             "ok": ok_shape and finite and rel <= TOLERANCE[dtype_name]}
 
 
+def routes() -> dict:
+    """A snapshot of the launches by route: the GEMM's ("gemm:wgmma", ...)
+    and the fused ring's ("fused:wgmma", ...)."""
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.ops import cuda_ring_fused as crf
+
+    return {**{f"gemm:{r}": n for r, n in cm.LAUNCHES_BY_ROUTE.items()},
+            **{f"fused:{r}": n for r, n in crf.FUSED_LAUNCHES_BY_ROUTE.items()}}
+
+
+def routes_since(before: dict) -> dict:
+    """The launches by route since the snapshot `before`, those that rose."""
+    return {r: n - before[r] for r, n in routes().items() if n != before[r]}
+
+
+def expected_route(dtype_name: str, mkn) -> str:
+    """The route a product of these operands must take: fp32 the SIMT
+    kernel, int8 and the unaligned shapes wmma, the rest wgmma."""
+    if dtype_name == "float32":
+        return "simt"
+    return "wmma" if dtype_name == "int8" or tuple(mkn) in UNALIGNED else "wgmma"
+
+
 def check_kernel(dtype_name: str, mkn) -> dict:
-    """One kernel-vs-plain case of the default tile on the card."""
+    """One kernel-vs-plain case of the default tile on the card, with the
+    route its one launch took."""
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
 
-    return {"phase": "kernel_vs_plain", "kernel": "matmul",
-            **compare(dtype_name, mkn, cm.cuda_matmul, cm.matmul_plain)}
+    before = routes()
+    result = compare(dtype_name, mkn, cm.cuda_matmul, cm.matmul_plain)
+    launched, want = routes_since(before), f"gemm:{expected_route(dtype_name, mkn)}"
+    result.update(phase="kernel_vs_plain", kernel="matmul", routes=launched, want_route=want,
+                  ok=result["ok"] and launched == {want: 1})
+    return result
 
 
 def check_tiles() -> None:
@@ -161,22 +208,85 @@ def check_tiles() -> None:
 
     for tile in cm.TILES:
         for order in cm.GRID_ORDERS:
-            before = cm.LAUNCHES
+            before, routes0 = cm.LAUNCHES, routes()
             cases = [compare(d, s, lambda a, b: cm.cuda_matmul(
                          a, b, blocks=tile, grid_order=order), cm.matmul_plain)
                      for d in TILE_DTYPES for s in TILE_SHAPES]
-            launched = cm.LAUNCHES - before
-            ok = all(c["ok"] for c in cases) and launched == len(cases)
+            launched, by_route = cm.LAUNCHES - before, routes_since(routes0)
+            want = {}
+            for d in TILE_DTYPES:
+                for s in TILE_SHAPES:
+                    r = f"gemm:{expected_route(d, s)}"
+                    want[r] = want.get(r, 0) + 1
+            ok = all(c["ok"] for c in cases) and launched == len(cases) and by_route == want
             emit({"phase": "kernel_vs_plain[tiles]", "tile": list(tile),
-                  "grid_order": order, "launches": launched,
+                  "grid_order": order, "launches": launched, "routes": by_route,
                   "max_rel_err": {f"{c['dtype']}@{'x'.join(map(str, c['shape']))}":
                                   c["max_rel_err"] for c in cases},
                   "ok": ok})
             if not ok:
                 fail("kernel_vs_plain[tiles]",
                      f"tile {tile} {order}: {[c for c in cases if not c['ok']]}"
-                     f" (launches {launched})")
+                     f" (launches {launched}, routes {by_route}, want {want})")
     torch.cuda.empty_cache()
+
+
+def check_wgmma() -> None:
+    """The wgmma route against the plain versions at every tile, in bf16 and
+    f16: the plain and fp32 stores, K-split partials, the pickup (also with
+    strided accin and C) and a strided K slab of A. Every case must launch
+    the wgmma route once (the split-K's reduction aside). One line per
+    (dtype, tile)."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.ops.matmul import random_operands
+
+    def one(label, dtype_name, mkn, kernel, plain):
+        before = routes()
+        result = compare(dtype_name, mkn, kernel, plain)
+        launched = routes_since(before)
+        return label, result, launched == {"gemm:wgmma": 1}, launched
+
+    for dtype_name in WGMMA_DTYPES:
+        dtype = getattr(torch, dtype_name)
+        for tile in cm.TILES:
+            cases = []
+            for mkn in WGMMA_SHAPES:
+                cases.append(one(f"plain@{mkn}", dtype_name, mkn,
+                                 lambda a, b: cm.cuda_matmul(a, b, blocks=tile),
+                                 cm.matmul_plain))
+                cases.append(one(f"f32_out@{mkn}", dtype_name, mkn,
+                                 lambda a, b: cm.cuda_matmul(a, b, blocks=tile,
+                                                             out_dtype=torch.float32),
+                                 lambda a, b: cm.matmul_plain(a, b, out_dtype=torch.float32)))
+            for mkn, splits in WGMMA_KSPLIT:
+                cases.append(one(f"ksplit{splits}@{mkn}", dtype_name, mkn,
+                                 lambda a, b: cm.cuda_matmul_ksplit(a, b, splits=splits,
+                                                                    blocks=tile),
+                                 lambda a, b: cm.matmul_ksplit_plain(a, b, splits=splits)))
+            for (m, k, n), pad in WGMMA_PICKUP:
+                (wide,) = random_operands(5, (m, n + pad), dtype, device="cuda", count=1)
+                accin = wide[:, pad:]  # rows n + pad apart when pad > 0
+                out = torch.empty((m, n + pad), dtype=dtype, device="cuda")[:, :n]
+                cases.append(one(f"pickup(pad {pad})@{(m, k, n)}", dtype_name, (m, k, n),
+                                 lambda a, b: cm.cuda_matmul_acc(a, b, accin, out,
+                                                                 blocks=tile),
+                                 lambda a, b: cm.matmul_acc_plain(a, b, accin)))
+            m, k, n, k0 = WGMMA_SLAB
+            (wide_a,) = random_operands(6, (m, k + 256), dtype, device="cuda", count=1)
+            cases.append(one(f"slab@{(m, k, n)}", dtype_name, (m, k, n),
+                             lambda a, b: cm.cuda_matmul(wide_a[:, k0:k0 + k], b, blocks=tile),
+                             lambda a, b: cm.matmul_plain(wide_a[:, k0:k0 + k], b)))
+            bad = [(label, r, launched) for label, r, routed, launched in cases
+                   if not (r["ok"] and routed)]
+            emit({"phase": "kernel_vs_plain[wgmma]", "dtype": dtype_name, "tile": list(tile),
+                  "max_rel_err": {label: r["max_rel_err"] for label, r, _, _ in cases},
+                  "tolerance": TOLERANCE[dtype_name], "ok": not bad})
+            if bad:
+                fail("kernel_vs_plain[wgmma]", f"{dtype_name} tile {tile}: {bad}")
+            del cases
+            torch.cuda.empty_cache()
 
 
 def check_ksplit() -> dict:
@@ -213,7 +323,8 @@ def check_ksplit() -> dict:
 
 def drive(impl: str, timing: str, out_dir: str) -> tuple[dict, int]:
     """One main-path run through the benchmark's entry point; returns the
-    record's summary and the kernel launches counted during it."""
+    record's summary and the kernel launches counted during it, every one
+    of them on the wgmma route."""
     from tpu_matmul_bench_torch.benchmarks import matmul_benchmark
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
     from tpu_matmul_bench_torch.utils.telemetry import is_manifest
@@ -223,9 +334,10 @@ def drive(impl: str, timing: str, out_dir: str) -> tuple[dict, int]:
             "--matmul-impl", impl, "--validate", "--iterations", str(ITERATIONS),
             "--warmup", str(WARMUP), "--timing", timing, "--json-out", path]
     cm.LAUNCHES = 0
+    before = routes()
     with contextlib.redirect_stdout(sys.stderr):
         records = matmul_benchmark.main(argv)
-    launches = cm.LAUNCHES
+    launches, by_route = cm.LAUNCHES, routes_since(before)
     phase = f"main_path[{impl},{timing}]"
     if len(records) != 1:
         fail(phase, f"expected one record, got {len(records)} (the runner "
@@ -240,7 +352,7 @@ def drive(impl: str, timing: str, out_dir: str) -> tuple[dict, int]:
         "validation": rec.extras.get("validation"),
         "validation_max_rel_err": rec.extras.get("validation_max_rel_err"),
         "iterations": rec.iterations, "launches": launches,
-        "device_kind": rec.device_kind,
+        "launches_by_route": by_route, "device_kind": rec.device_kind,
     }
     problems = []
     if rec.extras.get("validation") != "ok":
@@ -255,6 +367,8 @@ def drive(impl: str, timing: str, out_dir: str) -> tuple[dict, int]:
         problems.append("the JSONL does not hold the record after the manifest")
     if impl == "cuda" and launches <= 0:
         problems.append("the hand-written kernel was not launched")
+    if impl == "cuda" and by_route != {"gemm:wgmma": launches}:
+        problems.append(f"launches by route {by_route}: not all {launches} on wgmma")
     if impl == "torch" and launches != 0:
         problems.append("the library run launched the hand-written kernel")
     summary["ok"] = not problems
@@ -268,7 +382,7 @@ def tune(phase: str, extra: list[str], out_dir: str,
          ksplit: int = 1) -> tuple[dict, int, int]:
     """One tune run through the tuner's entry point over every tile.
     Returns {tile: sweep ms} and the GEMM and reduction launches counted
-    during it."""
+    during it; every GEMM launch must take the wgmma route."""
     from tpu_matmul_bench_torch.benchmarks import cuda_tune
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
     from tpu_matmul_bench_torch.utils.telemetry import is_manifest
@@ -281,9 +395,10 @@ def tune(phase: str, extra: list[str], out_dir: str,
             "--json-out", path, *extra]
     cm.LAUNCHES = 0
     cm.REDUCE_LAUNCHES = 0
+    before = routes()
     with contextlib.redirect_stdout(sys.stderr):
         records = cuda_tune.main(argv)
-    gemm, reduce = cm.LAUNCHES, cm.REDUCE_LAUNCHES
+    gemm, reduce, by_route = cm.LAUNCHES, cm.REDUCE_LAUNCHES, routes_since(before)
     with open(path) as fh:
         lines = [json.loads(line) for line in fh if line.strip()]
     sweep = [r for r in records if not r.extras.get("confirm_pass")]
@@ -315,6 +430,8 @@ def tune(phase: str, extra: list[str], out_dir: str,
         problems.append("the JSONL does not hold every record after the manifest")
     if gemm <= 0:
         problems.append("the GEMM kernel was not launched")
+    if by_route != {"gemm:wgmma": gemm}:
+        problems.append(f"launches by route {by_route}: not all {gemm} on wgmma")
     if ksplit > 1 and reduce <= 0:
         problems.append("the split-K reduction was not launched")
     if ksplit == 1 and reduce != 0:
@@ -327,7 +444,7 @@ def tune(phase: str, extra: list[str], out_dir: str,
                    "x".join(map(str, tile(r))): r.peak_efficiency_pct
                    for r in sweep},
                "gemm_launches": gemm, "reduce_launches": reduce,
-               "ok": not problems}
+               "launches_by_route": by_route, "ok": not problems}
     emit(summary)
     if problems:
         fail(phase, "; ".join(problems))
@@ -359,7 +476,8 @@ def ksplit_entry(shape, max_abs_err: float, gemm: int, reduce: int,
             "bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "max_abs_err": max_abs_err,
-            "launches": gemm + reduce,
+            "launches": gemm + reduce, "gemm_route": "wgmma",
+            "launches_by_route": {"gemm:wgmma": gemm},
             "launches_by_kernel": {"matmul_ksplit": gemm,
                                    "reduce_partials": reduce}}
 
@@ -474,14 +592,16 @@ def check_rings() -> None:
     for label, (reduce_scatter, build, plain, shapes) in rings().items():
         for d in RANKS:
             fn = build(card_mesh(d))
-            errors, problems = {}, []
+            errors, problems, by_route = {}, [], {}
             for dtype_name in TOLERANCE:
                 for mkn in shapes:
                     x, w = ring_operands(fn.mesh, reduce_scatter, mkn,
                                          getattr(torch, dtype_name), seed=7)
-                    before = ring_counts()
+                    before, routes0 = ring_counts(), routes()
                     got = gather(fn(x, w))
                     launched = tuple(a - b for a, b in zip(ring_counts(), before))
+                    for r, n in routes_since(routes0).items():
+                        by_route[r] = by_route.get(r, 0) + n
                     want = gather(plain(x, w))
                     torch.cuda.synchronize()
                     rel = ((got.double() - want.double()).abs().max().item()
@@ -497,7 +617,8 @@ def check_rings() -> None:
                         problems.append(f"{case}: launched (products, hops, fused) "
                                         f"{launched}, not {per_call(label, d)}")
             emit({"phase": f"kernel_vs_plain[{label}]", "ranks": d,
-                  "max_rel_err": errors, "tolerance": TOLERANCE, "ok": not problems})
+                  "max_rel_err": errors, "tolerance": TOLERANCE,
+                  "launches_by_route": by_route, "ok": not problems})
             if problems:
                 fail(f"kernel_vs_plain[{label}]", f"D={d}: {problems}")
             torch.cuda.empty_cache()
@@ -540,7 +661,8 @@ def check_races(s: int, labels) -> None:
 
 def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict]:
     """One overlap run through the program's entry point, its ranks on the
-    card; returns the record's summary and the launches counted during it."""
+    card; returns the record's summary and the launches counted during it.
+    Every GEMM launch must take the wgmma route, and K6 its wgmma form."""
     from tpu_matmul_bench_torch.benchmarks import matmul_overlap_benchmark
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
     from tpu_matmul_bench_torch.ops import cuda_ring as cr
@@ -555,11 +677,12 @@ def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict
     cm.LAUNCHES = cm.ACC_LAUNCHES = 0
     cr.RING_STEPS = cr.HOP_LAUNCHES = 0
     crf.FUSED_RING_LAUNCHES = 0
+    before = routes()
     with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
         records = matmul_overlap_benchmark.main(argv)
     counts = {"matmul": cm.LAUNCHES, "matmul_acc": cm.ACC_LAUNCHES,
               "ring_steps": cr.RING_STEPS, "ring_hops": cr.HOP_LAUNCHES,
-              "fused": crf.FUSED_RING_LAUNCHES}
+              "fused": crf.FUSED_RING_LAUNCHES, "routes": routes_since(before)}
     phase = f"overlap[{mode}]" if size == SIZE else f"overlap[{mode},{size}]"
     if len(records) != 1:
         fail(phase, f"expected one record, got {len(records)} (the runner "
@@ -603,6 +726,13 @@ def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict
         problems.append(f"a kernel of the path was not launched: {counts}")
     if "_rs_" in mode and counts["matmul_acc"] <= 0:
         problems.append("the pickup kernel was not launched")
+    # every product (the baseline's and the ring's) on wgmma, K6 in its
+    # wgmma form
+    want = {"gemm:wgmma": counts["matmul"] + counts["matmul_acc"]}
+    if fused:
+        want["fused:wgmma"] = counts["fused"]
+    if counts["routes"] != want:
+        problems.append(f"launches by route {counts['routes']}, not {want}")
     summary["ok"] = not problems
     emit(summary)
     if problems:
@@ -668,6 +798,7 @@ def ring_entry(label: str, counts: dict, baseline_ms: float, card: str,
     return {"route": "cuda", "dtype": "bfloat16", "card": card,
             "shape": f"{size}x{size}x{size}", "ranks": RING_WORLD, "cards": 1,
             "launches": counts["fused"] if label == "ring_fused" else products + hops,
+            "gemm_route": "wgmma", "launches_by_route": counts["routes"],
             "launches_by_kernel": launches,
             "max_abs_err": max_abs_err, "max_rel_err": max_rel_err,
             "tolerance": TOLERANCE["bfloat16"], "ms": kernel_ms, "kernel_ms": kernel_ms,
@@ -706,14 +837,16 @@ def residency_probe(cap: int, l2: int, runs: int = 20) -> dict:
             "footprint_bytes": footprint, "fits_l2": footprint <= l2,
             "ms": ms, "tflops": 2.0 * size ** 3 / (ms * 1e9),
             "k2_ms": k2_ms, "k2_tflops": 2.0 * size ** 3 / (k2_ms * 1e9),
-            "grid_blocks": fn.grid_blocks, "max_rel_err": rel}
+            "grid_blocks": fn.grid_blocks, "route": fn.route, "max_rel_err": rel}
         del x, w
         torch.cuda.empty_cache()
-    ok = all(v["max_rel_err"] <= TOLERANCE["bfloat16"] for v in sizes.values())
+    ok = all(v["max_rel_err"] <= TOLERANCE["bfloat16"] and v["route"] == "wgmma"
+             for v in sizes.values())
     emit({"phase": "fused_residency", "ranks": RING_WORLD, "l2_bytes": l2,
           "cap": cap, "sizes": sizes, "ok": ok})
     if not ok:
-        fail("fused_residency", f"K6 differs from its plain version: {sizes}")
+        fail("fused_residency", f"K6 differs from its plain version or left its "
+                                f"wgmma form: {sizes}")
     return sizes
 
 
@@ -730,6 +863,7 @@ def main() -> None:
             matmul_plain,
             occupancy,
         )
+        from tpu_matmul_bench_torch.ops.cuda_ring_fused import occupancy as fused_occupancy
         from tpu_matmul_bench_torch.ops.matmul import random_operands
         from tpu_matmul_bench_torch.parallel.overlap import cuda_ring_max_size, l2_bytes
         from tpu_matmul_bench_torch.utils.device import apply_matmul_precision
@@ -758,13 +892,27 @@ def main() -> None:
         libs = _build.build()
         seconds = time.perf_counter() - t0
         resources = {name: _build.resource_usage(name) for name in libs}
-        blocks_per_sm = {"x".join(map(str, t)): occupancy(t, torch.bfloat16)
-                         for t in TILES}
+        blocks_per_sm = {route: {"x".join(map(str, t)): occupancy(t, torch.bfloat16,
+                                                                   route=route)
+                                 for t in TILES} for route in ("wmma", "wgmma")}
+        blocks_per_sm["ring_fused"] = {route: fused_occupancy(torch.bfloat16, route)
+                                       for route in ("wmma", "wgmma")}
     except (_build.KernelBuildError, OSError, RuntimeError) as e:
         fail("build", str(e))
+    # ptxas must neither serialise a wgmma kernel's wgmma nor ignore its
+    # setmaxnreg: either costs most of what the route is for
+    warned = {f"{lib}:{kernel}": usage["warnings"] for lib, kernels in resources.items()
+              for kernel, usage in kernels.items()
+              if "wgmma" in kernel and usage.get("warnings")}
+    wgmma_kernels = sum("wgmma" in k for kernels in resources.values() for k in kernels)
     emit({"phase": "build", "seconds": seconds,
           "libraries": {k: str(v) for k, v in libs.items()},
-          "resources": resources, "bf16_blocks_per_sm": blocks_per_sm})
+          "resources": resources, "bf16_blocks_per_sm": blocks_per_sm,
+          "wgmma_kernels": wgmma_kernels, "wgmma_warnings": warned,
+          "ok": not warned and wgmma_kernels > 0})
+    if warned or not wgmma_kernels:
+        fail("build", f"ptxas warned on wgmma kernels: {warned}" if warned
+             else "no wgmma kernel was built")
 
     # 3. each kernel against its plain version, on the card, in true fp32
     apply_matmul_precision("highest")
@@ -781,6 +929,7 @@ def main() -> None:
             headline_err = result["max_abs_err"]
         torch.cuda.empty_cache()
     check_tiles()
+    check_wgmma()
     ksplit_errors = check_ksplit()
     check_matmul_acc()
     check_rings()
@@ -844,7 +993,7 @@ def main() -> None:
         "ring_fused", fused_counts, fused_summary["baseline_ms"], card, peak, bw, size=cap)
     k2 = rings()["ring_ag"][1](fused_ring.mesh)
     entries["ring_fused"].update(
-        cap=cap, l2_bytes=l2, grid_blocks=fused_ring.grid_blocks,
+        cap=cap, l2_bytes=l2, grid_blocks=fused_ring.grid_blocks, fused_route=fused_ring.route,
         overlap_ms=fused_summary["avg_ms"],
         k2_ms_at_cap=events_ms(lambda: k2(x, w), runs=50),
         k2_overlap_ms_at_cap=k2_at_cap["avg_ms"])
@@ -858,6 +1007,7 @@ def main() -> None:
         "replaces_function": "_matmul_kernel",
         "shape": f"{SIZE}x{SIZE}x{SIZE}", "dtype": "bfloat16",
         "launches": launches, "launches_fused": launches_fused,
+        "gemm_route": "wgmma", "launches_by_route": dispatch["launches_by_route"],
         "max_abs_err": headline_err,
         "ms": dispatch["avg_ms"], "kernel_ms": dispatch["avg_ms"],
         "fused_ms": fused["avg_ms"], "plain_ms": plain_ms,
@@ -908,7 +1058,7 @@ def main() -> None:
         "source": "tpu_matmul_bench_torch/csrc/ring_fused.cu",
         "replaces": "tpu_matmul_bench/ops/pallas_ring.py:121",
         "replaces_function": "ring_allgather_matmul",
-        "kernels": ["csrc/ring_fused.cu ring_fused"],
+        "kernels": ["csrc/ring_fused.cu ring_fused_wgmma"],
         **entries["ring_fused"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -26,7 +26,30 @@
 // dense bf16 TFLOP/s (NVIDIA H100 datasheet). A split-K in two adds two fp32
 // partials written and read back (4 bytes x m x n each way): at 16384^3
 // that is 1.76 ms of traffic against 8.9 ms of operations, still bound by
-// operations.
+// operations. Only wgmma reaches the tensor cores' full rate on Hopper, and
+// only when loads stay in flight while it runs.
+//
+// Three routes, chosen by ops/cuda_matmul.py gemm_route before the launch and
+// passed in as `route`; the C side refuses a route that does not fit the
+// operands, and nothing here tries another route after a failure:
+// - wgmma (bf16 and f16 whose base pointers are 16-byte aligned and whose row
+//   strides are whole 16-byte units, so that TMA can describe them; a K
+//   split's slab width a multiple of 64): wgmma_gemm, on the warpgroup tile
+//   mainloop of hopper_tile.cuh. TMA loads A and B tiles into a ring of 3-5
+//   shared-memory stages under mbarriers, one producer thread keeps them in
+//   flight, two consumer warpgroups run wgmma with the sums in registers
+//   (setmaxnreg moves registers from the producer warpgroup to them), and
+//   the epilogue stores two neighbouring columns at once straight from the
+//   registers. The TMA descriptors are built on the host for each launch
+//   (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, no -lcuda) and
+//   passed by value as __grid_constant__ parameters, so a CUDA graph replays
+//   what it captured.
+// - wmma (int8, and bf16/f16 operands TMA cannot describe): wmma_gemm, the
+//   first slice's kernel. int8 stays here because wgmma takes 8-bit B only
+//   K-major, and B is row-major K x N.
+// - simt (fp32): simt_gemm_f32, a plain SIMT kernel (64x64x16 tiles, 4x4
+//   outputs per thread, fp32 FMA): the tensor cores have no full-precision
+//   fp32 mode.
 //
 // Design, against the TPU kernel:
 // - The Pallas grid walks K as its innermost, sequential axis and carries the
@@ -34,43 +57,41 @@
 //   order, so here each block owns one BMxBN output tile and loops over K
 //   itself, with the sum in registers; nothing crosses blocks.
 // - The tile (BM, BN, BK) is a template parameter with a small fixed set of
-//   instantiations (TMB_TILES). Every tile runs 8 warps; the warp layout is
-//   derived from the tile (4x2 warps when BM >= BN, else 2x4), and each warp
-//   computes its sub-tile as 16x16x16 wmma fragments (bf16/f16 into fp32, s8
-//   into s32).
-// - A and B tiles are staged through dynamic shared memory in two buffers:
-//   cp.async brings in step k+1 while the tensor cores work on k. Tiles are
-//   kept as 16-wide column slices, so that every fragment starts on the
-//   32-byte boundary wmma requires, for 8-bit operands too. Tiles above the
-//   default 48 KB of shared memory (128x128x64, the 256-wide ones) need the
-//   per-kernel limit raised: tmb_init does that for every instantiation.
-// - grid_order is the raster of output tiles: "mnk" puts N tiles on
-//   blockIdx.x, so M is the slowest axis and the blocks in flight share a
-//   band of A; "nmk" swaps the two axes and they share a band of B.
+//   instantiations (TMB_TILES), the same on both tensor-core routes. wgmma
+//   blocks run 384 threads (two consumer warpgroups and the producer's);
+//   wmma blocks run 8 warps (4x2 when BM >= BN, else 2x4), each warp on
+//   16x16x16 fragments fed by a two-buffer cp.async pipeline from padded
+//   16-wide column slices. tmb_init raises every instantiation's shared
+//   memory limit.
+// - grid_order is the raster of output tiles: "mnk" makes M the slowest
+//   axis, so the blocks in flight share a band of A; "nmk" makes it N, and
+//   they share a band of B. The wmma route walks the plain raster (N tiles on
+//   blockIdx.x for "mnk"). The wgmma route, four times faster, would read
+//   all of B from device memory for every wave of 132 blocks that way, so it
+//   walks the slow axis in groups of 8 tiles (tmb::raster): a wave then
+//   reads 8 bands of one operand and about 17 of the other.
 // - pallas_matmul zero-pads awkward dimensions to multiples of 128 and slices
-//   the result. Here the ragged edge is zero-filled on the way into shared
-//   memory and masked on the store, so no padded copy is ever made. When a
-//   row of A or B is not a whole number of 16-byte vectors the tiles are
-//   loaded element by element instead of by cp.async.
+//   the result. Here TMA zero-fills past the tensors' edges (wgmma route), or
+//   the loads zero-fill the ragged edge (wmma route), and the stores are
+//   masked, so no padded copy is ever made.
 // - Split-K: one launch with gridDim.z = S. Block z multiplies the slab
-//   [z*kc, (z+1)*kc) and stores its fp32 (int32 for int8) partial into slice
+//   [z*kc, (z+1)*kc) (on the wgmma route, K coordinates of one descriptor over
+//   the whole A and B) and stores its fp32 (int32 for int8) partial into slice
 //   z of a workspace [S, m, n]; reduce_partials then adds the slices in the
 //   order s = 0..S-1 and stores C once, as pallas_matmul_ksplit's
 //   `acc + part` loop followed by one astype.
-// - fp32 operands take a plain SIMT kernel (64x64x16 tiles, 4x4 outputs per
-//   thread, fp32 FMA): the tensor cores have no full-precision fp32 mode.
-// - The pickup is an epilogue option (template flag ACC) of both kernels:
-//   the Pallas kernel adds accin on its last K step, here the epilogue reads
-//   accin (output dtype, rows `ldacc` apart) beside each stored element and
-//   C's rows are `ldc` apart. With ACC off the kernel is K1 as it was. The
-//   extra traffic is one read of accin per output element, m*n*2 bytes in
-//   bf16: for one ring step of bf16 16384^2 over 4 ranks (4096x4096 .
-//   4096x16384) 128 MiB, 0.04 ms at 3.35 TB/s against 0.56 ms of
+// - The pickup is an epilogue option of every kernel: the Pallas kernel adds
+//   accin on its last K step, here the epilogue reads accin (output dtype,
+//   rows `ldacc` apart) beside each stored element and C's rows are `ldc`
+//   apart. The extra traffic is one read of accin per output element, m*n*2
+//   bytes in bf16: for one ring step of bf16 16384^2 over 4 ranks (4096x4096
+//   . 4096x16384) 128 MiB, 0.04 ms at 3.35 TB/s against 0.56 ms of
 //   operations at 989 TFLOP/s, so the pickup stays bound by operations.
 //
-// Left for later work: wgmma and TMA with a multistage mbarrier pipeline,
-// warp specialisation, persistent blocks, and a tensor-core path for fp32
-// under TF32.
+// Left for later work: persistent blocks over many tiles (one tile's
+// epilogue under the next one's loads), thread-block clusters with TMA
+// multicast, a TMA-store epilogue, and a tensor-core path for fp32 under
+// TF32.
 //
 // The C entry points launch on the caller's stream, allocate nothing and do
 // not synchronise, so they can be captured in a CUDA graph. They return
@@ -85,13 +106,16 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper_tile.cuh"
+
 using namespace nvcuda;
 
 // The instantiated tensor-core tiles (BM, BN, BK), smallest first;
 // ops/cuda_matmul.py TILES lists the same (tests/test_torch_tune.py holds
 // the two together).
-#define TMB_TILES(X) \
-  X(64, 128, 32) X(128, 64, 32) X(128, 128, 32) X(128, 128, 64) X(128, 256, 32) X(256, 128, 32)
+#define TMB_TILES(X)                                                                          \
+  X(64, 128, 32) X(128, 64, 32) X(128, 128, 32) X(128, 128, 64) X(128, 256, 32) X(256, 128, 32) \
+      X(128, 256, 64)
 
 namespace {
 
@@ -99,6 +123,8 @@ namespace {
 enum DType : int { kF32 = 0, kF16 = 1, kBF16 = 2, kI8 = 3, kI32 = 4 };
 // grid orders shared with ops/cuda_matmul.py
 enum Order : int { kMNK = 0, kNMK = 1 };
+// routes shared with ops/cuda_matmul.py ROUTES
+enum Route : int { kSimt = 0, kWmma = 1, kWgmma = 2 };
 
 // ---------------------------------------------------------------- tensor cores
 constexpr int THREADS = 256;  // 8 warps, for every tile
@@ -385,6 +411,150 @@ template <typename T> cudaError_t occupancy_wmma(int bm, int bn, int bk, int* bl
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------- wgmma + TMA
+// The epilogue's store of two neighbouring results v0, v1 at (gm, gn) (v1
+// only when gn + 1 < N): into C's slice `slice` (rows N apart), or with
+// accin, C = v + accin (rows ldc and ldacc apart); fp32 when f32_out, else T.
+template <typename T>
+__device__ __forceinline__ void store_pair(void* C, const void* accin, size_t slice, int M, int N,
+                                           int ldacc, int ldc, bool f32_out, bool pairs, int gm,
+                                           int gn, float v0, float v1) {
+  if (gm >= M || gn >= N) return;
+  const bool two = gn + 1 < N;
+  if (accin != nullptr) {
+    const size_t at = static_cast<size_t>(gm) * ldc + gn;
+    const size_t ai = static_cast<size_t>(gm) * ldacc + gn;
+    if (f32_out) {
+      const float* in = static_cast<const float*>(accin) + ai;
+      tmb::put2(static_cast<float*>(C) + at, v0 + in[0], two ? v1 + in[1] : 0.f, two, pairs);
+    } else {
+      const T* in = static_cast<const T*>(accin) + ai;
+      tmb::put2(static_cast<T*>(C) + at, v0 + get(in), two ? v1 + get(in + 1) : 0.f, two, pairs);
+    }
+  } else {
+    const size_t at = slice + static_cast<size_t>(gm) * N + gn;
+    if (f32_out)
+      tmb::put2(static_cast<float*>(C) + at, v0, v1, two, pairs);
+    else
+      tmb::put2(static_cast<T*>(C) + at, v0, v1, two, pairs);
+  }
+}
+
+// C (+ blockIdx.z * c_split) = A[:, z*K : (z+1)*K] . B[z*K : (z+1)*K, :] on
+// the warpgroup mainloop of hopper_tile.cuh; a_map and b_map describe the
+// whole of A and B. C is fp32 when f32_out, else T. With accin, C[i, j] =
+// A.B[i, j] + accin[i, j]: accin has C's dtype, its rows `ldacc` apart, and
+// C's rows are `ldc` apart (one split only). `pairs`: C (and accin) take
+// two neighbouring columns in one store. The grid is (tiles, 1, splits);
+// tmb::raster places each block's tile, M the slow axis for kMNK.
+template <typename T, int BM, int BN, int BK>
+__global__ void __launch_bounds__(tmb::kThreads, 1)
+    wgmma_gemm(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
+               void* __restrict__ C, int M, int N, int K, size_t c_split, int order,
+               bool f32_out, const void* __restrict__ accin, int ldacc, int ldc, bool pairs) {
+  using G = tmb::WgTile<BM, BN, BK>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const tmb::Stages<G> st = tmb::make_stages<G>(smem, tmb::kConsumerWarps);
+  int mt = 0, nt = 0;
+  tmb::raster(blockIdx.x, (M + BM - 1) / BM, (N + BN - 1) / BN, order == kMNK, &mt, &nt);
+  const int m0 = mt * BM, n0 = nt * BN;
+  const int kz = blockIdx.z * K;  // the split's first K coordinate
+  const int ktiles = (K + BK - 1) / BK;
+  tmb::Pipe pipe;
+  if (threadIdx.x >= tmb::kProducerThread) {
+    // the producer warpgroup: one thread issues every load
+    tmb::producer_regs<tmb::kProducerRegs>();
+    if (threadIdx.x == tmb::kProducerThread) {
+      const CUtensorMap* am = &a_map;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int k0 = kz + kt * BK;
+        tmb::produce(st, pipe, &b_map, n0, k0, [am, k0, m0](void* dst, uint64_t* bar) {
+          tmb::tma_load_2d(dst, am, bar, k0, m0);
+        });
+      }
+    }
+  } else {
+    tmb::consumer_regs<tmb::kConsumerRegs>();
+    const int wg = threadIdx.x / 128;
+    float acc[G::MI][G::WN / 2];
+    tmb::consume<T>(st, pipe, ktiles, wg, acc);
+    const int r0 = m0 + (wg / G::WG_N) * G::WM, c0 = n0 + (wg % G::WG_N) * G::WN;
+    const size_t slice = blockIdx.z * c_split;
+#pragma unroll
+    for (int i = 0; i < G::MI; ++i)
+#pragma unroll
+      for (int q = 0; q < G::WN / 4; ++q)
+        store_pair<T>(C, accin, slice, M, N, ldacc, ldc, f32_out, pairs,
+                      r0 + 64 * i + tmb::pair_row(q), c0 + tmb::pair_col(q), acc[i][2 * q],
+                      acc[i][2 * q + 1]);
+  }
+}
+
+template <typename T, int BM, int BN, int BK>
+cudaError_t launch_wgmma_tile(const T* A, const T* B, void* C, int m, int n, int k, int lda,
+                              int ldb, int splits, int order, bool f32_out, Pickup p,
+                              cudaStream_t s) {
+  using G = tmb::WgTile<BM, BN, BK>;
+  constexpr bool bf16 = std::is_same_v<T, __nv_bfloat16>;
+  CUtensorMap a_map, b_map;
+  const int ktotal = k * splits;
+  cudaError_t e = tmb::encode_a<G>(&a_map, bf16, A, m, ktotal, lda);
+  if (e == cudaSuccess) e = tmb::encode_b<G>(&b_map, bf16, B, ktotal, n, ldb);
+  if (e != cudaSuccess) return e;
+  const long long tiles = static_cast<long long>((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(tiles), 1, splits);
+  const size_t c_split = static_cast<size_t>(m) * n;
+  const size_t item = f32_out ? 4 : 2;
+  const auto even = [item](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % (2 * item) == 0;
+  };
+  const bool pairs = p.accin != nullptr
+                         ? even(C) && even(p.accin) && p.ldc % 2 == 0 && p.ldacc % 2 == 0
+                         : even(C) && n % 2 == 0;
+  wgmma_gemm<T, BM, BN, BK><<<grid, tmb::kThreads, G::SMEM_BYTES, s>>>(
+      a_map, b_map, C, m, n, k, c_split, order, f32_out, p.accin, p.ldacc, p.ldc, pairs);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wgmma(const void* a, const void* b, void* c, int m, int n, int k, int lda,
+                         int ldb, int splits, int bm, int bn, int bk, int order, bool f32_out,
+                         Pickup p, cudaStream_t s) {
+  // what TMA cannot describe is refused, never sent to another route
+  if (!tmb::tma_describable(a, lda) || !tmb::tma_describable(b, ldb))
+    return reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16
+               ? cudaErrorMisalignedAddress
+               : cudaErrorInvalidPitchValue;
+  if (k < 1 || (splits > 1 && k % 64 != 0)) return cudaErrorInvalidValue;
+  const T* A = static_cast<const T*>(a);
+  const T* B = static_cast<const T*>(b);
+#define TMB_LAUNCH(BM_, BN_, BK_)                                                                 \
+  if (bm == BM_ && bn == BN_ && bk == BK_)                                                        \
+    return launch_wgmma_tile<T, BM_, BN_, BK_>(A, B, c, m, n, k, lda, ldb, splits, order, f32_out, \
+                                               p, s);
+  TMB_TILES(TMB_LAUNCH)
+#undef TMB_LAUNCH
+  return cudaErrorInvalidValue;  // not an instantiated tile
+}
+
+template <typename T, int BM, int BN, int BK> cudaError_t init_wgmma_tile() {
+  return cudaFuncSetAttribute(wgmma_gemm<T, BM, BN, BK>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              tmb::WgTile<BM, BN, BK>::SMEM_BYTES);
+}
+
+template <typename T> cudaError_t occupancy_wgmma(int bm, int bn, int bk, int* blocks) {
+#define TMB_OCCUPANCY(BM_, BN_, BK_)                                                     \
+  if (bm == BM_ && bn == BN_ && bk == BK_)                                               \
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, wgmma_gemm<T, BM_, BN_, BK_>, \
+                                                         tmb::kThreads,                  \
+                                                         tmb::WgTile<BM_, BN_, BK_>::SMEM_BYTES);
+  TMB_TILES(TMB_OCCUPANCY)
+#undef TMB_OCCUPANCY
+  return cudaErrorInvalidValue;
+}
+
 // ------------------------------------------------------------------ fp32 SIMT
 constexpr int SBM = 64, SBN = 64, SBK = 16, STHREADS = 256;
 
@@ -519,29 +689,41 @@ cudaError_t launch_reduce(const void* ws, void* c, int splits, size_t count, cud
   return cudaGetLastError();
 }
 
-// The GEMM for every dtype pair. `splits` slabs of width k each, partials
-// `m*n` apart in C; or, with p.accin, one pass that adds accin at the store.
+// The GEMM for every dtype pair, on `route`. `splits` slabs of width k each,
+// partials `m*n` apart in C; or, with p.accin, one pass that adds accin at
+// the store. A route that does not take the dtypes is refused.
 cudaError_t gemm(const void* a, const void* b, void* c, int m, int n, int k, int lda, int ldb,
                  int splits, int in_dtype, int out_dtype, int bm, int bn, int bk, int order,
-                 Pickup p, cudaStream_t s) {
+                 int route, Pickup p, cudaStream_t s) {
   if (m < 0 || n < 0 || k < 0 || splits < 1 || splits > 65535 || ldb < n ||
       static_cast<long long>(lda) < static_cast<long long>(k) * splits ||
       (order != kMNK && order != kNMK) ||
       (p.accin != nullptr && (splits != 1 || p.ldacc < n || p.ldc < n)))
     return cudaErrorInvalidValue;
+  const bool half = in_dtype == kBF16 || in_dtype == kF16;
+  const bool wide = out_dtype == kF32;
+  if (!(half && (out_dtype == in_dtype || wide)) && !(in_dtype == kI8 && out_dtype == kI32) &&
+      !(in_dtype == kF32 && out_dtype == kF32))
+    return cudaErrorInvalidValue;
+  const bool fits = route == kWgmma ? half : route == kWmma ? half || in_dtype == kI8
+                                           : route == kSimt && in_dtype == kF32;
+  if (!fits) return cudaErrorInvalidValue;
   if (m == 0 || n == 0) return cudaSuccess;
-  if (in_dtype == kBF16 && (out_dtype == kBF16 || out_dtype == kF32))
-    return launch_wmma<__nv_bfloat16>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order,
-                                      out_dtype == kF32, p, s);
-  if (in_dtype == kF16 && (out_dtype == kF16 || out_dtype == kF32))
-    return launch_wmma<__half>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order,
-                               out_dtype == kF32, p, s);
-  if (in_dtype == kI8 && out_dtype == kI32)
-    return launch_wmma<signed char>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order,
-                                    false, p, s);
-  if (in_dtype == kF32 && out_dtype == kF32)
+  if (route == kSimt)
     return launch_simt(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order, p, s);
-  return cudaErrorInvalidValue;
+  if (route == kWgmma)
+    return in_dtype == kBF16
+               ? launch_wgmma<__nv_bfloat16>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order,
+                                             wide, p, s)
+               : launch_wgmma<__half>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order, wide,
+                                      p, s);
+  if (in_dtype == kBF16)
+    return launch_wmma<__nv_bfloat16>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order, wide,
+                                      p, s);
+  if (in_dtype == kF16)
+    return launch_wmma<__half>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order, wide, p, s);
+  return launch_wmma<signed char>(a, b, c, m, n, k, lda, ldb, splits, bm, bn, bk, order, false, p,
+                                  s);
 }
 
 constexpr Pickup kNoPickup = {nullptr, 0, 0};
@@ -557,33 +739,43 @@ int tmb_init() {
 #define TMB_INIT(BM_, BN_, BK_)                                                  \
   if (e == cudaSuccess) e = init_tile<__nv_bfloat16, BM_, BN_, BK_>();           \
   if (e == cudaSuccess) e = init_tile<__half, BM_, BN_, BK_>();                  \
-  if (e == cudaSuccess) e = init_tile<signed char, BM_, BN_, BK_>();
+  if (e == cudaSuccess) e = init_tile<signed char, BM_, BN_, BK_>();             \
+  if (e == cudaSuccess) e = init_wgmma_tile<__nv_bfloat16, BM_, BN_, BK_>();     \
+  if (e == cudaSuccess) e = init_wgmma_tile<__half, BM_, BN_, BK_>();
   TMB_TILES(TMB_INIT)
 #undef TMB_INIT
   return static_cast<int>(e);
 }
 
-// Resident blocks per SM of the tensor-core kernel for operands of
-// `in_dtype` (bf16, f16 or int8) at tile (bm, bn, bk), into *blocks. Call
-// after tmb_init.
-int tmb_occupancy(int in_dtype, int bm, int bn, int bk, int* blocks) {
+// Resident blocks per SM of the tensor-core kernel of `route` (wmma: bf16,
+// f16 or int8; wgmma: bf16 or f16) for operands of `in_dtype` at tile (bm,
+// bn, bk), into *blocks. Call after tmb_init.
+int tmb_occupancy(int in_dtype, int route, int bm, int bn, int bk, int* blocks) {
   cudaError_t e = cudaErrorInvalidValue;
-  if (in_dtype == kBF16) e = occupancy_wmma<__nv_bfloat16>(bm, bn, bk, blocks);
-  if (in_dtype == kF16) e = occupancy_wmma<__half>(bm, bn, bk, blocks);
-  if (in_dtype == kI8) e = occupancy_wmma<signed char>(bm, bn, bk, blocks);
+  if (route == kWgmma) {
+    if (in_dtype == kBF16) e = occupancy_wgmma<__nv_bfloat16>(bm, bn, bk, blocks);
+    if (in_dtype == kF16) e = occupancy_wgmma<__half>(bm, bn, bk, blocks);
+  } else if (route == kWmma) {
+    if (in_dtype == kBF16) e = occupancy_wmma<__nv_bfloat16>(bm, bn, bk, blocks);
+    if (in_dtype == kF16) e = occupancy_wmma<__half>(bm, bn, bk, blocks);
+    if (in_dtype == kI8) e = occupancy_wmma<signed char>(bm, bn, bk, blocks);
+  }
   return static_cast<int>(e);
 }
 
 // C = A . B on `stream`. A's rows are `lda` elements apart and B's `ldb`;
 // C is dense m x n. in_dtype/out_dtype are DType codes; the pairs taken are
 // bf16->{bf16,f32}, f16->{f16,f32}, f32->f32 and int8->int32. (bm, bn, bk)
-// is an instantiated tile (64x64x16 for fp32); grid_order is an Order code.
-// Returns 0 or a cudaError_t code.
+// is an instantiated tile (64x64x16 for fp32); grid_order is an Order code;
+// route a Route code (simt for fp32; wmma for int8; wmma or wgmma for
+// bf16/f16, wgmma only where TMA describes A and B: else
+// cudaErrorMisalignedAddress or cudaErrorInvalidPitchValue). Returns 0 or a
+// cudaError_t code.
 int tmb_matmul(const void* a, const void* b, void* c, int m, int n, int k, int lda, int ldb,
-               int in_dtype, int out_dtype, int bm, int bn, int bk, int grid_order,
+               int in_dtype, int out_dtype, int bm, int bn, int bk, int grid_order, int route,
                void* stream) {
   return static_cast<int>(gemm(a, b, c, m, n, k, lda, ldb, 1, in_dtype, out_dtype, bm, bn, bk,
-                               grid_order, kNoPickup, static_cast<cudaStream_t>(stream)));
+                               grid_order, route, kNoPickup, static_cast<cudaStream_t>(stream)));
 }
 
 // The reduce-scatter ring's pickup: C = A . B + accin, summed in fp32 (int32
@@ -592,22 +784,23 @@ int tmb_matmul(const void* a, const void* b, void* c, int m, int n, int k, int l
 // that do not overlap. The other arguments are tmb_matmul's.
 int tmb_matmul_acc(const void* a, const void* b, const void* accin, void* c, int m, int n, int k,
                    int lda, int ldb, int ldacc, int ldc, int in_dtype, int out_dtype, int bm,
-                   int bn, int bk, int grid_order, void* stream) {
+                   int bn, int bk, int grid_order, int route, void* stream) {
   if (accin == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(gemm(a, b, c, m, n, k, lda, ldb, 1, in_dtype, out_dtype, bm, bn, bk,
-                               grid_order, Pickup{accin, ldacc, ldc},
+                               grid_order, route, Pickup{accin, ldacc, ldc},
                                static_cast<cudaStream_t>(stream)));
 }
 
 // The K-split partials: for s = 0..splits-1, ws[s] = A[:, s*kc:(s+1)*kc] .
 // B[s*kc:(s+1)*kc, :], stored in the accumulator dtype (fp32; int32 for
-// int8) into the dense [splits, m, n] workspace, in one launch.
+// int8) into the dense [splits, m, n] workspace, in one launch. On the
+// wgmma route kc must be a multiple of 64.
 int tmb_matmul_ksplit(const void* a, const void* b, void* ws, int m, int n, int kc, int splits,
                       int lda, int ldb, int in_dtype, int bm, int bn, int bk, int grid_order,
-                      void* stream) {
+                      int route, void* stream) {
   const int acc = in_dtype == kI8 ? kI32 : kF32;
   return static_cast<int>(gemm(a, b, ws, m, n, kc, lda, ldb, splits, in_dtype, acc, bm, bn, bk,
-                               grid_order, kNoPickup, static_cast<cudaStream_t>(stream)));
+                               grid_order, route, kNoPickup, static_cast<cudaStream_t>(stream)));
 }
 
 // C[i] = sum_{s<splits} ws[s][i] for i < count, summed in order in the

@@ -4,12 +4,16 @@ Each source is compiled by `nvcc` for Hopper (sm_90a) into a shared
 library with a plain C interface and loaded with `ctypes`: a few seconds
 per source, where a PyTorch extension that includes PyTorch's headers
 takes minutes. Libraries go to `build/kernels/` at the repository root,
-named by a hash of the source and the flags, so an edited source is
-rebuilt on its next use and an unchanged one is loaded as it is.
+named by a hash of the source, every header in `csrc/` (`*.cuh`) and the
+flags, so an edited source or header is rebuilt on its next use and an
+unchanged one is loaded as it is. The CUDA driver API's
+`cuTensorMapEncodeTiled` is reached through the runtime
+(`cudaGetDriverEntryPoint`), so nothing links `-lcuda`.
 
 `ptxas` reports each kernel's registers, stack and spill bytes (`-Xptxas
--v`); the report is kept beside the library, as `<library>.ptxas.txt`, and
-`resource_usage` reads it back.
+-v`), and warns where it serialises a kernel's `wgmma` instructions or
+ignores its `setmaxnreg`; the report is kept beside the library, as
+`<library>.ptxas.txt`, and `resource_usage` reads it back.
 
 A missing `nvcc` or a failed compile raises: nothing falls back.
 """
@@ -52,11 +56,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to: keyed by the source and flags."""
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes()
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where `csrc/<name>.cu` builds to: keyed by the source, every header
+    of `csrc/` (a source may include any of them) and the flags."""
+    digest = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
@@ -156,15 +162,29 @@ _ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?([\
 _SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                      r"(\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
+# ptxas's warnings that cost a wgmma kernel most of its speed: its wgmma
+# serialised (C7515 and kin), or its setmaxnreg ignored (C7508)
+WARNINGS = {"wgmma_serialized": "wgmma.mma_async instructions are serialized",
+            "setmaxnreg_ignored": "setmaxnreg ignored"}
+_NAMED = re.compile(r"'(_Z[\w$]+)'")
 
 
-def parse_ptxas(text: str) -> dict[str, dict[str, int]]:
+def parse_ptxas(text: str) -> dict[str, dict[str, int | list[str]]]:
     """Per kernel (mangled name): registers per thread, stack frame and
-    spill bytes, from `nvcc -Xptxas -v` output."""
-    usage: dict[str, dict[str, int]] = {}
+    spill bytes, from `nvcc -Xptxas -v` output, and `warnings`, the keys of
+    WARNINGS that ptxas raised for it (a warning that names a function goes
+    to that function, any other to the entry being compiled)."""
+    usage: dict[str, dict] = {}
     current = None
     for line in text.splitlines():
-        if (m := _ENTRY.search(line)):
+        kinds = [kind for kind, said in WARNINGS.items() if said in line]
+        if kinds:
+            named = _NAMED.search(line)
+            owner = named.group(1) if named else current
+            if owner is not None:
+                have = usage.setdefault(owner, {}).setdefault("warnings", [])
+                have.extend(k for k in kinds if k not in have)
+        elif (m := _ENTRY.search(line)):
             current = m.group(1)
             usage.setdefault(current, {})
         elif current is not None and (m := _SPILLS.search(line)):
@@ -176,16 +196,17 @@ def parse_ptxas(text: str) -> dict[str, dict[str, int]]:
     return usage
 
 
-def readable_usage(text: str) -> dict[str, dict[str, int]]:
+def readable_usage(text: str) -> dict[str, dict]:
     """`parse_ptxas`, keyed by readable kernel name (`short_name`)."""
     usage = parse_ptxas(text)
     names = _demangle(sorted(usage))
     return {names[k]: v for k, v in sorted(usage.items())}
 
 
-def resource_usage(name: str) -> dict[str, dict[str, int]]:
-    """Registers, stack and spill bytes of every kernel in the built
-    `csrc/<name>.cu`, keyed by readable kernel name (build it first)."""
+def resource_usage(name: str) -> dict[str, dict]:
+    """Registers, stack and spill bytes, and ptxas's wgmma and setmaxnreg
+    warnings, of every kernel in the built `csrc/<name>.cu`, keyed by
+    readable kernel name (build it first)."""
     log = _ptxas_log(library_path(name))
     if not log.is_file():
         raise KernelBuildError(f"csrc/{name}.cu has no ptxas report; build it first")

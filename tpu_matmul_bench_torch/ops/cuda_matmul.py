@@ -9,6 +9,12 @@ Counterpart of `tpu_matmul_bench/ops/pallas_matmul.py`: `cuda_matmul` is
 tensors on the card and runs its plain version for tensors on the CPU,
 where there is no kernel to launch. For a CUDA tensor it launches or
 raises: nothing falls back.
+
+Each product takes one of three routes, chosen by `gemm_route` from the
+operands alone before the launch: `wgmma` (TMA, wgmma and an mbarrier
+pipeline; bf16 and f16 that TMA can describe), `wmma` (int8, and bf16/f16
+that TMA cannot describe) or `simt` (fp32). A route that fails raises; no
+other route is tried.
 """
 
 from __future__ import annotations
@@ -32,12 +38,17 @@ from tpu_matmul_bench_torch.utils.metrics import (
 LAUNCHES = 0
 REDUCE_LAUNCHES = 0
 ACC_LAUNCHES = 0
+# The GEMM kernel's launches (those of LAUNCHES and ACC_LAUNCHES) by route.
+ROUTES = ("simt", "wmma", "wgmma")  # Route codes 0, 1, 2 of csrc/matmul.cu
+LAUNCHES_BY_ROUTE = dict.fromkeys(ROUTES, 0)
 
-# The tensor-core tiles (bm, bn, bk) instantiated in csrc/matmul.cu, ordered
-# by size: volume, then output area, then bm.
+# The tensor-core tiles (bm, bn, bk) instantiated in csrc/matmul.cu on both
+# tensor-core routes, ordered by size: volume, then output area, then bm.
 TILES = ((64, 128, 32), (128, 64, 32), (128, 128, 32), (128, 128, 64),
-         (128, 256, 32), (256, 128, 32))
-DEFAULT_TILE = (128, 128, 32)
+         (128, 256, 32), (256, 128, 32), (128, 256, 64))
+# the fastest tile of the wgmma route at bf16 16384^3 on an H100 (PERF.md);
+# 128x128x32 before it, on the wmma route
+DEFAULT_TILE = (128, 256, 64)
 SIMT_TILE = (64, 64, 16)  # fp32 operands: the one SIMT tile
 GRID_ORDERS = ("mnk", "nmk")
 
@@ -74,6 +85,68 @@ def effective_blocks(m: int, n: int, k: int, bm: int, bn: int, bk: int,
         return SIMT_TILE
     fits = [t for t in TILES if t[0] <= bm and t[1] <= bn and t[2] <= bk]
     return fits[-1] if fits else TILES[0]
+
+
+def gemm_route(dtype: torch.dtype | str, m: int, n: int, k: int, lda: int,
+               ldb: int, a_ptr: int, b_ptr: int, splits: int = 1) -> str:
+    """The kernel route of one product (csrc/matmul.cu checks the same rule
+    and refuses a `wgmma` request that breaks it).
+
+    `wgmma` for bf16 and f16 operands that TMA can describe: both base
+    pointers 16-byte aligned, both row strides (`lda`, `ldb` elements) whole
+    16-byte units, no empty dimension, and a split's K width `k` a multiple
+    of 64 when `splits` > 1 (so no K step straddles two slabs). Other bf16
+    and f16 operands, and int8, take `wmma` (8-bit wgmma wants B K-major;
+    here B is row-major K x N); fp32 takes `simt`."""
+    dtype = as_dtype(dtype)
+    if dtype == torch.float32:
+        return "simt"
+    if dtype not in (torch.bfloat16, torch.float16):
+        return "wmma"
+    item = 2
+    describable = (a_ptr % 16 == 0 and b_ptr % 16 == 0 and lda * item % 16 == 0
+                   and ldb * item % 16 == 0)
+    if not describable or min(m, n, k) < 1 or (splits > 1 and k % 64):
+        return "wmma"
+    return "wgmma"
+
+
+# Shared memory a wgmma block may spend on its stages (kSmemBudget of
+# csrc/hopper_tile.cuh), its stage cap, and the most a block may use.
+_WGMMA_STAGE_BUDGET, _WGMMA_MAX_STAGES, SMEM_PER_BLOCK = 200 * 1024, 5, 232448
+
+
+def wgmma_plan(tile: tuple[int, int, int]) -> dict[str, int]:
+    """The wgmma route's geometry for one tile, as `tmb::WgTile` in
+    csrc/hopper_tile.cuh computes it: the two consumer warpgroups' split
+    (along M when bm >= 128, else along N), each one's rows and columns
+    (`wm`, `wn`; one wgmma is m64 x wn), its m64 wgmmas (`mi`), A's swizzle
+    in bytes (one row of the A tile), the shared-memory stages and the
+    block's dynamic shared memory (stages, 1 KB of alignment, barriers)."""
+    bm, bn, bk = tile
+    wg_m = 2 if bm >= 128 else 1
+    wm, wn = bm // wg_m, bn // (2 // wg_m)
+    stage = bm * bk * 2 + (bn // 64) * bk * 128
+    stages = min(_WGMMA_MAX_STAGES, _WGMMA_STAGE_BUDGET // stage)
+    return {"wg_m": wg_m, "wg_n": 2 // wg_m, "wm": wm, "wn": wn, "mi": wm // 64,
+            "a_swizzle": bk * 2, "stage_bytes": stage, "stages": stages,
+            "smem_bytes": stages * stage + 1024 + 2 * stages * 8}
+
+
+RASTER_GROUP = 8  # kGroup of csrc/hopper_tile.cuh
+
+
+def raster(block: int, tm: int, tn: int, m_slow: bool) -> tuple[int, int]:
+    """The output tile (m, n) of wgmma block `block` of a tm × tn grid of
+    tiles (`tmb::raster`): groups of RASTER_GROUP tiles of the slow axis (M
+    for grid order "mnk", N for "nmk"), and inside a group the fast axis's
+    tiles in turn."""
+    slow, fast = (tm, tn) if m_slow else (tn, tm)
+    first = block // (RASTER_GROUP * fast) * RASTER_GROUP
+    rows = min(slow - first, RASTER_GROUP)
+    inside = block - first * fast
+    s, f = first + inside % rows, inside // rows
+    return (s, f) if m_slow else (f, s)
 
 
 def effective_ksplit(k: int, splits: int) -> int:
@@ -205,6 +278,15 @@ def _raise_on(rc: int, what: str, lib: ctypes.CDLL) -> None:
                            f"{lib.tmb_error_string(rc).decode()} (code {rc})")
 
 
+def _route(a: torch.Tensor, b: torch.Tensor, k: int, splits: int = 1) -> str:
+    return gemm_route(a.dtype, a.shape[0], b.shape[1], k, _ld(a), _ld(b),
+                      a.data_ptr(), b.data_ptr(), splits)
+
+
+def _count(route: str) -> None:
+    LAUNCHES_BY_ROUTE[route] += 1
+
+
 def cuda_matmul(a: torch.Tensor, b: torch.Tensor, *,
                 out_dtype: torch.dtype | None = None,
                 blocks: tuple[int, int, int] | None = None,
@@ -235,14 +317,16 @@ def cuda_matmul(a: torch.Tensor, b: torch.Tensor, *,
     _check_card_operands(a, b, "cuda_matmul")
     (m, k), n = a.shape, b.shape[1]
     c = torch.empty((m, n), dtype=dtype, device=a.device) if out is None else out
+    route = _route(a, b, k)
     lib = _lib(a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.tmb_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
                             _ld(a), _ld(b), _CODES[a.dtype], _CODES[dtype],
-                            bm, bn, bk, order, stream)
-    _raise_on(rc, "matmul", lib)
+                            bm, bn, bk, order, ROUTES.index(route), stream)
+    _raise_on(rc, f"matmul ({route})", lib)
     LAUNCHES += 1
+    _count(route)
     return c
 
 
@@ -275,15 +359,17 @@ def cuda_matmul_acc(a: torch.Tensor, b: torch.Tensor, accin: torch.Tensor,
     c = torch.empty((m, n), dtype=dtype, device=a.device) if out is None else out
     if max(_ld(accin), _ld(c)) > _INT_MAX:
         raise ValueError("cuda_matmul_acc: a row stride exceeds the kernel's int range")
+    route = _route(a, b, k)
     lib = _lib(a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.tmb_matmul_acc(a.data_ptr(), b.data_ptr(), accin.data_ptr(),
                                 c.data_ptr(), m, n, k, _ld(a), _ld(b), _ld(accin),
                                 _ld(c), _CODES[a.dtype], _CODES[dtype],
-                                bm, bn, bk, order, stream)
-    _raise_on(rc, "pickup matmul", lib)
+                                bm, bn, bk, order, ROUTES.index(route), stream)
+    _raise_on(rc, f"pickup matmul ({route})", lib)
     ACC_LAUNCHES += 1
+    _count(route)
     return c
 
 
@@ -314,14 +400,17 @@ def cuda_matmul_ksplit(a: torch.Tensor, b: torch.Tensor, *, splits: int = 2,
     (m, k), n = a.shape, b.shape[1]
     ws = torch.empty((s_eff, m, n), dtype=matmul_acc_dtype(out), device=a.device)
     c = torch.empty((m, n), dtype=out, device=a.device)
+    route = _route(a, b, k // s_eff, s_eff)
     lib = _lib(a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.tmb_matmul_ksplit(a.data_ptr(), b.data_ptr(), ws.data_ptr(),
                                    m, n, k // s_eff, s_eff, _ld(a), _ld(b),
-                                   _CODES[a.dtype], bm, bn, bk, order, stream)
-        _raise_on(rc, "split-K matmul", lib)
+                                   _CODES[a.dtype], bm, bn, bk, order,
+                                   ROUTES.index(route), stream)
+        _raise_on(rc, f"split-K matmul ({route})", lib)
         LAUNCHES += 1
+        _count(route)
         rc = lib.tmb_reduce_partials(ws.data_ptr(), c.data_ptr(), s_eff,
                                      m * n, _CODES[out], stream)
     _raise_on(rc, "split-K reduction", lib)
@@ -330,15 +419,17 @@ def cuda_matmul_ksplit(a: torch.Tensor, b: torch.Tensor, *, splits: int = 2,
 
 
 def occupancy(tile: tuple[int, int, int], dtype: torch.dtype = torch.bfloat16,
-              device: torch.device | str = "cuda") -> int:
-    """Resident blocks per SM of the tensor-core kernel at `tile` for
-    operands of `dtype`, as the CUDA runtime computes it on `device`."""
-    if dtype not in (torch.bfloat16, torch.float16, torch.int8):
-        raise TypeError(f"{dtype} operands take no tensor-core tile")
+              device: torch.device | str = "cuda", route: str = "wmma") -> int:
+    """Resident blocks per SM of the tensor-core kernel of `route` at `tile`
+    for operands of `dtype`, as the CUDA runtime computes it on `device`."""
+    if route not in ("wmma", "wgmma") or dtype not in (
+            (torch.bfloat16, torch.float16) if route == "wgmma"
+            else (torch.bfloat16, torch.float16, torch.int8)):
+        raise TypeError(f"{dtype} operands take no {route} tile")
     lib = _lib(torch.device(device))
     blocks = ctypes.c_int(0)
-    _raise_on(lib.tmb_occupancy(_CODES[dtype], *tile, ctypes.byref(blocks)),
-              "occupancy", lib)
+    _raise_on(lib.tmb_occupancy(_CODES[dtype], ROUTES.index(route), *tile,
+                                ctypes.byref(blocks)), "occupancy", lib)
     return blocks.value
 
 
@@ -352,11 +443,11 @@ def _lib(device: torch.device) -> ctypes.CDLL:
     lib = _build.load("matmul")
     if lib.tmb_matmul.argtypes is None:
         i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-        lib.tmb_matmul.argtypes = [p, p, p] + [i] * 11 + [p]
-        lib.tmb_matmul_ksplit.argtypes = [p, p, p] + [i] * 11 + [p]
-        lib.tmb_matmul_acc.argtypes = [p, p, p, p] + [i] * 13 + [p]
+        lib.tmb_matmul.argtypes = [p, p, p] + [i] * 12 + [p]
+        lib.tmb_matmul_ksplit.argtypes = [p, p, p] + [i] * 12 + [p]
+        lib.tmb_matmul_acc.argtypes = [p, p, p, p] + [i] * 14 + [p]
         lib.tmb_reduce_partials.argtypes = [p, p, i, ll, i, p]
-        lib.tmb_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.tmb_occupancy.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_int)]
         lib.tmb_init.argtypes = []
         for fn in (lib.tmb_matmul, lib.tmb_matmul_ksplit, lib.tmb_matmul_acc,
                    lib.tmb_reduce_partials, lib.tmb_init, lib.tmb_occupancy):

@@ -21,6 +21,12 @@ the kernel or raises: nothing falls back.
 
 Each chunk's product is rounded once, as `_ring_kernel:100-102` does, so
 the plain version is K2's: `cuda_ring.ring_allgather_matmul_plain`.
+
+The kernel has two forms, chosen by `fused_route` from the shards before
+the launch: `wgmma` (bf16 and f16 that TMA can describe: TMA loads, wgmma
+tiles of 128×64×64 and the chunk copied by TMA stores out of the loaded
+tiles) and the first form for the rest (`wmma` tiles of 64×64×32, SIMT for
+fp32). `fused_plan` mirrors the launch's grid.
 """
 
 from __future__ import annotations
@@ -37,8 +43,12 @@ from tpu_matmul_bench_torch.parallel.mesh import COLS, Mesh, Sharded
 from tpu_matmul_bench_torch.utils.metrics import matmul_out_dtype
 
 # Launches of the fused kernel, counted where each happens (one a call, on
-# the card only).
+# the card only), and by route.
 FUSED_RING_LAUNCHES = 0
+FUSED_LAUNCHES_BY_ROUTE = dict.fromkeys(cm.ROUTES, 0)
+# Output tile (bm, bn, bk) of each form: the wgmma form's fills the card in
+# one wave at the cap (2048² bf16 over 4 ranks: 32 tiles a rank a step).
+FUSED_TILES = {"wgmma": (128, 64, 64), "wmma": (64, 64, 32), "simt": (64, 64, 16)}
 # The most ranks one launch takes: the size of the pointer arrays in
 # `_RingArgs` (TMB_FUSED_MAX_RANKS in csrc/ring_fused.cu).
 FUSED_MAX_RANKS = 8
@@ -57,12 +67,44 @@ class _RingArgs(ctypes.Structure):
                 ("nshard", ctypes.c_int)]
 
 
+def fused_route(dtype: torch.dtype, k: int, nshard: int, pointers: Sequence[int]) -> str:
+    """The form of K6 for these shards (csrc/ring_fused.cu refuses a
+    `wgmma` request that breaks the rule): `wgmma` for bf16 and f16 whose
+    every X shard, slot and W shard pointer is 16-byte aligned and whose
+    rows (k elements of X, nshard of W) are whole 16-byte units, with k ≥ 1;
+    else `simt` for fp32 and `wmma` for the others, the first form."""
+    if dtype not in (torch.bfloat16, torch.float16):
+        return "simt" if dtype == torch.float32 else "wmma"
+    item = 2
+    if (k < 1 or k * item % 16 or nshard * item % 16
+            or any(ptr % 16 for ptr in pointers)):
+        return "wmma"
+    return "wgmma"
+
+
+def fused_plan(route: str, ranks: int, mshard: int, nshard: int, sms: int,
+               per_sm: int) -> dict[str, int]:
+    """The launch's grid, as csrc/ring_fused.cu `grid_share` sizes it: the
+    form's output tiles a rank has at each step, and as many blocks as the
+    card holds at once (`sms` × `per_sm` resident blocks), an equal share a
+    rank and no more than its tiles. `per_rank` 0 means the card cannot hold
+    one block a rank, and the runtime refuses the launch."""
+    bm, bn, _ = FUSED_TILES[route]
+    tiles = -(-mshard // bm) * -(-nshard // bn)
+    per_rank = min(per_sm * sms // ranks, tiles)
+    return {"tiles_per_rank": tiles, "per_rank": per_rank,
+            "grid_blocks": per_rank * ranks, "waves": -(-tiles // per_rank) if per_rank else 0}
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ring_fused")
     if lib.tmb_ring_fused.argtypes is None:
-        lib.tmb_ring_fused.argtypes = [ctypes.POINTER(_RingArgs), ctypes.c_int,
+        lib.tmb_ring_fused.argtypes = [ctypes.POINTER(_RingArgs), ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         lib.tmb_ring_fused.restype = ctypes.c_int
+        lib.tmb_ring_fused_occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                 ctypes.POINTER(ctypes.c_int)]
+        lib.tmb_ring_fused_occupancy.restype = ctypes.c_int
         lib.tmb_ring_fused_max_ranks.argtypes = []
         lib.tmb_ring_fused_max_ranks.restype = ctypes.c_int
         lib.tmb_ring_fused_error_string.argtypes = [ctypes.c_int]
@@ -89,6 +131,7 @@ class FusedRing:
                 "form with flags in peer memory is ROADMAP B6's later work)")
         self.mesh = mesh
         self.grid_blocks = 0  # the last launch's grid
+        self.route = None  # the last launch's form
 
     def __call__(self, x: Sequence[torch.Tensor], w: Sequence[torch.Tensor]) -> Sharded:
         check_shards(self.mesh, x, w, reduce_scatter=False)
@@ -137,18 +180,36 @@ class FusedRing:
         for r in range(d):
             args.x[r], args.w[r], args.y[r] = x[r].data_ptr(), w[r].data_ptr(), y[r].data_ptr()
             args.slots[r] = slots[r].data_ptr() if slots else None
+        route = fused_route(x[0].dtype, k, nshard,
+                            [t.data_ptr() for t in (*x, *w, *slots)])
         lib = _lib()
         card = self.mesh.devices[0]
         blocks = ctypes.c_int(0)
         with torch.cuda.device(card):
             rc = lib.tmb_ring_fused(ctypes.byref(args), cm._CODES[x[0].dtype],
+                                    cm.ROUTES.index(route),
                                     torch.cuda.current_stream(card).cuda_stream,
                                     ctypes.byref(blocks))
         if rc != 0:
-            raise RuntimeError("fused ring launch failed: "
+            raise RuntimeError(f"fused ring launch failed ({route}): "
                                f"{lib.tmb_ring_fused_error_string(rc).decode()} (code {rc})")
-        self.grid_blocks = blocks.value
+        self.grid_blocks, self.route = blocks.value, route
         FUSED_RING_LAUNCHES += 1
+        FUSED_LAUNCHES_BY_ROUTE[route] += 1
+
+
+def occupancy(dtype: torch.dtype, route: str, device: torch.device | str = "cuda") -> int:
+    """Resident blocks per SM of K6's form `route` for operands of `dtype`,
+    as the CUDA runtime computes it on `device`."""
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        rc = lib.tmb_ring_fused_occupancy(cm._CODES[dtype], cm.ROUTES.index(route),
+                                          ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"fused ring occupancy ({route}, {dtype}) failed: "
+                           f"{lib.tmb_ring_fused_error_string(rc).decode()} (code {rc})")
+    return blocks.value
 
 
 def ring_allgather_matmul(mesh: Mesh) -> FusedRing:

@@ -296,7 +296,8 @@ def cuda_ring_mode(config: BenchConfig, mesh: Mesh, size: int,
         ring_allgather_matmul(mesh),
         "all_gather-then-matmul",
         {"kernel": "CUDA fused ring all-gather matmul (one cooperative launch, "
-                   "SM-store hops, a grid barrier a step)",
+                   "wgmma tiles and TMA-store hops for TMA-describable bf16/f16, "
+                   "a grid barrier a step)",
          # as the JAX package's pallas_ring: the HBM ring is the headline
          "superseded_by": "cuda_ring_hbm"}, benchmark,
         fusable=False,

@@ -212,7 +212,7 @@ def build_parser(description: str,
         p.add_argument(
             f"--block-{dim}", type=int, default=None,
             help=f"Kernel tile along {dim} for --matmul-impl cuda (default: "
-                 "the default tile 128x128x32; a request resolves to an "
+                 "the default tile 128x256x64; a request resolves to an "
                  "instantiated tile, ops/cuda_matmul.py effective_blocks). "
                  "Ignored by --matmul-impl torch. Tune with the 'tune' "
                  "program.",
