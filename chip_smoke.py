@@ -14,29 +14,37 @@ and grid order of the GEMM, every tile and epilogue of its wgmma route,
 its split-K form with the reduction, its pickup form, and the five ring
 matmuls over 1, 2 and 4 ranks, with a 20-call race check of each HBM ring
 at 2048² and at the main path's 16384² over 4 ranks, and of the fused ring
-at its cap), drives the port's paths through their normal entry points,
+at its cap; the persistent pickup GEMM of the reduce-scatter rings at both
+of their step shapes and a ragged one, with its route rule held against the
+kernel's own check), drives the port's paths through their normal entry
+points,
 then holds every shard of each ring's output at the main path's shape (the
 fused ring's at its cap) against its plain version, and times the fused
 ring and its HBM form at half its cap, at the cap and at twice it. Each GEMM
 launch is counted by route (`cuda_matmul.LAUNCHES_BY_ROUTE`): the headline
-run, the split-K tune runs and every ring product at 16384² must take the
-wgmma route, the fused ring its wgmma form, and the unaligned shapes the
-wmma route. The paths:
+run, the split-K tune runs and every all-gather ring product at 16384² must
+take the wgmma route, every reduce-scatter ring product the persistent
+pickup (`wgmma_persistent`) with no hop, the fused ring its wgmma form, and
+the unaligned shapes the wmma route. The paths:
 
 - the single-device bf16 16384x16384 matmul benchmark through the
   hand-written kernel, `tpu_matmul_bench_torch.benchmarks.matmul_benchmark
-  .main`, with both timing protocols, then once through the library
-  product as the yardstick;
+  .main`, with both timing protocols, then through the library product
+  with both protocols as the yardstick, with the SM clock and power draw
+  sampled during each run and read right after it; then the `c1` phase,
+  the same four runs at the power limit's steady clocks, where the port's
+  fused/dispatch ratio may exceed cuBLAS's by at most C1_MARGIN;
 - the tile tuner, `tpu_matmul_bench_torch.benchmarks.cuda_tune.main`, over
   every tile at bf16 16384^3 in both grid orders, then with `--ksplit 2`
   at 16384^3 and at the tall-M 28672x4096x8192;
 - the overlap program, `tpu_matmul_bench_torch.benchmarks
   .matmul_overlap_benchmark.main`, in its four HBM ring modes at bf16
   16384^2 over 4 ranks that share the card (`TMB_RANKS_PER_CARD=4`, set
-  for these phases only; their hops copy within the card's memory, not
-  over NVLink), then in the fused ring mode `cuda_ring` and in
-  `cuda_ring_hbm` at the fused ring's cap, the largest size whose operands
-  fit the card's L2.
+  for these phases only; the all-gather rings' hops copy within the
+  card's memory, not over NVLink, and the reduce-scatter rings store each
+  partial into the reader's slot), then in the fused ring mode `cuda_ring`
+  and in `cuda_ring_hbm` at the fused ring's cap, the largest size whose
+  operands fit the card's L2.
 
 Standard output is one JSON object per line: one per phase, then the
 `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
@@ -52,6 +60,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -102,6 +111,64 @@ RING_WORLD = 4  # ranks on the card for the overlap phases and the timings
 # 16384² (128 MiB chunks)
 RACE_REPEATS, RACE_SIZES = 20, (2048, SIZE)
 OVERLAP_ITERATIONS, OVERLAP_WARMUP = 10, 2
+# the reduce-scatter rings' step products at 16384² over RING_WORLD ranks,
+# (m, k, n): K3's whole chunk and K5's half, and a ragged one whose accin
+# and dest rows lie RS_RAGGED_PAD elements further apart than n
+RS_STEPS = {"ring_rs": (SIZE // RING_WORLD, SIZE // RING_WORLD, SIZE),
+            "ring_rs_bidir": (SIZE // RING_WORLD // 2, SIZE // RING_WORLD, SIZE)}
+RS_RAGGED, RS_RAGGED_PAD = (520, 264, 1000), 24
+# ROADMAP C1: the fused protocol may read at most C1_MARGIN slower, against
+# dispatch, for the port's kernel than for cuBLAS. The main path's runs
+# (50 products after 10, or after the 51 of the graph's warm call) time
+# the card while its clocks still fall under the power limit, and the
+# fused run later into that fall than the dispatch run; so the check
+# compares the two protocols once both run at the limit's steady clocks:
+# C1_ITERATIONS products after C1_WARMUP (about a second of load), in
+# C1_PASSES passes of the four runs, every other pass in the mirrored order.
+C1_MARGIN, C1_ITERATIONS, C1_WARMUP, C1_PASSES = 0.02, 200, 80, 3
+# `cuda_matmul.rs_route`'s cases, held on the CPU against the rule and on the
+# card against csrc/ring_rs.cu's own check (`rs_check`): (label, dtype,
+# (m, n, k), (lda, ldb, ldc, ldacc or None without accin), byte offsets of
+# (A, B, dest, accin) from 1 KB aligned bases, tile, route)
+_TILE = (128, 256, 64)
+RS_ROUTE_CASES = [
+    ("K3 step", "bfloat16", (4096, 16384, 4096), (4096, 16384, 16384, 16384),
+     (0, 0, 0, 0), _TILE, "wgmma_persistent"),
+    ("K3 first step, no accin", "bfloat16", (4096, 16384, 4096),
+     (4096, 16384, 16384, None), (0, 0, 0, 0), _TILE, "wgmma_persistent"),
+    ("K5 half step, f16", "float16", (2048, 16384, 4096), (4096, 16384, 16384, 16384),
+     (0, 0, 32768, 65536), _TILE, "wgmma_persistent"),
+    ("ragged, strided accin and dest", "bfloat16", (520, 1000, 264),
+     (264, 1000, 1024, 1024), (0, 0, 48, 48), _TILE, "wgmma_persistent"),
+    ("dest off 16 bytes", "bfloat16", (256, 256, 256), (256, 256, 256, 256),
+     (0, 0, 8, 0), _TILE, "wgmma"),
+    ("accin off 16 bytes", "bfloat16", (256, 256, 256), (256, 256, 256, 256),
+     (0, 0, 0, 8), _TILE, "wgmma"),
+    ("dest rows off 16 bytes", "bfloat16", (256, 256, 256), (256, 256, 260, 256),
+     (0, 0, 0, 0), _TILE, "wgmma"),
+    ("accin rows off 16 bytes", "float16", (256, 256, 256), (256, 256, 256, 260),
+     (0, 0, 0, 0), _TILE, "wgmma"),
+    ("another tile", "bfloat16", (256, 256, 256), (256, 256, 256, 256),
+     (0, 0, 0, 0), (128, 128, 64), "wgmma"),
+    ("A rows off 16 bytes", "bfloat16", (256, 256, 256), (260, 256, 256, 256),
+     (0, 0, 0, 0), _TILE, "wmma"),
+    ("B off 16 bytes", "bfloat16", (256, 256, 256), (256, 256, 256, 256),
+     (0, 2, 0, 0), _TILE, "wmma"),
+    ("empty K", "bfloat16", (256, 256, 0), (256, 256, 256, 256),
+     (0, 0, 0, 0), _TILE, "wmma"),
+    ("int8", "int8", (256, 256, 256), (256, 256, 256, 256), (0, 0, 0, 0), _TILE, "wmma"),
+    ("fp32", "float32", (256, 256, 256), (256, 256, 256, 256), (0, 0, 0, 0), _TILE, "simt"),
+]
+
+
+def rs_route_args(case) -> tuple:
+    """`cuda_matmul.rs_route`'s arguments for one of RS_ROUTE_CASES, the
+    pointers made up (1 MB apart plus the case's offsets): the rule and the
+    kernel's check read only their alignment."""
+    _, dtype, (m, n, k), (lda, ldb, ldc, ldacc), offsets, tile, _ = case
+    a, b, c, acc = ((i + 1) * 2**20 + off for i, off in enumerate(offsets))
+    return (dtype, m, n, k, lda, ldb, ldc, ldacc, a, b, c,
+            None if ldacc is None else acc, tile)
 
 
 def emit(obj: dict) -> None:
@@ -119,6 +186,49 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def clocks() -> dict:
+    """The card's SM clock and power draw now, as `nvidia-smi
+    --query-gpu=clocks.sm,power.draw --format=csv,noheader` gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    sm, power = (v.strip() for v in out.stdout.strip().splitlines()[0].split(","))
+    return {"clocks.sm": sm, "power.draw": power}
+
+
+@contextlib.contextmanager
+def clock_samples(period_ms: int = 50):
+    """The card's SM clock (MHz) and power draw (W) every `period_ms` while
+    the block runs (nvidia-smi in its loop mode, stopped at the block's
+    end); yields a dict that then holds their mean, the lowest clock and
+    the sample count (empty when nvidia-smi gave no samples)."""
+    stats: dict = {}
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", str(period_ms)], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield stats
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        samples = []
+        for line in out.splitlines():
+            try:
+                samples.append(tuple(float(v) for v in line.split(",")))
+            except ValueError:
+                continue
+        samples = [v for v in samples if len(v) == 2]
+        if samples:
+            stats.update(sm_mhz_mean=sum(v[0] for v in samples) / len(samples),
+                         sm_mhz_min=min(v[0] for v in samples),
+                         power_w_mean=sum(v[1] for v in samples) / len(samples),
+                         samples=len(samples))
 
 
 def events_ms(fn, runs: int) -> float:
@@ -321,24 +431,27 @@ def check_ksplit() -> dict:
     return errors
 
 
-def drive(impl: str, timing: str, out_dir: str) -> tuple[dict, int]:
-    """One main-path run through the benchmark's entry point; returns the
-    record's summary and the kernel launches counted during it, every one
-    of them on the wgmma route."""
+def drive(impl: str, timing: str, out_dir: str, iterations: int = ITERATIONS,
+          warmup: int = WARMUP, name: str = "main_path") -> tuple[dict, int]:
+    """One main-path run through the benchmark's entry point (the `c1`
+    phase's longer runs as `name` "c1"); returns the record's summary and
+    the kernel launches counted during it, every one of them on the wgmma
+    route, with the card's clocks and power during and right after it."""
     from tpu_matmul_bench_torch.benchmarks import matmul_benchmark
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
     from tpu_matmul_bench_torch.utils.telemetry import is_manifest
 
-    path = f"{out_dir}/{impl}-{timing}.jsonl"
+    path = f"{out_dir}/{name}-{impl}-{timing}.jsonl"
     argv = ["--sizes", str(SIZE), "--dtype", "bfloat16", "--num-devices", "1",
-            "--matmul-impl", impl, "--validate", "--iterations", str(ITERATIONS),
-            "--warmup", str(WARMUP), "--timing", timing, "--json-out", path]
+            "--matmul-impl", impl, "--validate", "--iterations", str(iterations),
+            "--warmup", str(warmup), "--timing", timing, "--json-out", path]
     cm.LAUNCHES = 0
     before = routes()
-    with contextlib.redirect_stdout(sys.stderr):
+    with contextlib.redirect_stdout(sys.stderr), clock_samples() as during:
         records = matmul_benchmark.main(argv)
+    after = clocks()  # right after the timed loop (validation runs before it)
     launches, by_route = cm.LAUNCHES, routes_since(before)
-    phase = f"main_path[{impl},{timing}]"
+    phase = f"{name}[{impl},{timing}]"
     if len(records) != 1:
         fail(phase, f"expected one record, got {len(records)} (the runner "
                     "reports a failed size and returns no record for it)")
@@ -353,6 +466,7 @@ def drive(impl: str, timing: str, out_dir: str) -> tuple[dict, int]:
         "validation_max_rel_err": rec.extras.get("validation_max_rel_err"),
         "iterations": rec.iterations, "launches": launches,
         "launches_by_route": by_route, "device_kind": rec.device_kind,
+        "during": during, "after": after,
     }
     problems = []
     if rec.extras.get("validation") != "ok":
@@ -376,6 +490,45 @@ def drive(impl: str, timing: str, out_dir: str) -> tuple[dict, int]:
     if problems:
         fail(phase, "; ".join(problems))
     return summary, launches
+
+
+def c1_check(main: list[dict], out_dir: str) -> dict:
+    """ROADMAP C1: the fused protocol's time over dispatch's, for the port's
+    kernel and for cuBLAS. `main` holds the main path's four runs (kernel
+    and cuBLAS, dispatch and fused), reported beside the check with their
+    clocks; the check itself reads C1_PASSES passes of the same four runs
+    at C1_ITERATIONS products after C1_WARMUP, every other pass in the
+    mirrored order, and each protocol's median time. It fails when the
+    port's ratio exceeds cuBLAS's by more than C1_MARGIN: a gap both share
+    is not the port's."""
+    order = [("cuda", "dispatch"), ("cuda", "fused"), ("torch", "dispatch"),
+             ("torch", "fused")]
+    runs = []
+    for p in range(C1_PASSES):
+        for impl, timing in order if p % 2 == 0 else order[::-1]:
+            runs.append(drive(impl, timing, out_dir, C1_ITERATIONS, C1_WARMUP, "c1")[0])
+
+    def ratio(rs: list[dict], impl: str) -> float:
+        def ms(timing: str) -> float:
+            return statistics.median(r["avg_ms"] for r in rs
+                                     if r["phase"].endswith(f"[{impl},{timing}]"))
+        return ms("fused") / ms("dispatch")
+
+    port, lib = ratio(runs, "cuda"), ratio(runs, "torch")
+    result = {"phase": "c1", "port_fused_over_dispatch": port,
+              "library_fused_over_dispatch": lib, "excess": port / lib - 1,
+              "margin": C1_MARGIN,
+              "main_path": {"port_fused_over_dispatch": ratio(main, "cuda"),
+                            "library_fused_over_dispatch": ratio(main, "torch")},
+              "runs": [{k: r[k] for k in ("phase", "avg_ms", "during", "after")}
+                       for r in main + runs],
+              "ok": port <= lib * (1 + C1_MARGIN)}
+    emit(result)
+    if not result["ok"]:
+        fail("c1", f"fused/dispatch {port:.4f} for the port against {lib:.4f} for "
+                   f"cuBLAS: more than {C1_MARGIN:.0%} apart")
+    return {k: result[k] for k in ("port_fused_over_dispatch",
+                                   "library_fused_over_dispatch", "excess", "main_path")}
 
 
 def tune(phase: str, extra: list[str], out_dir: str,
@@ -531,6 +684,102 @@ def check_matmul_acc() -> None:
                 fail("kernel_vs_plain[matmul_acc]", f"{dtype_name} {(m, k, n)}: {result}")
 
 
+def check_rs_step() -> dict:
+    """The persistent pickup GEMM (`cuda_matmul.cuda_matmul_rs` on its
+    `wgmma_persistent` route) against `matmul_acc_plain` (`matmul_plain`
+    at a first step), in bf16 and f16, at both reduce-scatter step shapes
+    (RS_STEPS) and at RS_RAGGED with strided accin and dest, with accin and
+    without; each case must launch the kernel once. Then `rs_route` against
+    the kernel's own check at every one of RS_ROUTE_CASES. Returns the bf16
+    max abs error with accin at each step shape, by ring."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.ops.matmul import random_operands
+
+    errors, bad = {}, []
+    shapes = [(label, mkn, 0) for label, mkn in RS_STEPS.items()]
+    shapes.append(("ragged", RS_RAGGED, RS_RAGGED_PAD))
+    for dtype_name in WGMMA_DTYPES:
+        dtype = getattr(torch, dtype_name)
+        cases = {}
+        for label, (m, k, n), pad in shapes:
+            (wide,) = random_operands(5, (m, n + pad), dtype, device="cuda", count=1)
+            out = torch.empty((m, n + pad), dtype=dtype, device="cuda")[:, pad:]
+            for accin in (wide[:, pad:], None):
+                before = routes()
+                result = compare(
+                    dtype_name, (m, k, n),
+                    lambda a, b: cm.cuda_matmul_rs(a, b, accin, out),
+                    lambda a, b: (cm.matmul_plain(a, b) if accin is None
+                                  else cm.matmul_acc_plain(a, b, accin)))
+                launched = routes_since(before)
+                case = f"{label}{'' if accin is None else '+accin'}@{m}x{k}x{n}"
+                cases[case] = result["max_rel_err"]
+                if not result["ok"] or launched != {"gemm:wgmma_persistent": 1}:
+                    bad.append((dtype_name, case, result, launched))
+                if dtype_name == "bfloat16" and accin is not None and label in RS_STEPS:
+                    errors[label] = result["max_abs_err"]
+            del wide, out
+            torch.cuda.empty_cache()
+        emit({"phase": "kernel_vs_plain[rs_step]", "dtype": dtype_name,
+              "max_rel_err": cases, "tolerance": TOLERANCE[dtype_name],
+              "ok": not [b for b in bad if b[0] == dtype_name]})
+    disagree = []
+    for case in RS_ROUTE_CASES:
+        args = rs_route_args(case)
+        route = cm.rs_route(*args)
+        code = cm.rs_check(getattr(torch, case[1]), *args[1:])
+        if route != case[-1] or (code == 0) != (route == "wgmma_persistent"):
+            disagree.append((case[0], route, code))
+    emit({"phase": "rs_route", "cases": len(RS_ROUTE_CASES), "disagree": disagree,
+          "ok": not disagree})
+    if bad or disagree:
+        fail("kernel_vs_plain[rs_step]", f"cases {bad}; rule and kernel check "
+                                         f"disagree on {disagree}")
+    return errors
+
+
+def rs_step_ms(label: str, runs: int = 20) -> dict:
+    """One step's product of ring `label` at bf16 16384² over RING_WORLD
+    ranks (RS_STEPS), timed three ways in turns: the wgmma pickup into a
+    staging slot plus its hop into the reader's slot (the schedule before
+    the persistent pickup), the persistent pickup into the slot, and
+    `torch.addmm(accin, a, b)`, the one library call of the same step."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.ops import cuda_ring as cr
+    from tpu_matmul_bench_torch.ops.matmul import random_operands
+
+    m, k, n = RS_STEPS[label]
+    (a,) = random_operands(3, (m, k), torch.bfloat16, device="cuda", count=1)
+    (b,) = random_operands(4, (k, n), torch.bfloat16, device="cuda", count=1)
+    (accin,) = random_operands(5, (m, n), torch.bfloat16, device="cuda", count=1)
+    stage, slot = (torch.empty((m, n), dtype=torch.bfloat16, device="cuda") for _ in range(2))
+    current = torch.cuda.current_stream()
+    sched = cr._Schedule(card_mesh(1), [(current, current)])
+
+    def pickup_and_hop():
+        cm.cuda_matmul_acc(a, b, accin, stage)
+        cr._hop(sched, 0, slot, stage)
+
+    def persistent():
+        cm.cuda_matmul_rs(a, b, accin, slot)
+
+    turns = {"pickup_hop": [], "persistent": []}
+    for name in ("pickup_hop", "persistent", "persistent", "pickup_hop"):
+        turns[name].append(events_ms(pickup_and_hop if name == "pickup_hop" else persistent,
+                                     runs))
+    library = events_ms(lambda: torch.addmm(accin, a, b), runs)
+    del a, b, accin, stage, slot
+    torch.cuda.empty_cache()
+    return {"shape": f"{m}x{k}x{n}",
+            "pickup_hop_ms": sum(turns["pickup_hop"]) / 2,
+            "persistent_ms": sum(turns["persistent"]) / 2,
+            "addmm_ms": library, "turns_ms": turns}
+
+
 def rings() -> dict:
     """The rings by label: (reduce-scatter or all-gather, constructor, plain
     version, the shapes of their kernel-vs-plain cases)."""
@@ -560,11 +809,14 @@ def ring_counts() -> tuple[int, int, int]:
 
 
 def per_call(label: str, d: int) -> tuple[int, int, int]:
-    """The launches one call of a ring adds to `ring_counts`."""
+    """The launches one call of a ring adds to `ring_counts`, its ranks on
+    one card: the reduce-scatter rings store each partial into the reader's
+    slot and hop nowhere."""
     if label == "ring_fused":
         return 0, 0, 1
     ways = 2 if label.endswith("_bidir") else 1
-    return ways * d * d, ways * d * (d - 1), 0
+    hops = 0 if label.startswith("ring_rs") else ways * d * (d - 1)
+    return ways * d * d, hops, 0
 
 
 def ring_operands(mesh, reduce_scatter: bool, mkn, dtype, seed: int):
@@ -616,6 +868,8 @@ def check_rings() -> None:
                     if launched != per_call(label, d):
                         problems.append(f"{case}: launched (products, hops, fused) "
                                         f"{launched}, not {per_call(label, d)}")
+            if reduce_scatter and not by_route.get("gemm:wgmma_persistent"):
+                problems.append(f"no product took the persistent pickup: {by_route}")
             emit({"phase": f"kernel_vs_plain[{label}]", "ranks": d,
                   "max_rel_err": errors, "tolerance": TOLERANCE,
                   "launches_by_route": by_route, "ok": not problems})
@@ -647,14 +901,24 @@ def check_races(s: int, labels) -> None:
         xg, x_spec, w_spec = cases[reduce_scatter]
         fn = build(mesh)
         x, w = shard_tensor(xg, x_spec, mesh), shard_tensor(eye, w_spec, mesh)
+        before, routes0 = ring_counts(), routes()
         outs = [fn(x, w) for _ in range(RACE_REPEATS)]
         torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(ring_counts(), before))
+        by_route = routes_since(routes0)
         bad = [i for i, y in enumerate(outs) if not torch.equal(gather(y), xg)]
         del outs, x, w
+        want = tuple(RACE_REPEATS * n for n in per_call(label, d))
+        # the reduce-scatter rings' every product on the persistent pickup
+        routed = (not reduce_scatter
+                  or by_route == {"gemm:wgmma_persistent": want[0]})
         emit({"phase": f"races[{label}]", "ranks": d, "size": s,
-              "calls": RACE_REPEATS, "wrong_calls": bad, "ok": not bad})
-        if bad:
-            fail(f"races[{label}]", f"calls {bad} of {RACE_REPEATS} differ from X")
+              "calls": RACE_REPEATS, "wrong_calls": bad, "launches": launched,
+              "launches_by_route": by_route,
+              "ok": not bad and launched == want and routed})
+        if bad or launched != want or not routed:
+            fail(f"races[{label}]", f"calls {bad} of {RACE_REPEATS} differ from X; "
+                                    f"launched {launched} (want {want}), routes {by_route}")
     del cases, eye
     torch.cuda.empty_cache()
 
@@ -674,14 +938,16 @@ def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict
             "--num-devices", str(RING_WORLD), "--matmul-impl", "cuda",
             "--iterations", str(OVERLAP_ITERATIONS), "--warmup", str(OVERLAP_WARMUP),
             "--validate", "--json-out", path]
-    cm.LAUNCHES = cm.ACC_LAUNCHES = 0
+    cm.LAUNCHES = cm.ACC_LAUNCHES = cm.RS_LAUNCHES = 0
     cr.RING_STEPS = cr.HOP_LAUNCHES = 0
+    cr.RS_TRANSFERS.update(store=0, hop=0)
     crf.FUSED_RING_LAUNCHES = 0
     before = routes()
     with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
         records = matmul_overlap_benchmark.main(argv)
     counts = {"matmul": cm.LAUNCHES, "matmul_acc": cm.ACC_LAUNCHES,
-              "ring_steps": cr.RING_STEPS, "ring_hops": cr.HOP_LAUNCHES,
+              "matmul_rs": cm.RS_LAUNCHES, "ring_steps": cr.RING_STEPS,
+              "ring_hops": cr.HOP_LAUNCHES, "rs_transfers": dict(cr.RS_TRANSFERS),
               "fused": crf.FUSED_RING_LAUNCHES, "routes": routes_since(before)}
     phase = f"overlap[{mode}]" if size == SIZE else f"overlap[{mode},{size}]"
     if len(records) != 1:
@@ -720,15 +986,23 @@ def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict
         problems.append("the JSONL does not start with its manifest")
     if len(lines) != 2 or lines[1].get("mode") != mode:
         problems.append("the JSONL does not hold the record after the manifest")
-    ring_ran = counts["fused"] > 0 if fused else min(counts["ring_steps"],
-                                                     counts["ring_hops"]) > 0
+    reduce_scatter = "_rs_" in mode
+    if fused:
+        ring_ran = counts["fused"] > 0
+    elif reduce_scatter:
+        ring_ran = counts["ring_steps"] > 0 and counts["matmul_rs"] > 0
+    else:
+        ring_ran = min(counts["ring_steps"], counts["ring_hops"]) > 0
     if counts["matmul"] <= 0 or not ring_ran:
         problems.append(f"a kernel of the path was not launched: {counts}")
-    if "_rs_" in mode and counts["matmul_acc"] <= 0:
-        problems.append("the pickup kernel was not launched")
-    # every product (the baseline's and the ring's) on wgmma, K6 in its
-    # wgmma form
+    if reduce_scatter and (counts["ring_hops"] or counts["rs_transfers"]["hop"]
+                           or counts["rs_transfers"]["store"] <= 0):
+        problems.append(f"the ranks share the card, yet partials hopped: {counts}")
+    # every product on wgmma (the baseline's, the all-gather rings'), the
+    # reduce-scatter rings' on the persistent pickup, K6 in its wgmma form
     want = {"gemm:wgmma": counts["matmul"] + counts["matmul_acc"]}
+    if counts["matmul_rs"]:
+        want["gemm:wgmma_persistent"] = counts["matmul_rs"]
     if fused:
         want["fused:wgmma"] = counts["fused"]
     if counts["routes"] != want:
@@ -794,11 +1068,12 @@ def ring_entry(label: str, counts: dict, baseline_ms: float, card: str,
         launches = {"ring_fused": counts["fused"]}
     else:
         launches = {"products": products, "hops": hops,
-                    **({"matmul_acc": counts["matmul_acc"]} if reduce_scatter else {})}
+                    **({"rs_step": counts["matmul_rs"]} if reduce_scatter else {})}
     return {"route": "cuda", "dtype": "bfloat16", "card": card,
             "shape": f"{size}x{size}x{size}", "ranks": RING_WORLD, "cards": 1,
             "launches": counts["fused"] if label == "ring_fused" else products + hops,
-            "gemm_route": "wgmma", "launches_by_route": counts["routes"],
+            "gemm_route": "wgmma_persistent" if reduce_scatter else "wgmma",
+            "launches_by_route": counts["routes"], "hop_launches": hops,
             "launches_by_kernel": launches,
             "max_abs_err": max_abs_err, "max_rel_err": max_rel_err,
             "tolerance": TOLERANCE["bfloat16"], "ms": kernel_ms, "kernel_ms": kernel_ms,
@@ -859,6 +1134,7 @@ def main() -> None:
     try:
         from tpu_matmul_bench_torch.ops import _build
         from tpu_matmul_bench_torch.ops.cuda_matmul import (
+            PERSISTENT_TILES,
             TILES,
             matmul_plain,
             occupancy,
@@ -895,6 +1171,9 @@ def main() -> None:
         blocks_per_sm = {route: {"x".join(map(str, t)): occupancy(t, torch.bfloat16,
                                                                    route=route)
                                  for t in TILES} for route in ("wmma", "wgmma")}
+        blocks_per_sm["wgmma_persistent"] = {
+            "x".join(map(str, t)): occupancy(t, torch.bfloat16, route="wgmma_persistent")
+            for t in PERSISTENT_TILES}
         blocks_per_sm["ring_fused"] = {route: fused_occupancy(torch.bfloat16, route)
                                        for route in ("wmma", "wgmma")}
     except (_build.KernelBuildError, OSError, RuntimeError) as e:
@@ -932,6 +1211,7 @@ def main() -> None:
     check_wgmma()
     ksplit_errors = check_ksplit()
     check_matmul_acc()
+    rs_errors = check_rs_step()
     check_rings()
     for size in RACE_SIZES:
         check_races(size, ["ring_ag", "ring_rs", "ring_ag_bidir", "ring_rs_bidir"])
@@ -947,6 +1227,8 @@ def main() -> None:
         dispatch, launches = drive("cuda", "dispatch", out_dir)
         fused, launches_fused = drive("cuda", "fused", out_dir)
         library, _ = drive("torch", "dispatch", out_dir)
+        library_fused, _ = drive("torch", "fused", out_dir)
+        c1 = c1_check([dispatch, fused, library, library_fused], out_dir)
         tiles_mnk, _, _ = tune(f"tune[{SIZE}]", ["--sizes", str(SIZE)], out_dir)
         tiles_nmk, _, _ = tune(f"tune[{SIZE},nmk]", ["--sizes", str(SIZE),
                                                      "--grid-order", "nmk"], out_dir)
@@ -1000,6 +1282,8 @@ def main() -> None:
     del fused_ring, x, w, k2
     torch.cuda.empty_cache()
     entries["ring_fused"]["by_size"] = residency_probe(cap, l2)
+    for label in RS_STEPS:
+        entries[label].update(step=rs_step_ms(label), step_max_abs_err=rs_errors[label])
     emit({"kernels": [{
         "name": "matmul", "route": "cuda",
         "source": "tpu_matmul_bench_torch/csrc/matmul.cu",
@@ -1013,7 +1297,8 @@ def main() -> None:
         "fused_ms": fused["avg_ms"], "plain_ms": plain_ms,
         "bound_ms": max(ops_s, bytes_s) * 1e3,
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-        "library_ms": library["avg_ms"], "card": card,
+        "library_ms": library["avg_ms"], "library_fused_ms": library_fused["avg_ms"],
+        "c1": c1, "card": card,
         "tiles_ms": {t: {"mnk": tiles_mnk[t], "nmk": tiles_nmk[t]}
                      for t in tiles_mnk},
     }, {
@@ -1035,8 +1320,7 @@ def main() -> None:
         "source": "tpu_matmul_bench_torch/ops/cuda_ring.py",
         "replaces": "tpu_matmul_bench/ops/pallas_ring_rs_hbm.py:259",
         "replaces_function": "ring_reduce_scatter_matmul_hbm",
-        "kernels": ["csrc/matmul.cu tmb_matmul", "csrc/matmul.cu tmb_matmul_acc",
-                    "csrc/ring.cu tmb_ring_hop"],
+        "kernels": ["csrc/ring_rs.cu tmb_rs_step (rs_step_wgmma)"],
         **entries["ring_rs"],
     }, {
         "name": "ring_allgather_matmul_bidir",
@@ -1050,8 +1334,7 @@ def main() -> None:
         "source": "tpu_matmul_bench_torch/ops/cuda_ring.py",
         "replaces": "tpu_matmul_bench/ops/pallas_ring_bidir_rs_hbm.py:165",
         "replaces_function": "ring_reduce_scatter_matmul_bidir_hbm",
-        "kernels": ["csrc/matmul.cu tmb_matmul", "csrc/matmul.cu tmb_matmul_acc",
-                    "csrc/ring.cu tmb_ring_hop"],
+        "kernels": ["csrc/ring_rs.cu tmb_rs_step (rs_step_wgmma)"],
         **entries["ring_rs_bidir"],
     }, {
         "name": "ring_allgather_matmul_fused",

@@ -86,8 +86,10 @@ def test_cpu_products_launch_no_route():
     cm.cuda_matmul(a, a)
     cm.cuda_matmul_ksplit(torch.ones(64, 256, dtype=BF16), torch.ones(256, 64, dtype=BF16))
     cm.cuda_matmul_acc(a, a, torch.zeros(64, 64, dtype=BF16))
+    cm.cuda_matmul_rs(a, a, torch.zeros(64, 64, dtype=BF16), torch.empty(64, 64, dtype=BF16))
     assert cm.LAUNCHES_BY_ROUTE == before
-    assert set(cm.LAUNCHES_BY_ROUTE) == set(cm.ROUTES) == {"simt", "wmma", "wgmma"}
+    assert set(cm.LAUNCHES_BY_ROUTE) == set(cm.ROUTES) == {
+        "simt", "wmma", "wgmma", "wgmma_persistent"}
 
 
 def test_route_codes_match_the_sources():
@@ -96,7 +98,9 @@ def test_route_codes_match_the_sources():
         codes = re.search(r"enum Route : int \{([^}]*)\}", text).group(1)
         assert [c.strip() for c in codes.split(",")] == [
             "kSimt = 0", "kWmma = 1", "kWgmma = 2"], name
-    assert cm.ROUTES == ("simt", "wmma", "wgmma")
+    # the fourth route is the persistent pickup's own entry point, no code
+    assert cm.ROUTES == ("simt", "wmma", "wgmma", "wgmma_persistent")
+    assert "int tmb_rs_step(" in (CSRC / "ring_rs.cu").read_text()
 
 
 # ------------------------------------------------------ tiles on wgmma

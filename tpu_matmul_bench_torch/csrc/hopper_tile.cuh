@@ -1,6 +1,8 @@
 // The warpgroup tile mainloop of the port's Hopper kernels, written once and
-// shared by csrc/matmul.cu (wgmma_gemm: the GEMM under K1, K1b and every
-// ring product) and csrc/ring_fused.cu (ring_fused_wgmma: K6's tiles).
+// shared by csrc/matmul.cu (wgmma_gemm: the GEMM under K1, K1b and the
+// all-gather rings' products), csrc/ring_rs.cu (rs_step_wgmma: the
+// reduce-scatter rings' persistent pickup) and csrc/ring_fused.cu
+// (ring_fused_wgmma: K6's tiles).
 //
 // One block computes a BM x BN tile of C = A . B, A row-major (K-major), B
 // row-major K x N (MN-major), bf16 or f16 operands, fp32 sums in registers:
@@ -119,6 +121,14 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 }
 
 // A shared-memory box out to the tensor (the part inside its edges).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.tile.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
                                              int c1, int c2) {
   asm volatile(
@@ -143,6 +153,11 @@ __device__ __forceinline__ void bulk_wait() {
 // (TMA): after a barrier, before TMA reads what another block's TMA wrote.
 __device__ __forceinline__ void fence_proxy_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// The same for shared memory: a thread's stores before it, then a barrier,
+// come before a TMA store of what they wrote.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // --------------------------------------------------------------------- wgmma
@@ -470,6 +485,28 @@ inline cudaError_t encode_b(CUtensorMap* map, bool bf16, const void* base, int r
 // 16-byte units (ops/cuda_matmul.py gemm_route is the same rule).
 inline bool tma_describable(const void* p, long long ld) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (ld * 2) % 16 == 0;
+}
+
+// The SM count and cooperative-launch support of each device, queried once
+// per library and device (the grids of K6 and of the persistent pickup).
+constexpr int kMaxDevices = 64;
+struct Card {
+  bool ready = false;
+  int sms = 0, coop = 0;
+};
+
+inline cudaError_t card(int dev, const Card** out) {
+  static Card cards[kMaxDevices];
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Card& c = cards[dev];
+  if (!c.ready) {
+    cudaError_t e = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&c.coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e != cudaSuccess) return e;
+    c.ready = true;
+  }
+  *out = &c;
+  return cudaSuccess;
 }
 
 }  // namespace tmb

@@ -10,7 +10,9 @@
 // - tpu_matmul_bench/ops/pallas_ring_rs_hbm.py::_rs_acc_kernel (:52-66), the
 //   reduce-scatter ring's pickup: C = round_out(A.B + accin), the partial
 //   that arrived over the ring added to the product in fp32 (int32 for int8)
-//   and rounded once at the store (tmb_matmul_acc).
+//   and rounded once at the store (tmb_matmul_acc); the rings take it where
+//   csrc/ring_rs.cu's persistent pickup does not take the operands
+//   (ops/cuda_matmul.py rs_route).
 //
 // What it computes: C[m,n] = A[m,k] . B[k,n] for row-major operands whose
 // rows may be strided (lda, ldb), so a K slab A[:, k0:k0+kc] . B[k0:k0+kc, :]
@@ -89,9 +91,9 @@
 //   operations at 989 TFLOP/s, so the pickup stays bound by operations.
 //
 // Left for later work: persistent blocks over many tiles (one tile's
-// epilogue under the next one's loads), thread-block clusters with TMA
-// multicast, a TMA-store epilogue, and a tensor-core path for fp32 under
-// TF32.
+// epilogue under the next one's loads) and a TMA-store epilogue here too
+// (csrc/ring_rs.cu has both for the reduce-scatter rings), thread-block
+// clusters with TMA multicast, and a tensor-core path for fp32 under TF32.
 //
 // The C entry points launch on the caller's stream, allocate nothing and do
 // not synchronise, so they can be captured in a CUDA graph. They return

@@ -120,7 +120,7 @@ enum DType : int { kF32 = 0, kF16 = 1, kBF16 = 2, kI8 = 3 };
 // routes shared with ops/cuda_matmul.py ROUTES: simt and wmma both name the
 // first form, ring_fused (SIMT tiles for fp32, wmma tiles for the others)
 enum Route : int { kSimt = 0, kWmma = 1, kWgmma = 2 };
-constexpr int kMaxDevices = 64;
+using tmb::kMaxDevices;
 
 constexpr int THREADS = 256;  // 8 warps
 constexpr int BM = 64, BN = 64, BK = 32;  // the tensor-core tile
@@ -415,26 +415,6 @@ __global__ void __launch_bounds__(tmb::kThreads, 1)
 }
 
 // ----------------------------------------------------------------- launches
-// The SM count and cooperative-launch support of each device, queried once.
-struct Card {
-  bool ready = false;
-  int sms = 0, coop = 0;
-};
-Card g_cards[kMaxDevices];
-
-cudaError_t card(int dev, const Card** out) {
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  Card& c = g_cards[dev];
-  if (!c.ready) {
-    cudaError_t e = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&c.coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e != cudaSuccess) return e;
-    c.ready = true;
-  }
-  *out = &c;
-  return cudaSuccess;
-}
-
 // Resident blocks per SM of one form of the kernel on device `dev`, queried
 // once (for the wgmma form after raising its shared-memory limit).
 template <typename T, bool WGMMA> cudaError_t resident(int dev, int* per_sm) {
@@ -459,7 +439,7 @@ template <typename T, bool WGMMA> cudaError_t resident(int dev, int* per_sm) {
 
 // As many blocks as the card holds at once, an equal share for each rank,
 // and no more than a rank has tiles (ops/cuda_ring_fused.py fused_plan).
-cudaError_t grid_share(const Card& c, int per_sm, int ranks, int tiles, int* per_rank) {
+cudaError_t grid_share(const tmb::Card& c, int per_sm, int ranks, int tiles, int* per_rank) {
   if (!c.coop) return cudaErrorNotSupported;
   *per_rank = per_sm * c.sms / ranks;
   if (*per_rank < 1) return cudaErrorCooperativeLaunchTooLarge;
@@ -472,9 +452,9 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 template <typename T>
 cudaError_t launch(const TmbRingArgs& a, cudaStream_t s, int* grid_blocks) {
   int dev = 0, per_sm = 0, per_rank = 0;
-  const Card* c = nullptr;
+  const tmb::Card* c = nullptr;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = card(dev, &c);
+  if (e == cudaSuccess) e = tmb::card(dev, &c);
   if (e == cudaSuccess) e = resident<T, false>(dev, &per_sm);
   const int tiles = ((a.mshard + BM - 1) / BM) * ((a.nshard + BN - 1) / BN);
   if (e == cudaSuccess) e = grid_share(*c, per_sm, a.ranks, tiles, &per_rank);
@@ -518,9 +498,9 @@ cudaError_t launch_wgmma(const TmbRingArgs& a, cudaStream_t s, int* grid_blocks)
     }
   }
   int dev = 0, per_sm = 0, per_rank = 0;
-  const Card* c = nullptr;
+  const tmb::Card* c = nullptr;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = card(dev, &c);
+  if (e == cudaSuccess) e = tmb::card(dev, &c);
   if (e == cudaSuccess) e = resident<T, true>(dev, &per_sm);
   const int tiles = ((a.mshard + G::BM - 1) / G::BM) * ((a.nshard + G::BN - 1) / G::BN);
   if (e == cudaSuccess) e = grid_share(*c, per_sm, a.ranks, tiles, &per_rank);

@@ -5,7 +5,9 @@ Counterpart of `tpu_matmul_bench/ops/pallas_matmul.py`: `cuda_matmul` is
 `pallas_matmul` (the `--matmul-impl cuda` path, where the JAX package has
 `--matmul-impl pallas`) and `cuda_matmul_ksplit` is `pallas_matmul_ksplit`.
 `cuda_matmul_acc` is the reduce-scatter ring's pickup, `_rs_acc_kernel` of
-`tpu_matmul_bench/ops/pallas_ring_rs_hbm.py`. Each launches its kernels for
+`tpu_matmul_bench/ops/pallas_ring_rs_hbm.py`, and `cuda_matmul_rs` the
+reduce-scatter rings' step product, which takes the persistent pickup GEMM
+of `csrc/ring_rs.cu` where it can. Each launches its kernels for
 tensors on the card and runs its plain version for tensors on the CPU,
 where there is no kernel to launch. For a CUDA tensor it launches or
 raises: nothing falls back.
@@ -13,8 +15,10 @@ raises: nothing falls back.
 Each product takes one of three routes, chosen by `gemm_route` from the
 operands alone before the launch: `wgmma` (TMA, wgmma and an mbarrier
 pipeline; bf16 and f16 that TMA can describe), `wmma` (int8, and bf16/f16
-that TMA cannot describe) or `simt` (fp32). A route that fails raises; no
-other route is tried.
+that TMA cannot describe) or `simt` (fp32). A reduce-scatter step's product
+may take a fourth, `wgmma_persistent` (`rs_route`: the persistent pickup
+GEMM with a TMA-store epilogue). A route that fails raises; no other route
+is tried.
 """
 
 from __future__ import annotations
@@ -34,12 +38,17 @@ from tpu_matmul_bench_torch.utils.metrics import (
 # Kernel launches, counted where each launch happens (a CUDA-graph replay
 # re-runs captured launches without counting them): LAUNCHES counts the GEMM
 # kernel (one per `cuda_matmul`, one per split `cuda_matmul_ksplit`),
-# REDUCE_LAUNCHES the split-K reduction, ACC_LAUNCHES the pickup kernel.
+# REDUCE_LAUNCHES the split-K reduction, ACC_LAUNCHES the pickup kernel,
+# RS_LAUNCHES the persistent pickup GEMM of csrc/ring_rs.cu.
 LAUNCHES = 0
 REDUCE_LAUNCHES = 0
 ACC_LAUNCHES = 0
-# The GEMM kernel's launches (those of LAUNCHES and ACC_LAUNCHES) by route.
-ROUTES = ("simt", "wmma", "wgmma")  # Route codes 0, 1, 2 of csrc/matmul.cu
+RS_LAUNCHES = 0
+# The GEMM kernels' launches (those of LAUNCHES, ACC_LAUNCHES and
+# RS_LAUNCHES) by route: Route codes 0, 1, 2 of csrc/matmul.cu, then the
+# persistent pickup, whose entry point (csrc/ring_rs.cu tmb_rs_step) is its
+# route.
+ROUTES = ("simt", "wmma", "wgmma", "wgmma_persistent")
 LAUNCHES_BY_ROUTE = dict.fromkeys(ROUTES, 0)
 
 # The tensor-core tiles (bm, bn, bk) instantiated in csrc/matmul.cu on both
@@ -50,6 +59,8 @@ TILES = ((64, 128, 32), (128, 64, 32), (128, 128, 32), (128, 128, 64),
 # 128x128x32 before it, on the wmma route
 DEFAULT_TILE = (128, 256, 64)
 SIMT_TILE = (64, 64, 16)  # fp32 operands: the one SIMT tile
+# the tiles of the persistent pickup GEMM (TMB_RS_TILES of csrc/ring_rs.cu)
+PERSISTENT_TILES = ((128, 256, 64),)
 GRID_ORDERS = ("mnk", "nmk")
 
 # dtype codes of csrc/matmul.cu
@@ -112,25 +123,38 @@ def gemm_route(dtype: torch.dtype | str, m: int, n: int, k: int, lda: int,
 
 
 # Shared memory a wgmma block may spend on its stages (kSmemBudget of
-# csrc/hopper_tile.cuh), its stage cap, and the most a block may use.
+# csrc/hopper_tile.cuh), its stage cap, and the most a block may use; and
+# what the persistent pickup may spend on its stages and its tile buffer
+# together (kRsBudget of csrc/ring_rs.cu).
 _WGMMA_STAGE_BUDGET, _WGMMA_MAX_STAGES, SMEM_PER_BLOCK = 200 * 1024, 5, 232448
+_RS_BUDGET = 212 * 1024
 
 
-def wgmma_plan(tile: tuple[int, int, int]) -> dict[str, int]:
+def wgmma_plan(tile: tuple[int, int, int], persistent: bool = False) -> dict[str, int]:
     """The wgmma route's geometry for one tile, as `tmb::WgTile` in
     csrc/hopper_tile.cuh computes it: the two consumer warpgroups' split
     (along M when bm >= 128, else along N), each one's rows and columns
     (`wm`, `wn`; one wgmma is m64 x wn), its m64 wgmmas (`mi`), A's swizzle
     in bytes (one row of the A tile), the shared-memory stages and the
-    block's dynamic shared memory (stages, 1 KB of alignment, barriers)."""
+    block's dynamic shared memory (stages, 1 KB of alignment, barriers).
+
+    `persistent`: the persistent pickup's plan (`RsTile` of
+    csrc/ring_rs.cu) instead, whose tile buffer (`epilogue_bytes`: the
+    bm x bn tile in 16-bit elements, for accin and the result) comes out
+    of the stages' room, with two more barriers."""
     bm, bn, bk = tile
     wg_m = 2 if bm >= 128 else 1
     wm, wn = bm // wg_m, bn // (2 // wg_m)
     stage = bm * bk * 2 + (bn // 64) * bk * 128
-    stages = min(_WGMMA_MAX_STAGES, _WGMMA_STAGE_BUDGET // stage)
-    return {"wg_m": wg_m, "wg_n": 2 // wg_m, "wm": wm, "wn": wn, "mi": wm // 64,
-            "a_swizzle": bk * 2, "stage_bytes": stage, "stages": stages,
-            "smem_bytes": stages * stage + 1024 + 2 * stages * 8}
+    plan = {"wg_m": wg_m, "wg_n": 2 // wg_m, "wm": wm, "wn": wn, "mi": wm // 64,
+            "a_swizzle": bk * 2, "stage_bytes": stage}
+    if not persistent:
+        stages = min(_WGMMA_MAX_STAGES, _WGMMA_STAGE_BUDGET // stage)
+        return {**plan, "stages": stages, "smem_bytes": stages * stage + 1024 + 2 * stages * 8}
+    epilogue = bm * bn * 2
+    stages = min(_WGMMA_MAX_STAGES, (_RS_BUDGET - epilogue) // stage)
+    return {**plan, "stages": stages, "epilogue_bytes": epilogue,
+            "smem_bytes": stages * stage + epilogue + 1024 + (2 * stages + 2) * 8}
 
 
 RASTER_GROUP = 8  # kGroup of csrc/hopper_tile.cuh
@@ -147,6 +171,34 @@ def raster(block: int, tm: int, tn: int, m_slow: bool) -> tuple[int, int]:
     inside = block - first * fast
     s, f = first + inside % rows, inside // rows
     return (s, f) if m_slow else (f, s)
+
+
+def persistent_tiles(block: int, grid: int, tm: int, tn: int,
+                     m_slow: bool = True) -> list[tuple[int, int]]:
+    """The output tiles (m, n) that persistent block `block` of a `grid`
+    walks, in its order: tiles block, block + grid, ... of `raster`'s
+    grouped order over tm × tn tiles."""
+    return [raster(t, tm, tn, m_slow) for t in range(block, tm * tn, grid)]
+
+
+def rs_route(dtype: torch.dtype | str, m: int, n: int, k: int, lda: int, ldb: int,
+             ldc: int, ldacc: int | None, a_ptr: int, b_ptr: int, c_ptr: int,
+             acc_ptr: int | None, tile: tuple[int, int, int]) -> str:
+    """The route of one reduce-scatter step's product dest = A·B (+ accin,
+    absent at a ring's first step), chosen before the launch (csrc/ring_rs.cu
+    tmb_rs_check is the same rule and refuses what breaks it).
+
+    `wgmma_persistent` when `gemm_route` gives `wgmma` for A and B, the
+    resolved `tile` is one of PERSISTENT_TILES, and TMA can describe dest
+    and accin too (16-byte aligned bases, rows `ldc` and `ldacc` elements
+    apart in whole 16-byte units). Otherwise `gemm_route`'s route, which
+    the pickup kernel (or K1 at a first step) takes."""
+    route = gemm_route(dtype, m, n, k, lda, ldb, a_ptr, b_ptr)
+    results = [(c_ptr, ldc)] + ([] if acc_ptr is None else [(acc_ptr, ldacc)])
+    if (route != "wgmma" or tuple(tile) not in PERSISTENT_TILES
+            or any(ptr % 16 or ld * 2 % 16 for ptr, ld in results)):
+        return route
+    return "wgmma_persistent"
 
 
 def effective_ksplit(k: int, splits: int) -> int:
@@ -272,10 +324,11 @@ def _ld(x: torch.Tensor) -> int:
     return max(x.stride(0), x.shape[1])
 
 
-def _raise_on(rc: int, what: str, lib: ctypes.CDLL) -> None:
+def _raise_on(rc: int, what: str, lib: ctypes.CDLL,
+              strerror: str = "tmb_error_string") -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.tmb_error_string(rc).decode()} (code {rc})")
+                           f"{getattr(lib, strerror)(rc).decode()} (code {rc})")
 
 
 def _route(a: torch.Tensor, b: torch.Tensor, k: int, splits: int = 1) -> str:
@@ -373,6 +426,69 @@ def cuda_matmul_acc(a: torch.Tensor, b: torch.Tensor, accin: torch.Tensor,
     return c
 
 
+def cuda_matmul_rs(a: torch.Tensor, b: torch.Tensor, accin: torch.Tensor | None,
+                   out: torch.Tensor, *, blocks: tuple[int, int, int] | None = None,
+                   grid_order: str = "mnk") -> torch.Tensor:
+    """One reduce-scatter ring step's product: out = A @ B + accin, or
+    out = A @ B at a ring's first step (accin None), summed in fp32 (int32
+    for int8) and rounded once to the operand dtype (int32 for int8).
+
+    `out` (the reader's receive slot, or the home rows of Y) and accin are
+    m×n, with unit column stride and rows that may be further apart than n.
+    For CUDA tensors `rs_route` decides before the launch: the persistent
+    pickup GEMM of csrc/ring_rs.cu (RS_LAUNCHES, route `wgmma_persistent`),
+    or else `cuda_matmul_acc` (`cuda_matmul` without accin, which takes a
+    contiguous `out`) on its own route. The other arguments are
+    `cuda_matmul`'s."""
+    global RS_LAUNCHES
+    order = _check_grid_order(grid_order)
+    dtype = _out_dtype(a, b, None)
+    tile = _resolve(a, b, blocks)
+    _check_result_operand(out, "out", a, b, dtype)
+    if accin is not None:
+        _check_result_operand(accin, "accin", a, b, dtype)
+    if a.device.type == "cpu":
+        c = matmul_plain(a, b) if accin is None else matmul_acc_plain(a, b, accin)
+        return out.copy_(c)
+    _check_card_operands(a, b, "cuda_matmul_rs")
+    (m, k), n = a.shape, b.shape[1]
+    if max(_ld(out), 0 if accin is None else _ld(accin)) > _INT_MAX:
+        raise ValueError("cuda_matmul_rs: a row stride exceeds the kernel's int range")
+    route = rs_route(a.dtype, m, n, k, _ld(a), _ld(b), _ld(out),
+                     None if accin is None else _ld(accin), a.data_ptr(), b.data_ptr(),
+                     out.data_ptr(), None if accin is None else accin.data_ptr(), tile)
+    if route != "wgmma_persistent":
+        if accin is None:
+            return cuda_matmul(a, b, blocks=blocks, grid_order=grid_order, out=out)
+        return cuda_matmul_acc(a, b, accin, out, blocks=blocks, grid_order=grid_order)
+    lib = _rs_lib(a.device)
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.tmb_rs_step(a.data_ptr(), b.data_ptr(),
+                             None if accin is None else accin.data_ptr(), out.data_ptr(),
+                             m, n, k, _ld(a), _ld(b), 0 if accin is None else _ld(accin),
+                             _ld(out), _CODES[a.dtype], *tile, order, stream,
+                             ctypes.byref(grid))
+    _raise_on(rc, "persistent pickup matmul", lib, "tmb_rs_error_string")
+    RS_LAUNCHES += 1
+    _count(route)
+    return out
+
+
+def rs_check(dtype: torch.dtype, m: int, n: int, k: int, lda: int, ldb: int, ldc: int,
+             ldacc: int | None, a_ptr: int, b_ptr: int, c_ptr: int, acc_ptr: int | None,
+             tile: tuple[int, int, int], device: torch.device | str = "cuda") -> int:
+    """What csrc/ring_rs.cu says of these operands without launching
+    (tmb_rs_check): 0 where it takes them, else the cudaError_t code it
+    refuses them with. `rs_route` gives `wgmma_persistent` exactly where
+    this is 0 (`chip_smoke.py` holds the two together on the card)."""
+    lib = _rs_lib(torch.device(device))
+    return lib.tmb_rs_check(a_ptr, b_ptr, acc_ptr, c_ptr, m, n, k, lda, ldb,
+                            0 if ldacc is None else ldacc, ldc,
+                            _CODES.get(dtype, -1), *tile)
+
+
 def cuda_matmul_ksplit(a: torch.Tensor, b: torch.Tensor, *, splits: int = 2,
                        blocks: tuple[int, int, int] | None = None,
                        grid_order: str = "mnk") -> torch.Tensor:
@@ -422,12 +538,19 @@ def occupancy(tile: tuple[int, int, int], dtype: torch.dtype = torch.bfloat16,
               device: torch.device | str = "cuda", route: str = "wmma") -> int:
     """Resident blocks per SM of the tensor-core kernel of `route` at `tile`
     for operands of `dtype`, as the CUDA runtime computes it on `device`."""
-    if route not in ("wmma", "wgmma") or dtype not in (
-            (torch.bfloat16, torch.float16) if route == "wgmma"
+    if route not in ("wmma", "wgmma", "wgmma_persistent") or dtype not in (
+            (torch.bfloat16, torch.float16) if route != "wmma"
             else (torch.bfloat16, torch.float16, torch.int8)):
         raise TypeError(f"{dtype} operands take no {route} tile")
-    lib = _lib(torch.device(device))
     blocks = ctypes.c_int(0)
+    device = torch.device(device)
+    if route == "wgmma_persistent":
+        lib = _rs_lib(device)
+        with torch.cuda.device(device):
+            rc = lib.tmb_rs_occupancy(_CODES[dtype], *tile, ctypes.byref(blocks))
+        _raise_on(rc, "occupancy", lib, "tmb_rs_error_string")
+        return blocks.value
+    lib = _lib(device)
     _raise_on(lib.tmb_occupancy(_CODES[dtype], ROUTES.index(route), *tile,
                                 ctypes.byref(blocks)), "occupancy", lib)
     return blocks.value
@@ -459,4 +582,30 @@ def _lib(device: torch.device) -> ctypes.CDLL:
         with torch.cuda.device(index):
             _raise_on(lib.tmb_init(), "init", lib)
         _INITIALIZED.add(index)
+    return lib
+
+
+_RS_INITIALIZED: set[int] = set()
+
+
+def _rs_lib(device: torch.device) -> ctypes.CDLL:
+    """The persistent pickup's library (csrc/ring_rs.cu), with its argument
+    types set and `tmb_rs_init` run once for `device` (outside any CUDA-graph
+    capture: the ring's first call is eager)."""
+    lib = _build.load("ring_rs")
+    if lib.tmb_rs_step.argtypes is None:
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.tmb_rs_step.argtypes = [p, p, p, p] + [i] * 12 + [p, ctypes.POINTER(i)]
+        lib.tmb_rs_check.argtypes = [p, p, p, p] + [i] * 11
+        lib.tmb_rs_occupancy.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+        lib.tmb_rs_init.argtypes = []
+        for fn in (lib.tmb_rs_step, lib.tmb_rs_check, lib.tmb_rs_occupancy, lib.tmb_rs_init):
+            fn.restype = i
+        lib.tmb_rs_error_string.argtypes = [i]
+        lib.tmb_rs_error_string.restype = ctypes.c_char_p
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _RS_INITIALIZED:
+        with torch.cuda.device(index):
+            _raise_on(lib.tmb_rs_init(), "persistent pickup init", lib, "tmb_rs_error_string")
+        _RS_INITIALIZED.add(index)
     return lib

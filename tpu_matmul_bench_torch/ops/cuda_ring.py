@@ -14,10 +14,12 @@ run one program per TPU core that multiplies a resident chunk while
 `make_async_remote_copy` moves it to the right neighbour, with semaphores
 for flow control. On Hopper, copies between cards leave the GEMM kernel:
 here each rank has a compute stream
-and a copy stream, every product is a hand-written kernel of
-`csrc/matmul.cu` (K1, or its pickup form for K3), every hop is one
-`tmb_ring_hop` of `csrc/ring.cu` (cudaMemcpyPeerAsync on the sender's copy
-stream), and each semaphore becomes a CUDA event:
+and a copy stream, every product is a hand-written kernel (K1 of
+`csrc/matmul.cu` for K2 and K4; for K3 and K5 `cm.cuda_matmul_rs`, the
+persistent pickup GEMM of `csrc/ring_rs.cu` where its route takes the
+operands), every hop is one `tmb_ring_hop` of `csrc/ring.cu`
+(cudaMemcpyPeerAsync on the sender's copy stream), and each semaphore
+becomes a CUDA event:
 
 | Pallas         | here                                                   |
 |----------------|--------------------------------------------------------|
@@ -29,6 +31,13 @@ stream), and each semaphore becomes a CUDA event:
 | `free_sem`     | the receiver's events after every read of a slot (its  |
 |                | product, and for K2 its forwarding hop); the writer    |
 |                | waits on them before it overwrites the slot            |
+
+The reduce-scatter rings (K3, K5) on ranks that share one card have no
+hop: each step's product stores its partial sum straight into the reader's
+receive slot, as the Pallas kernel sends step t's result under step t+1's
+MXU work, and `recv_sem` and `free_sem` become waits on the products'
+events (`rs_transfer` chooses this from the mesh before the call; ranks on
+several cards keep a staging slot and a hop a step).
 
 The bidirectional rings split each chunk (K4) or each output chunk's
 accumulator (K5) into a top half of h = mshard // 2 rows that hops right
@@ -91,10 +100,14 @@ from tpu_matmul_bench_torch.utils.metrics import matmul_out_dtype
 
 # Counted where each launch happens, on the card only: RING_STEPS counts the
 # ring's products (D² a call; 2·D² for K4 and K5), HOP_LAUNCHES its hops
-# (D·(D−1) a call; 2·D·(D−1) for K4 and K5). The products also count in
-# cuda_matmul's LAUNCHES and ACC_LAUNCHES.
+# (D·(D−1) a call for K2; 2·D·(D−1) for K4; K3 and K5 as many as K2 and
+# K4, but only where their ranks span several cards). The products also
+# count in cuda_matmul's LAUNCHES, ACC_LAUNCHES and RS_LAUNCHES.
+# RS_TRANSFERS counts the reduce-scatter rings' calls on the card by how
+# their partial sums move (`rs_transfer`).
 RING_STEPS = 0
 HOP_LAUNCHES = 0
+RS_TRANSFERS = {"store": 0, "hop": 0}
 
 
 def resolve_wres(wres: bool | None, d: int,
@@ -117,6 +130,15 @@ def resolve_wres(wres: bool | None, d: int,
         raise ValueError(
             f"wres=True but the W-resident layout is unavailable: {reason}")
     return False, reason
+
+
+def rs_transfer(mesh: Mesh) -> str:
+    """How a reduce-scatter ring over `mesh` moves its partial sums, chosen
+    before the call: "store" when every rank shares one card (each step's
+    product is stored into the reader's receive slot), else "hop" (the sum
+    goes to a staging slot, and a copy moves it to the reader's card; a
+    store into a peer card's memory is later work)."""
+    return "store" if len(mesh.cards) == 1 else "hop"
 
 
 # a rank's streams: products, hops (the right-going ones in K4 and K5), and
@@ -310,8 +332,12 @@ class RingMatmul:
     def __call__(self, x: Sequence[torch.Tensor], w: Sequence[torch.Tensor]) -> Sharded:
         self._check(x, w)
         sched = self._schedule(x[0].is_cuda)
-        run = self._reduce_scatter if self.reduce_scatter else self._allgather
-        return run(sched, x, w)
+        if not self.reduce_scatter:
+            return self._allgather(sched, x, w)
+        transfer = rs_transfer(self.mesh)
+        if x[0].is_cuda:
+            RS_TRANSFERS[transfer] += 1
+        return self._reduce_scatter(sched, x, w, transfer)
 
     def _ways(self, rows: int) -> list[_Way]:
         """The ring's directions over a chunk of `rows` rows: every row
@@ -324,13 +350,14 @@ class RingMatmul:
 
     def _product(self, sched: _Schedule, r: int, a: torch.Tensor, w: torch.Tensor,
                  dest: torch.Tensor, accin: torch.Tensor | None = None):
-        """dest = a·w (+ accin, the pickup) on rank r's compute stream;
-        returns the event after it."""
+        """dest = a·w (+ accin, the pickup) on rank r's compute stream: K1
+        for the all-gather rings, `cm.cuda_matmul_rs` for the reduce-scatter
+        rings; returns the event after it."""
         with sched.on(r, _COMPUTE):
-            if accin is None:
-                cm.cuda_matmul(a, w, blocks=self.blocks, out=dest)
+            if self.reduce_scatter:
+                cm.cuda_matmul_rs(a, w, accin, dest, blocks=self.blocks)
             else:
-                cm.cuda_matmul_acc(a, w, accin, dest, blocks=self.blocks)
+                cm.cuda_matmul(a, w, blocks=self.blocks, out=dest)
         _count_step(a.device)
         return sched.mark(r, _COMPUTE)
 
@@ -386,19 +413,34 @@ class RingMatmul:
         sched.leave()
         return Sharded(y, COLS)
 
-    def _reduce_scatter(self, sched: _Schedule, x, w) -> Sharded:
+    def _slots(self, ways: list[_Way], n: int, dtype: torch.dtype
+               ) -> dict[str, list[torch.Tensor]]:
+        """Two slots of each direction's rows × n a rank: a reduce-scatter
+        ring's receive slots, or its staging slots."""
+        return {way.name: [torch.empty((2, way.hi - way.lo, n), dtype=dtype, device=dev)
+                           for dev in self.mesh.devices] for way in ways}
+
+    def _reduce_scatter(self, sched: _Schedule, x, w, transfer: str) -> Sharded:
         """K3 (`_hbm_ring_rs_kernel`) and K5 (`_bidir_rs_kernel`). In each
         direction, at step t rank r holds rows [lo, hi) of the accumulator
-        of row chunk c = (r − step·(1+t)) mod D, adds its own product of
+        of row chunk c = (r − step·(1+t)) mod D, and adds its own product of
         those rows to the partial that arrived in its receive slot t mod 2
-        (the pickup kernel; plain K1 at t = 0), and sends the sum from
-        staging slot t mod 2 into the next rank's receive slot (t+1) mod 2.
-        A staging slot is written again only after the hop that read it,
-        two steps earlier. After D−1 hops chunk r is home; the last step
+        (no partial at t = 0). After D−1 steps chunk r is home; the last step
         writes Y rows [lo, hi). K3 has one direction over whole chunks; K5
         splits each accumulator, its top half going right and its bottom
-        half left, and a hop waits only on its own direction's events.
-        Partials are carried in the output dtype, rounded at every hop."""
+        half left, and a step waits only on its own direction's events.
+        Partials are carried in the output dtype, rounded at every step.
+
+        `transfer` (`rs_transfer`) says how the sum reaches the reader:
+        - "store": the product writes it straight into the reader's receive
+          slot (t+1) mod 2. Before it, the compute stream waits on the
+          writer's product of step t−1, which filled slot t mod 2
+          (`recv_sem`), and on the reader's product of step t−1, which read
+          slot (t+1) mod 2 (`free_sem`, from t = 2 on).
+        - "hop": the product writes staging slot t mod 2 and the copy
+          stream sends it into the reader's slot once the reader's pickup of
+          step t−1 has read that slot; a staging slot is written again only
+          after the hop that read it, two steps earlier."""
         d = len(self.mesh.ranks)
         m, _ = x[0].shape
         n = w[0].shape[1]
@@ -406,13 +448,8 @@ class RingMatmul:
         out = matmul_out_dtype(x[0].dtype)
         y = [torch.empty((mshard, n), dtype=out, device=dev) for dev in self.mesh.devices]
         ways = self._ways(mshard)
-
-        def slots() -> dict[str, list[torch.Tensor]]:
-            return {way.name: [torch.empty((2, way.hi - way.lo, n), dtype=out, device=dev)
-                               for dev in self.mesh.devices]
-                    for way in ways} if d > 1 else {}
-
-        recv, stage = slots(), slots()
+        recv = self._slots(ways, n, out) if d > 1 else {}
+        stage = self._slots(ways, n, out) if d > 1 and transfer == "hop" else {}
         hop_done: dict[tuple[str, int, int], Any] = {}
         product: dict[tuple[str, int, int], Any] = {}
         sched.enter()
@@ -423,13 +460,21 @@ class RingMatmul:
                     writer, reader = way.neighbours(d, r)
                     row0 = (r - way.step * (1 + t)) % d * mshard
                     rows = x[r][row0 + way.lo:row0 + way.hi]
+                    accin = recv[way.name][r][t % 2] if t else None
+                    if transfer == "store":
+                        dest = (y[r][way.lo:way.hi] if last
+                                else recv[way.name][reader][(t + 1) % 2])
+                        sched.wait(r, _COMPUTE, product.get((way.name, writer, t - 1)),
+                                   None if last or t < 2 else product[(way.name, reader, t - 1)])
+                        product[(way.name, r, t)] = self._product(sched, r, rows, w[r],
+                                                                  dest, accin)
+                        continue
                     dest = y[r][way.lo:way.hi] if last else stage[way.name][r][t % 2]
                     # recv_sem of this step's partial; send_sem of the hop
                     # that last read this staging slot, two steps ago
                     sched.wait(r, _COMPUTE, hop_done.get((way.name, writer, t - 1)),
                                hop_done.get((way.name, r, t - 2)))
-                    product[(way.name, r, t)] = self._product(
-                        sched, r, rows, w[r], dest, recv[way.name][r][t % 2] if t else None)
+                    product[(way.name, r, t)] = self._product(sched, r, rows, w[r], dest, accin)
                     if not last:
                         # free_sem: the reader's pickup read its slot (t+1)
                         # mod 2 at step t−1 (a slot from t−1 = 1 on)

@@ -194,8 +194,9 @@ def cuda_ring_rs_hbm_mode(config: BenchConfig, mesh: Mesh, size: int,
                                      blocks=config.blocks),
         fn,
         "matmul-then-psum_scatter",
-        {"kernel": "CUDA HBM ring reduce-scatter matmul (pickup-GEMM "
-                   "products, copy-engine hops between rank streams)",
+        {"kernel": "CUDA HBM ring reduce-scatter matmul (persistent pickup-GEMM "
+                   "products stored into the reader's receive slot; copy-engine "
+                   "hops between rank streams only across cards)",
          **_wres_extras(config, mesh, size)}, benchmark,
         x_spec=COLS, w_spec=ROWS,
         fusable=False,
@@ -227,8 +228,8 @@ def cuda_ring_bidir_hbm_mode(config: BenchConfig, mesh: Mesh, size: int,
 def cuda_ring_bidir_rs_hbm_mode(config: BenchConfig, mesh: Mesh, size: int,
                                 benchmark: str = "overlap") -> ModeSetup:
     """The bidirectional reduce-scatter ring (`ops/cuda_ring.py`, K5):
-    counter-rotating half accumulators on two copy streams per rank, against
-    the matmul-then-psum_scatter baseline."""
+    counter-rotating half accumulators, against the matmul-then-psum_scatter
+    baseline."""
     from tpu_matmul_bench_torch.ops.cuda_ring import ring_reduce_scatter_matmul_bidir_hbm
 
     fn = ring_reduce_scatter_matmul_bidir_hbm(mesh, **_hbm_ring_kwargs(config))
@@ -240,8 +241,9 @@ def cuda_ring_bidir_rs_hbm_mode(config: BenchConfig, mesh: Mesh, size: int,
         fn,
         "matmul-then-psum_scatter",
         {"kernel": "CUDA bidirectional HBM ring reduce-scatter matmul (two "
-                   "pickup-GEMM half products a step, counter-rotating "
-                   "copy-engine hops on two copy streams per rank)",
+                   "persistent pickup-GEMM half products a step, each stored "
+                   "into the reader's receive slot of its direction; "
+                   "counter-rotating copy-engine hops only across cards)",
          **_wres_extras(config, mesh, size)}, benchmark,
         x_spec=COLS, w_spec=ROWS,
         fusable=False,
