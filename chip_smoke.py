@@ -14,18 +14,23 @@ and grid order of the GEMM, every tile and epilogue of its wgmma route,
 its split-K form with the reduction, its pickup form, and the five ring
 matmuls over 1, 2 and 4 ranks, with a 20-call race check of each HBM ring
 at 2048² and at the main path's 16384² over 4 ranks, and of the fused ring
-at its cap; the persistent pickup GEMM of the reduce-scatter rings at both
-of their step shapes and a ragged one, with its route rule held against the
-kernel's own check), drives the port's paths through their normal entry
-points,
+at its cap; the persistent GEMM of the ring steps at the reduce-scatter
+rings' two step shapes and a ragged one, and in its forwarding mode at the
+all-gather rings' two step shapes, a ragged one and a step that does not
+forward, each with its route rule held against the kernel's own check),
+drives the port's paths through their normal entry points,
 then holds every shard of each ring's output at the main path's shape (the
-fused ring's at its cap) against its plain version, and times the fused
-ring and its HBM form at half its cap, at the cap and at twice it. Each GEMM
-launch is counted by route (`cuda_matmul.LAUNCHES_BY_ROUTE`): the headline
-run, the split-K tune runs and every all-gather ring product at 16384² must
-take the wgmma route, every reduce-scatter ring product the persistent
-pickup (`wgmma_persistent`) with no hop, the fused ring its wgmma form, and
-the unaligned shapes the wmma route. The paths:
+fused ring's at its cap) against its plain version, times the fused
+ring and its HBM form at half its cap, at the cap and at twice it, times
+one step of each ring in turns with its former schedule and its library
+call, and times the all-gather rings in turns with their hop schedule and
+the library product at the power limit's steady clocks (`ring_turns`). Each
+GEMM launch is counted by route (`cuda_matmul.LAUNCHES_BY_ROUTE`): the
+headline run and the split-K tune runs must take the wgmma route, every
+ring product at 16384² the persistent GEMM (`wgmma_persistent`: the
+reduce-scatter rings' pickup, the all-gather rings' forwarding step) with no
+hop, the fused ring its wgmma form, and the unaligned shapes the wmma route.
+The paths:
 
 - the single-device bf16 16384x16384 matmul benchmark through the
   hand-written kernel, `tpu_matmul_bench_torch.benchmarks.matmul_benchmark
@@ -40,9 +45,10 @@ the unaligned shapes the wmma route. The paths:
 - the overlap program, `tpu_matmul_bench_torch.benchmarks
   .matmul_overlap_benchmark.main`, in its four HBM ring modes at bf16
   16384^2 over 4 ranks that share the card (`TMB_RANKS_PER_CARD=4`, set
-  for these phases only; the all-gather rings' hops copy within the
-  card's memory, not over NVLink, and the reduce-scatter rings store each
-  partial into the reader's slot), then in the fused ring mode `cuda_ring`
+  for these phases only; the all-gather rings' products store each chunk
+  they load into the reader's slot, and the reduce-scatter rings' each
+  partial: the data moves within the card's memory, not over NVLink, and
+  no hop runs), then in the fused ring mode `cuda_ring`
   and in `cuda_ring_hbm` at the fused ring's cap, the largest size whose
   operands fit the card's L2.
 
@@ -117,6 +123,18 @@ OVERLAP_ITERATIONS, OVERLAP_WARMUP = 10, 2
 RS_STEPS = {"ring_rs": (SIZE // RING_WORLD, SIZE // RING_WORLD, SIZE),
             "ring_rs_bidir": (SIZE // RING_WORLD // 2, SIZE // RING_WORLD, SIZE)}
 RS_RAGGED, RS_RAGGED_PAD = (520, 264, 1000), 24
+# the all-gather rings' step products at 16384² over RING_WORLD ranks,
+# (m, k, n): K2's whole chunk and K4's half, each forwarding its A into a
+# slot; a ragged one whose dest and slot rows lie AG_RAGGED_PAD elements
+# further apart than their width, the slot inside a buffer filled with
+# AG_FILL that must keep it; and K2's last step, which does not forward
+AG_STEPS = {"ring_ag": (SIZE // RING_WORLD, SIZE, SIZE // RING_WORLD),
+            "ring_ag_bidir": (SIZE // RING_WORLD // 2, SIZE, SIZE // RING_WORLD)}
+AG_RAGGED, AG_RAGGED_PAD, AG_FILL = (520, 264, 1000), 24, -3.0
+# the all-gather rings in turns with their hop schedule and the library
+# product, at the power limit's steady clocks: RING_TURN_RUNS calls after
+# RING_TURN_WARMUP, in RING_TURN_PASSES passes (as the c1 phase)
+RING_TURN_RUNS, RING_TURN_WARMUP, RING_TURN_PASSES = 200, 80, 3
 # ROADMAP C1: the fused protocol may read at most C1_MARGIN slower, against
 # dispatch, for the port's kernel than for cuBLAS. The main path's runs
 # (50 products after 10, or after the 51 of the graph's warm call) time
@@ -126,8 +144,9 @@ RS_RAGGED, RS_RAGGED_PAD = (520, 264, 1000), 24
 # C1_ITERATIONS products after C1_WARMUP (about a second of load), in
 # C1_PASSES passes of the four runs, every other pass in the mirrored order.
 C1_MARGIN, C1_ITERATIONS, C1_WARMUP, C1_PASSES = 0.02, 200, 80, 3
-# `cuda_matmul.rs_route`'s cases, held on the CPU against the rule and on the
-# card against csrc/ring_rs.cu's own check (`rs_check`): (label, dtype,
+# `cuda_matmul.step_route`'s cases for a reduce-scatter step, held on the CPU
+# against the rule and on the card against csrc/ring_rs.cu's own check
+# (`step_check`, tmb_rs_check): (label, dtype,
 # (m, n, k), (lda, ldb, ldc, ldacc or None without accin), byte offsets of
 # (A, B, dest, accin) from 1 KB aligned bases, tile, route)
 _TILE = (128, 256, 64)
@@ -148,6 +167,8 @@ RS_ROUTE_CASES = [
      (0, 0, 0, 0), _TILE, "wgmma"),
     ("accin rows off 16 bytes", "float16", (256, 256, 256), (256, 256, 256, 260),
      (0, 0, 0, 0), _TILE, "wgmma"),
+    ("accin rows narrower than n", "bfloat16", (256, 256, 256), (256, 256, 256, 128),
+     (0, 0, 0, 0), _TILE, "wgmma"),
     ("another tile", "bfloat16", (256, 256, 256), (256, 256, 256, 256),
      (0, 0, 0, 0), (128, 128, 64), "wgmma"),
     ("A rows off 16 bytes", "bfloat16", (256, 256, 256), (260, 256, 256, 256),
@@ -161,10 +182,46 @@ RS_ROUTE_CASES = [
 ]
 
 
-def rs_route_args(case) -> tuple:
-    """`cuda_matmul.rs_route`'s arguments for one of RS_ROUTE_CASES, the
-    pointers made up (1 MB apart plus the case's offsets): the rule and the
-    kernel's check read only their alignment."""
+# `cuda_matmul.step_route`'s cases for an all-gather step (`forward=True`),
+# the same way against csrc/ring_rs.cu's tmb_ag_check: the fourth operand is
+# the forwarding slot, m x k with rows ldfwd apart (None: a step that does
+# not forward)
+AG_ROUTE_CASES = [
+    ("K2 step", "bfloat16", (4096, 4096, 16384), (16384, 4096, 4096, 16384),
+     (0, 0, 0, 0), _TILE, "wgmma_persistent"),
+    ("K2 last step, no slot", "bfloat16", (4096, 4096, 16384),
+     (16384, 4096, 4096, None), (0, 0, 0, 0), _TILE, "wgmma_persistent"),
+    ("K4 half step, f16", "float16", (2048, 4096, 16384), (16384, 4096, 4096, 16384),
+     (65536, 0, 32768, 65536), _TILE, "wgmma_persistent"),
+    ("ragged, strided dest and slot", "bfloat16", (520, 1000, 264),
+     (264, 1000, 1024, 288), (0, 0, 48, 0), _TILE, "wgmma_persistent"),
+    ("dest off 16 bytes", "bfloat16", (256, 256, 256), (256, 256, 256, 256),
+     (0, 0, 8, 0), _TILE, "wgmma"),
+    ("slot off 16 bytes", "bfloat16", (256, 256, 256), (256, 256, 256, 256),
+     (0, 0, 0, 8), _TILE, "wgmma"),
+    ("dest rows off 16 bytes", "bfloat16", (256, 256, 256), (256, 256, 260, 256),
+     (0, 0, 0, 0), _TILE, "wgmma"),
+    ("slot rows off 16 bytes", "float16", (256, 256, 256), (256, 256, 256, 260),
+     (0, 0, 0, 0), _TILE, "wgmma"),
+    ("slot rows narrower than k", "bfloat16", (256, 256, 256), (256, 256, 256, 128),
+     (0, 0, 0, 0), _TILE, "wgmma"),
+    ("another tile", "bfloat16", (256, 256, 256), (256, 256, 256, 256),
+     (0, 0, 0, 0), (128, 128, 64), "wgmma"),
+    ("A rows off 16 bytes", "bfloat16", (256, 256, 256), (260, 256, 256, 256),
+     (0, 0, 0, 0), _TILE, "wmma"),
+    ("B off 16 bytes", "bfloat16", (256, 256, 256), (256, 256, 256, 256),
+     (0, 2, 0, 0), _TILE, "wmma"),
+    ("empty K", "bfloat16", (256, 256, 0), (256, 256, 256, 256),
+     (0, 0, 0, 0), _TILE, "wmma"),
+    ("int8", "int8", (256, 256, 256), (256, 256, 256, 256), (0, 0, 0, 0), _TILE, "wmma"),
+    ("fp32", "float32", (256, 256, 256), (256, 256, 256, 256), (0, 0, 0, 0), _TILE, "simt"),
+]
+
+
+def route_args(case) -> tuple:
+    """`cuda_matmul.step_route`'s arguments for one of RS_ROUTE_CASES or
+    AG_ROUTE_CASES, the pointers made up (1 MB apart plus the case's
+    offsets): the rule and the kernel's check read only their alignment."""
     _, dtype, (m, n, k), (lda, ldb, ldc, ldacc), offsets, tile, _ = case
     a, b, c, acc = ((i + 1) * 2**20 + off for i, off in enumerate(offsets))
     return (dtype, m, n, k, lda, ldb, ldc, ldacc, a, b, c,
@@ -689,7 +746,7 @@ def check_rs_step() -> dict:
     `wgmma_persistent` route) against `matmul_acc_plain` (`matmul_plain`
     at a first step), in bf16 and f16, at both reduce-scatter step shapes
     (RS_STEPS) and at RS_RAGGED with strided accin and dest, with accin and
-    without; each case must launch the kernel once. Then `rs_route` against
+    without; each case must launch the kernel once. Then `step_route` against
     the kernel's own check at every one of RS_ROUTE_CASES. Returns the bf16
     max abs error with accin at each step shape, by ring."""
     import torch
@@ -727,9 +784,9 @@ def check_rs_step() -> dict:
               "ok": not [b for b in bad if b[0] == dtype_name]})
     disagree = []
     for case in RS_ROUTE_CASES:
-        args = rs_route_args(case)
-        route = cm.rs_route(*args)
-        code = cm.rs_check(getattr(torch, case[1]), *args[1:])
+        args = route_args(case)
+        route = cm.step_route(*args)
+        code = cm.step_check(getattr(torch, case[1]), *args[1:])
         if route != case[-1] or (code == 0) != (route == "wgmma_persistent"):
             disagree.append((case[0], route, code))
     emit({"phase": "rs_route", "cases": len(RS_ROUTE_CASES), "disagree": disagree,
@@ -780,6 +837,177 @@ def rs_step_ms(label: str, runs: int = 20) -> dict:
             "addmm_ms": library, "turns_ms": turns}
 
 
+def check_ag_step() -> dict:
+    """The persistent GEMM in its forwarding mode (`cuda_matmul
+    .cuda_matmul_ag` on its `wgmma_persistent` route) against its plain
+    version, `matmul_plain` and the copy of A, in bf16 and f16: at both
+    all-gather step shapes (AG_STEPS), at AG_RAGGED with strided dest and
+    slot, the slot a view inside a larger buffer filled with AG_FILL, and at
+    K2's step shape without a slot (a ring's last step). Each case must
+    launch the kernel once; the product must be within the tolerance, the
+    slot equal to A exactly (max abs err 0), and the buffer around the slot
+    keep its fill. Then `step_route(..., forward=True)` against the kernel's
+    own check at every one of AG_ROUTE_CASES. Returns the bf16 max abs error of the product
+    at each step shape, by ring."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+
+    errors, bad = {}, []
+    shapes = [(label, mkn, 0, True) for label, mkn in AG_STEPS.items()]
+    shapes += [("ragged", AG_RAGGED, AG_RAGGED_PAD, True),
+               ("last step", AG_STEPS["ring_ag"], 0, False)]
+    for dtype_name in WGMMA_DTYPES:
+        dtype = getattr(torch, dtype_name)
+        cases, slot_errors = {}, {}
+        for label, (m, k, n), pad, forwards in shapes:
+            out = torch.empty((m, n + pad), dtype=dtype, device="cuda")[:, pad:]
+            room = torch.full((m + pad, k + pad), AG_FILL, dtype=dtype, device="cuda")
+            slot = room[:m, :k] if forwards else None
+            held = {}
+
+            def kernel(a, b):
+                held["a"] = a
+                return cm.cuda_matmul_ag(a, b, out, slot)
+
+            before = routes()
+            result = compare(dtype_name, (m, k, n), kernel, cm.matmul_plain)
+            launched = routes_since(before)
+            case = f"{label}@{m}x{k}x{n}"
+            cases[case] = result["max_rel_err"]
+            problems = [] if result["ok"] else [result]
+            if launched != {"gemm:wgmma_persistent": 1}:
+                problems.append(f"routes {launched}")
+            if forwards:
+                slot_errors[case] = (slot.double() - held["a"].double()).abs().max().item()
+                kept = bool((room[m:] == AG_FILL).all()) and bool((room[:m, k:] == AG_FILL).all())
+                if slot_errors[case] != 0.0 or not kept:
+                    problems.append(f"slot max abs err {slot_errors[case]}, fill kept {kept}")
+            if problems:
+                bad.append((dtype_name, case, problems))
+            if dtype_name == "bfloat16" and label in AG_STEPS:
+                errors[label] = result["max_abs_err"]
+            del out, room, slot, held
+            torch.cuda.empty_cache()
+        emit({"phase": "kernel_vs_plain[ag_step]", "dtype": dtype_name,
+              "max_rel_err": cases, "slot_max_abs_err": slot_errors,
+              "tolerance": TOLERANCE[dtype_name],
+              "ok": not [b for b in bad if b[0] == dtype_name]})
+    disagree = []
+    for case in AG_ROUTE_CASES:
+        args = route_args(case)
+        route = cm.step_route(*args, forward=True)
+        code = cm.step_check(getattr(torch, case[1]), *args[1:], forward=True)
+        if route != case[-1] or (code == 0) != (route == "wgmma_persistent"):
+            disagree.append((case[0], route, code))
+    emit({"phase": "ag_route", "cases": len(AG_ROUTE_CASES), "disagree": disagree,
+          "ok": not disagree})
+    if bad or disagree:
+        fail("kernel_vs_plain[ag_step]", f"cases {bad}; rule and kernel check "
+                                         f"disagree on {disagree}")
+    return errors
+
+
+def ag_step_ms(label: str, runs: int = 20) -> dict:
+    """One step's product of ring `label` at bf16 16384² over RING_WORLD
+    ranks (AG_STEPS), timed four ways in turns (each in order, then in the
+    mirrored order): K1 into dest plus the hop of the chunk into the
+    reader's slot (the schedule before the forwarding GEMM), the forwarding
+    GEMM, the same GEMM without a slot (what forwarding costs), and
+    `torch.matmul(a, b, out=dest)`, the one library call of the product."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.ops import cuda_ring as cr
+    from tpu_matmul_bench_torch.ops.matmul import random_operands
+
+    m, k, n = AG_STEPS[label]
+    (a,) = random_operands(3, (m, k), torch.bfloat16, device="cuda", count=1)
+    (b,) = random_operands(4, (k, n), torch.bfloat16, device="cuda", count=1)
+    dest = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+    slot = torch.empty((m, k), dtype=torch.bfloat16, device="cuda")
+    current = torch.cuda.current_stream()
+    sched = cr._Schedule(card_mesh(1), [(current, current)])
+
+    def k1_hop():
+        cm.cuda_matmul(a, b, out=dest)
+        cr._hop(sched, 0, slot, a)
+
+    ways = {"k1_hop": k1_hop,
+            "forward": lambda: cm.cuda_matmul_ag(a, b, dest, slot),
+            "no_forward": lambda: cm.cuda_matmul_ag(a, b, dest),
+            "matmul": lambda: torch.matmul(a, b, out=dest)}
+    turns = {name: [] for name in ways}
+    for name in list(ways) + list(ways)[::-1]:
+        turns[name].append(events_ms(ways[name], runs))
+    del a, b, dest, slot
+    torch.cuda.empty_cache()
+    return {"shape": f"{m}x{k}x{n}", **{f"{name}_ms": sum(t) / 2 for name, t in turns.items()},
+            "turns_ms": turns}
+
+
+def ring_turns(label: str, card: str) -> dict:
+    """K2 or K4 (`label`) at bf16 16384² over RING_WORLD ranks on the card,
+    in turns: the ring as a user calls it (the "forward" schedule), the
+    "hop" schedule forced on the same ranks (K1 products and a hop a step,
+    the schedule of ranks on several cards), and `torch.matmul` of the
+    gathered operands. Each run is RING_TURN_RUNS calls after
+    RING_TURN_WARMUP, so that the card runs at its power limit's steady
+    clocks, in RING_TURN_PASSES passes, every other in the mirrored order;
+    the medians and each schedule's ratio to the library call. The hop
+    schedule's output is first held against the forward one's."""
+    import torch
+
+    from tpu_matmul_bench_torch.parallel.mesh import gather
+
+    _, build, _, _ = rings()[label]
+    fn = build(card_mesh(RING_WORLD))
+    x, w = ring_operands(fn.mesh, False, (SIZE, SIZE, SIZE), torch.bfloat16, seed=11)
+    xg, wg = gather(x), gather(w)
+    calls = {"forward": lambda: fn(x, w),
+             "hop": lambda: fn._allgather(x, w, "hop"),
+             "library": lambda: torch.matmul(xg, wg)}
+    before = ring_counts()
+    got_hop = gather(calls["hop"]())
+    hops = ring_counts()[1] - before[1]
+    got = gather(calls["forward"]())
+    torch.cuda.synchronize()
+    rel = ((got_hop.float() - got.float()).abs().max().item()
+           / (got.float().abs().max().item() or 1.0))
+    del got, got_hop
+    runs: dict[str, list[float]] = {name: [] for name in calls}
+    order = list(calls)
+    for p in range(RING_TURN_PASSES):
+        for name in order if p % 2 == 0 else order[::-1]:
+            for _ in range(RING_TURN_WARMUP):
+                calls[name]()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(RING_TURN_RUNS):
+                calls[name]()
+            end.record()
+            end.synchronize()
+            runs[name].append(start.elapsed_time(end) / RING_TURN_RUNS)
+    del x, w, xg, wg
+    torch.cuda.empty_cache()
+    ms = {name: statistics.median(v) for name, v in runs.items()}
+    want_hops = per_call(label, RING_WORLD, forwards=False)[1]
+    result = {"phase": f"ring_turns[{label}]", "ranks": RING_WORLD, "shape": [SIZE] * 3,
+              "card": card, "runs": RING_TURN_RUNS, "warmup": RING_TURN_WARMUP,
+              "passes_ms": runs, "forward_ms": ms["forward"], "hop_ms": ms["hop"],
+              "library_ms": ms["library"],
+              "forward_over_library": ms["forward"] / ms["library"],
+              "hop_over_library": ms["hop"] / ms["library"],
+              "hop_schedule_max_rel_err": rel, "hop_schedule_hops": hops,
+              "ok": rel <= TOLERANCE["bfloat16"] and hops == want_hops}
+    emit(result)
+    if not result["ok"]:
+        fail(result["phase"], f"the hop schedule differs from the forward one by {rel} "
+                              f"or hopped {hops} times, not {want_hops}")
+    return result
+
+
 def rings() -> dict:
     """The rings by label: (reduce-scatter or all-gather, constructor, plain
     version, the shapes of their kernel-vs-plain cases)."""
@@ -808,15 +1036,33 @@ def ring_counts() -> tuple[int, int, int]:
     return cr.RING_STEPS, cr.HOP_LAUNCHES, crf.FUSED_RING_LAUNCHES
 
 
-def per_call(label: str, d: int) -> tuple[int, int, int]:
+def per_call(label: str, d: int, forwards: bool = True) -> tuple[int, int, int]:
     """The launches one call of a ring adds to `ring_counts`, its ranks on
     one card: the reduce-scatter rings store each partial into the reader's
-    slot and hop nowhere."""
+    slot, and the all-gather rings forward each chunk into it, so neither
+    hops; but an all-gather call whose steps cannot forward (`forwards`
+    False: `ag_forwarding` of its operands) hops every chunk."""
     if label == "ring_fused":
         return 0, 0, 1
     ways = 2 if label.endswith("_bidir") else 1
-    hops = 0 if label.startswith("ring_rs") else ways * d * (d - 1)
+    hops = 0 if label.startswith("ring_rs") or forwards else ways * d * (d - 1)
     return ways * d * d, hops, 0
+
+
+def ag_forwarding(dtype_name: str, mkn, d: int) -> bool:
+    """Whether an all-gather ring's call takes the forward schedule for
+    global (m, k, n) operands of `dtype_name` over d ranks on the card:
+    every step that passes a chunk on forwards it in the product's launch
+    (a ring of one rank passes none). That is `step_route` of a step (K2's
+    whole chunk; K4's halves start at whole rows, so TMA sees the same row
+    strides) with the slot and dest rows those of the ring's buffers and the
+    bases aligned, as the caching allocator's are."""
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+
+    m, k, n = mkn
+    mshard, nshard = m // d, n // d
+    return d == 1 or cm.step_route(dtype_name, mshard, nshard, k, k, nshard, nshard, k, 0, 0, 0, 0,
+                         cm.DEFAULT_TILE, forward=True) == "wgmma_persistent"
 
 
 def ring_operands(mesh, reduce_scatter: bool, mkn, dtype, seed: int):
@@ -836,9 +1082,13 @@ def check_rings() -> None:
     """Each ring on the card against its plain version, over 1, 2 and 4
     ranks, in every dtype, at its shapes (even, ragged and, for the rings
     that split chunks in halves and the fused ring, odd chunks). One line
-    per (ring, ranks); the launch counts must rise by `per_call` a call."""
+    per (ring, ranks); the launch counts must rise by `per_call` a call (the
+    all-gather rings hop only where `ag_forwarding` says a step cannot
+    forward: int8, fp32 and rows TMA cannot describe), and an all-gather
+    ring's call must count in `AG_TRANSFERS` as the transfer it took."""
     import torch
 
+    from tpu_matmul_bench_torch.ops import cuda_ring as cr
     from tpu_matmul_bench_torch.parallel.mesh import gather
 
     for label, (reduce_scatter, build, plain, shapes) in rings().items():
@@ -849,9 +1099,10 @@ def check_rings() -> None:
                 for mkn in shapes:
                     x, w = ring_operands(fn.mesh, reduce_scatter, mkn,
                                          getattr(torch, dtype_name), seed=7)
-                    before, routes0 = ring_counts(), routes()
+                    before, routes0, moved0 = ring_counts(), routes(), dict(cr.AG_TRANSFERS)
                     got = gather(fn(x, w))
                     launched = tuple(a - b for a, b in zip(ring_counts(), before))
+                    moved = {t: n - moved0[t] for t, n in cr.AG_TRANSFERS.items() if n != moved0[t]}
                     for r, n in routes_since(routes0).items():
                         by_route[r] = by_route.get(r, 0) + n
                     want = gather(plain(x, w))
@@ -865,11 +1116,18 @@ def check_rings() -> None:
                     if not (rel <= TOLERANCE[dtype_name]
                             and bool(torch.isfinite(got.double()).all())):
                         problems.append(f"{case}: max rel err {rel}")
-                    if launched != per_call(label, d):
+                    forwards = ag_forwarding(dtype_name, mkn, d)
+                    want_launched = per_call(label, d, forwards)
+                    if launched != want_launched:
                         problems.append(f"{case}: launched (products, hops, fused) "
-                                        f"{launched}, not {per_call(label, d)}")
-            if reduce_scatter and not by_route.get("gemm:wgmma_persistent"):
-                problems.append(f"no product took the persistent pickup: {by_route}")
+                                        f"{launched}, not {want_launched}")
+                    want_moved = ({} if reduce_scatter or label == "ring_fused"
+                                  else {"forward" if forwards else "hop": 1})
+                    if moved != want_moved:
+                        problems.append(f"{case}: AG_TRANSFERS rose by {moved}, "
+                                        f"not {want_moved}")
+            if label != "ring_fused" and not by_route.get("gemm:wgmma_persistent"):
+                problems.append(f"no product took the persistent GEMM: {by_route}")
             emit({"phase": f"kernel_vs_plain[{label}]", "ranks": d,
                   "max_rel_err": errors, "tolerance": TOLERANCE,
                   "launches_by_route": by_route, "ok": not problems})
@@ -884,7 +1142,8 @@ def check_races(s: int, labels) -> None:
     2**j, W = I), at s×s, each RACE_REPEATS calls in a row over RING_WORLD
     ranks before one synchronize; every result must equal X exactly. A
     missing event between the streams, or a missing barrier in the fused
-    ring, shows here as a wrong block now and then."""
+    ring, shows here as a wrong block now and then. Every HBM ring product
+    must take the persistent GEMM, on one stream a rank."""
     import torch
 
     from tpu_matmul_bench_torch.parallel.mesh import COLS, ROWS, gather, shard_tensor
@@ -909,16 +1168,20 @@ def check_races(s: int, labels) -> None:
         bad = [i for i, y in enumerate(outs) if not torch.equal(gather(y), xg)]
         del outs, x, w
         want = tuple(RACE_REPEATS * n for n in per_call(label, d))
-        # the reduce-scatter rings' every product on the persistent pickup
-        routed = (not reduce_scatter
-                  or by_route == {"gemm:wgmma_persistent": want[0]})
+        # every HBM ring product on the persistent GEMM, with a compute
+        # stream a rank and no copy stream
+        fused = label == "ring_fused"
+        routed = fused or by_route == {"gemm:wgmma_persistent": want[0]}
+        streams = [] if fused else [len(rank) for by_count in fn._streams.values()
+                                    for rank in by_count]
         emit({"phase": f"races[{label}]", "ranks": d, "size": s,
               "calls": RACE_REPEATS, "wrong_calls": bad, "launches": launched,
-              "launches_by_route": by_route,
-              "ok": not bad and launched == want and routed})
-        if bad or launched != want or not routed:
+              "launches_by_route": by_route, "streams_per_rank": sorted(set(streams)),
+              "ok": not bad and launched == want and routed and set(streams) <= {1}})
+        if bad or launched != want or not routed or not set(streams) <= {1}:
             fail(f"races[{label}]", f"calls {bad} of {RACE_REPEATS} differ from X; "
-                                    f"launched {launched} (want {want}), routes {by_route}")
+                                    f"launched {launched} (want {want}), routes {by_route}, "
+                                    f"streams a rank {streams}")
     del cases, eye
     torch.cuda.empty_cache()
 
@@ -926,7 +1189,8 @@ def check_races(s: int, labels) -> None:
 def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict]:
     """One overlap run through the program's entry point, its ranks on the
     card; returns the record's summary and the launches counted during it.
-    Every GEMM launch must take the wgmma route, and K6 its wgmma form."""
+    Every baseline product must take the wgmma route, every HBM ring
+    product the persistent GEMM with no hop, and K6 its wgmma form."""
     from tpu_matmul_bench_torch.benchmarks import matmul_overlap_benchmark
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
     from tpu_matmul_bench_torch.ops import cuda_ring as cr
@@ -938,16 +1202,18 @@ def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict
             "--num-devices", str(RING_WORLD), "--matmul-impl", "cuda",
             "--iterations", str(OVERLAP_ITERATIONS), "--warmup", str(OVERLAP_WARMUP),
             "--validate", "--json-out", path]
-    cm.LAUNCHES = cm.ACC_LAUNCHES = cm.RS_LAUNCHES = 0
+    cm.LAUNCHES = cm.ACC_LAUNCHES = cm.RS_LAUNCHES = cm.AG_LAUNCHES = 0
     cr.RING_STEPS = cr.HOP_LAUNCHES = 0
     cr.RS_TRANSFERS.update(store=0, hop=0)
+    cr.AG_TRANSFERS.update(forward=0, hop=0)
     crf.FUSED_RING_LAUNCHES = 0
     before = routes()
     with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
         records = matmul_overlap_benchmark.main(argv)
     counts = {"matmul": cm.LAUNCHES, "matmul_acc": cm.ACC_LAUNCHES,
-              "matmul_rs": cm.RS_LAUNCHES, "ring_steps": cr.RING_STEPS,
-              "ring_hops": cr.HOP_LAUNCHES, "rs_transfers": dict(cr.RS_TRANSFERS),
+              "matmul_rs": cm.RS_LAUNCHES, "matmul_ag": cm.AG_LAUNCHES,
+              "ring_steps": cr.RING_STEPS, "ring_hops": cr.HOP_LAUNCHES,
+              "rs_transfers": dict(cr.RS_TRANSFERS), "ag_transfers": dict(cr.AG_TRANSFERS),
               "fused": crf.FUSED_RING_LAUNCHES, "routes": routes_since(before)}
     phase = f"overlap[{mode}]" if size == SIZE else f"overlap[{mode},{size}]"
     if len(records) != 1:
@@ -987,22 +1253,18 @@ def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict
     if len(lines) != 2 or lines[1].get("mode") != mode:
         problems.append("the JSONL does not hold the record after the manifest")
     reduce_scatter = "_rs_" in mode
-    if fused:
-        ring_ran = counts["fused"] > 0
-    elif reduce_scatter:
-        ring_ran = counts["ring_steps"] > 0 and counts["matmul_rs"] > 0
-    else:
-        ring_ran = min(counts["ring_steps"], counts["ring_hops"]) > 0
+    step = counts["matmul_rs" if reduce_scatter else "matmul_ag"]
+    ring_ran = counts["fused"] > 0 if fused else counts["ring_steps"] > 0 and step > 0
     if counts["matmul"] <= 0 or not ring_ran:
         problems.append(f"a kernel of the path was not launched: {counts}")
-    if reduce_scatter and (counts["ring_hops"] or counts["rs_transfers"]["hop"]
-                           or counts["rs_transfers"]["store"] <= 0):
-        problems.append(f"the ranks share the card, yet partials hopped: {counts}")
-    # every product on wgmma (the baseline's, the all-gather rings'), the
-    # reduce-scatter rings' on the persistent pickup, K6 in its wgmma form
+    moved = counts["rs_transfers" if reduce_scatter else "ag_transfers"]
+    if not fused and (counts["ring_hops"] or moved["hop"] or not sum(moved.values())):
+        problems.append(f"the ranks share the card, yet the ring hopped: {counts}")
+    # every product on wgmma (the baseline's), the HBM rings' on the
+    # persistent GEMM, K6 in its wgmma form
     want = {"gemm:wgmma": counts["matmul"] + counts["matmul_acc"]}
-    if counts["matmul_rs"]:
-        want["gemm:wgmma_persistent"] = counts["matmul_rs"]
+    if counts["matmul_rs"] + counts["matmul_ag"]:
+        want["gemm:wgmma_persistent"] = counts["matmul_rs"] + counts["matmul_ag"]
     if fused:
         want["fused:wgmma"] = counts["fused"]
     if counts["routes"] != want:
@@ -1066,13 +1328,14 @@ def ring_entry(label: str, counts: dict, baseline_ms: float, card: str,
     products, hops = counts["ring_steps"], counts["ring_hops"]
     if label == "ring_fused":
         launches = {"ring_fused": counts["fused"]}
+    elif reduce_scatter:
+        launches = {"products": products, "hops": hops, "rs_step": counts["matmul_rs"]}
     else:
-        launches = {"products": products, "hops": hops,
-                    **({"rs_step": counts["matmul_rs"]} if reduce_scatter else {})}
+        launches = {"products": products, "hops": hops, "ag_step": counts["matmul_ag"]}
     return {"route": "cuda", "dtype": "bfloat16", "card": card,
             "shape": f"{size}x{size}x{size}", "ranks": RING_WORLD, "cards": 1,
             "launches": counts["fused"] if label == "ring_fused" else products + hops,
-            "gemm_route": "wgmma_persistent" if reduce_scatter else "wgmma",
+            "gemm_route": "wgmma" if label == "ring_fused" else "wgmma_persistent",
             "launches_by_route": counts["routes"], "hop_launches": hops,
             "launches_by_kernel": launches,
             "max_abs_err": max_abs_err, "max_rel_err": max_rel_err,
@@ -1171,9 +1434,11 @@ def main() -> None:
         blocks_per_sm = {route: {"x".join(map(str, t)): occupancy(t, torch.bfloat16,
                                                                    route=route)
                                  for t in TILES} for route in ("wmma", "wgmma")}
-        blocks_per_sm["wgmma_persistent"] = {
-            "x".join(map(str, t)): occupancy(t, torch.bfloat16, route="wgmma_persistent")
-            for t in PERSISTENT_TILES}
+        for forward in (False, True):
+            blocks_per_sm["wgmma_persistent" + ("_forward" if forward else "")] = {
+                "x".join(map(str, t)): occupancy(t, torch.bfloat16, route="wgmma_persistent",
+                                                 forward=forward)
+                for t in PERSISTENT_TILES}
         blocks_per_sm["ring_fused"] = {route: fused_occupancy(torch.bfloat16, route)
                                        for route in ("wmma", "wgmma")}
     except (_build.KernelBuildError, OSError, RuntimeError) as e:
@@ -1212,6 +1477,7 @@ def main() -> None:
     ksplit_errors = check_ksplit()
     check_matmul_acc()
     rs_errors = check_rs_step()
+    ag_errors = check_ag_step()
     check_rings()
     for size in RACE_SIZES:
         check_races(size, ["ring_ag", "ring_rs", "ring_ag_bidir", "ring_rs_bidir"])
@@ -1284,6 +1550,16 @@ def main() -> None:
     entries["ring_fused"]["by_size"] = residency_probe(cap, l2)
     for label in RS_STEPS:
         entries[label].update(step=rs_step_ms(label), step_max_abs_err=rs_errors[label])
+    # the all-gather rings keep the main path's short timing in ms and
+    # library_ms, as every ring does; their turns at steady clocks go beside it
+    for label in AG_STEPS:
+        turns = ring_turns(label, card)
+        entries[label].update(
+            turns_ms=turns["forward_ms"], turns_hop_ms=turns["hop_ms"],
+            turns_library_ms=turns["library_ms"],
+            forward_over_library=turns["forward_over_library"],
+            hop_over_library=turns["hop_over_library"],
+            step=ag_step_ms(label), step_max_abs_err=ag_errors[label])
     emit({"kernels": [{
         "name": "matmul", "route": "cuda",
         "source": "tpu_matmul_bench_torch/csrc/matmul.cu",
@@ -1313,7 +1589,7 @@ def main() -> None:
         "source": "tpu_matmul_bench_torch/ops/cuda_ring.py",
         "replaces": "tpu_matmul_bench/ops/pallas_ring_hbm.py:291",
         "replaces_function": "ring_allgather_matmul_hbm",
-        "kernels": ["csrc/matmul.cu tmb_matmul", "csrc/ring.cu tmb_ring_hop"],
+        "kernels": ["csrc/ring_rs.cu tmb_ag_step (rs_step_wgmma, forwarding)"],
         **entries["ring_ag"],
     }, {
         "name": "ring_reduce_scatter_matmul",
@@ -1327,7 +1603,7 @@ def main() -> None:
         "source": "tpu_matmul_bench_torch/ops/cuda_ring.py",
         "replaces": "tpu_matmul_bench/ops/pallas_ring_bidir_hbm.py:143",
         "replaces_function": "ring_allgather_matmul_bidir_hbm",
-        "kernels": ["csrc/matmul.cu tmb_matmul", "csrc/ring.cu tmb_ring_hop"],
+        "kernels": ["csrc/ring_rs.cu tmb_ag_step (rs_step_wgmma, forwarding)"],
         **entries["ring_ag_bidir"],
     }, {
         "name": "ring_reduce_scatter_matmul_bidir",

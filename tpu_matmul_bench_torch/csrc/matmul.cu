@@ -12,7 +12,7 @@
 //   that arrived over the ring added to the product in fp32 (int32 for int8)
 //   and rounded once at the store (tmb_matmul_acc); the rings take it where
 //   csrc/ring_rs.cu's persistent pickup does not take the operands
-//   (ops/cuda_matmul.py rs_route).
+//   (ops/cuda_matmul.py step_route).
 //
 // What it computes: C[m,n] = A[m,k] . B[k,n] for row-major operands whose
 // rows may be strided (lda, ldb), so a K slab A[:, k0:k0+kc] . B[k0:k0+kc, :]

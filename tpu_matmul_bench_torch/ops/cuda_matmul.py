@@ -7,7 +7,10 @@ Counterpart of `tpu_matmul_bench/ops/pallas_matmul.py`: `cuda_matmul` is
 `cuda_matmul_acc` is the reduce-scatter ring's pickup, `_rs_acc_kernel` of
 `tpu_matmul_bench/ops/pallas_ring_rs_hbm.py`, and `cuda_matmul_rs` the
 reduce-scatter rings' step product, which takes the persistent pickup GEMM
-of `csrc/ring_rs.cu` where it can. Each launches its kernels for
+of `csrc/ring_rs.cu` where it can; `cuda_matmul_ag` is the all-gather
+rings' step product, the same persistent GEMM in its forwarding mode, which
+also copies the chunk it loads into the reader's receive slot. Each
+launches its kernels for
 tensors on the card and runs its plain version for tensors on the CPU,
 where there is no kernel to launch. For a CUDA tensor it launches or
 raises: nothing falls back.
@@ -16,8 +19,9 @@ Each product takes one of three routes, chosen by `gemm_route` from the
 operands alone before the launch: `wgmma` (TMA, wgmma and an mbarrier
 pipeline; bf16 and f16 that TMA can describe), `wmma` (int8, and bf16/f16
 that TMA cannot describe) or `simt` (fp32). A reduce-scatter step's product
-may take a fourth, `wgmma_persistent` (`rs_route`: the persistent pickup
-GEMM with a TMA-store epilogue). A route that fails raises; no other route
+may take a fourth, `wgmma_persistent` (`step_route`: the persistent GEMM
+with a TMA-store epilogue, which an all-gather step's product also takes to
+forward its chunk). A route that fails raises; no other route
 is tried.
 """
 
@@ -39,15 +43,18 @@ from tpu_matmul_bench_torch.utils.metrics import (
 # re-runs captured launches without counting them): LAUNCHES counts the GEMM
 # kernel (one per `cuda_matmul`, one per split `cuda_matmul_ksplit`),
 # REDUCE_LAUNCHES the split-K reduction, ACC_LAUNCHES the pickup kernel,
-# RS_LAUNCHES the persistent pickup GEMM of csrc/ring_rs.cu.
+# RS_LAUNCHES the persistent pickup GEMM of csrc/ring_rs.cu (tmb_rs_step),
+# AG_LAUNCHES the same GEMM as an all-gather step (tmb_ag_step, forwarding
+# or not).
 LAUNCHES = 0
 REDUCE_LAUNCHES = 0
 ACC_LAUNCHES = 0
 RS_LAUNCHES = 0
-# The GEMM kernels' launches (those of LAUNCHES, ACC_LAUNCHES and
-# RS_LAUNCHES) by route: Route codes 0, 1, 2 of csrc/matmul.cu, then the
-# persistent pickup, whose entry point (csrc/ring_rs.cu tmb_rs_step) is its
-# route.
+AG_LAUNCHES = 0
+# The GEMM kernels' launches (those of LAUNCHES, ACC_LAUNCHES, RS_LAUNCHES
+# and AG_LAUNCHES) by route: Route codes 0, 1, 2 of csrc/matmul.cu, then the
+# persistent GEMM, whose entry points (csrc/ring_rs.cu tmb_rs_step and
+# tmb_ag_step) are its route.
 ROUTES = ("simt", "wmma", "wgmma", "wgmma_persistent")
 LAUNCHES_BY_ROUTE = dict.fromkeys(ROUTES, 0)
 
@@ -181,22 +188,35 @@ def persistent_tiles(block: int, grid: int, tm: int, tn: int,
     return [raster(t, tm, tn, m_slow) for t in range(block, tm * tn, grid)]
 
 
-def rs_route(dtype: torch.dtype | str, m: int, n: int, k: int, lda: int, ldb: int,
-             ldc: int, ldacc: int | None, a_ptr: int, b_ptr: int, c_ptr: int,
-             acc_ptr: int | None, tile: tuple[int, int, int]) -> str:
-    """The route of one reduce-scatter step's product dest = A·B (+ accin,
-    absent at a ring's first step), chosen before the launch (csrc/ring_rs.cu
-    tmb_rs_check is the same rule and refuses what breaks it).
+def forwarded_boxes(mt: int, nt: int, tn: int, ktiles: int) -> list[tuple[int, int]]:
+    """The A boxes (row tile, k-step) that output tile (mt, nt) of a grid
+    tn tiles wide stores into the forwarding slot (csrc/ring_rs.cu's copier,
+    over `ktiles` k-steps): box (mt, kt) goes with tile (mt, kt mod tn), so
+    the tiles of a row store each box of their rows once between them."""
+    return [(mt, kt) for kt in range(nt, ktiles, tn)]
+
+
+def step_route(dtype: torch.dtype | str, m: int, n: int, k: int, lda: int, ldb: int,
+               ldc: int, ldx: int | None, a_ptr: int, b_ptr: int, c_ptr: int,
+               x_ptr: int | None, tile: tuple[int, int, int], forward: bool = False) -> str:
+    """The route of one ring step's product dest = A·B, chosen before the
+    launch. Its third operand X (absent where `ldx` and `x_ptr` are None) is
+    accin, m×n and summed into dest at a reduce-scatter step after the
+    first, or, with `forward`, the reader's receive slot, m×k, which an
+    all-gather step but the last copies A into. csrc/ring_rs.cu's check
+    (tmb_rs_check, tmb_ag_check) is the same rule and refuses what breaks it.
 
     `wgmma_persistent` when `gemm_route` gives `wgmma` for A and B, the
-    resolved `tile` is one of PERSISTENT_TILES, and TMA can describe dest
-    and accin too (16-byte aligned bases, rows `ldc` and `ldacc` elements
-    apart in whole 16-byte units). Otherwise `gemm_route`'s route, which
-    the pickup kernel (or K1 at a first step) takes."""
+    resolved `tile` is one of PERSISTENT_TILES, each operand's rows are at
+    least its width apart (A's and the slot's k, B's, dest's and accin's n),
+    and TMA can describe dest and X too (16-byte aligned bases, rows `ldc`
+    and `ldx` elements apart in whole 16-byte units). Otherwise `gemm_route`'s
+    route: the pickup kernel takes the step (K1 at a first step), and an
+    all-gather ring that cannot forward hops its chunks."""
     route = gemm_route(dtype, m, n, k, lda, ldb, a_ptr, b_ptr)
-    results = [(c_ptr, ldc)] + ([] if acc_ptr is None else [(acc_ptr, ldacc)])
-    if (route != "wgmma" or tuple(tile) not in PERSISTENT_TILES
-            or any(ptr % 16 or ld * 2 % 16 for ptr, ld in results)):
+    results = [(c_ptr, ldc, n)] + ([] if x_ptr is None else [(x_ptr, ldx, k if forward else n)])
+    if (route != "wgmma" or tuple(tile) not in PERSISTENT_TILES or lda < k or ldb < n
+            or any(ptr % 16 or ld * 2 % 16 or ld < width for ptr, ld, width in results)):
         return route
     return "wgmma_persistent"
 
@@ -435,7 +455,7 @@ def cuda_matmul_rs(a: torch.Tensor, b: torch.Tensor, accin: torch.Tensor | None,
 
     `out` (the reader's receive slot, or the home rows of Y) and accin are
     m×n, with unit column stride and rows that may be further apart than n.
-    For CUDA tensors `rs_route` decides before the launch: the persistent
+    For CUDA tensors `step_route` decides before the launch: the persistent
     pickup GEMM of csrc/ring_rs.cu (RS_LAUNCHES, route `wgmma_persistent`),
     or else `cuda_matmul_acc` (`cuda_matmul` without accin, which takes a
     contiguous `out`) on its own route. The other arguments are
@@ -454,9 +474,9 @@ def cuda_matmul_rs(a: torch.Tensor, b: torch.Tensor, accin: torch.Tensor | None,
     (m, k), n = a.shape, b.shape[1]
     if max(_ld(out), 0 if accin is None else _ld(accin)) > _INT_MAX:
         raise ValueError("cuda_matmul_rs: a row stride exceeds the kernel's int range")
-    route = rs_route(a.dtype, m, n, k, _ld(a), _ld(b), _ld(out),
-                     None if accin is None else _ld(accin), a.data_ptr(), b.data_ptr(),
-                     out.data_ptr(), None if accin is None else accin.data_ptr(), tile)
+    route = step_route(a.dtype, m, n, k, _ld(a), _ld(b), _ld(out),
+                       None if accin is None else _ld(accin), a.data_ptr(), b.data_ptr(),
+                       out.data_ptr(), None if accin is None else accin.data_ptr(), tile)
     if route != "wgmma_persistent":
         if accin is None:
             return cuda_matmul(a, b, blocks=blocks, grid_order=grid_order, out=out)
@@ -476,17 +496,101 @@ def cuda_matmul_rs(a: torch.Tensor, b: torch.Tensor, accin: torch.Tensor | None,
     return out
 
 
-def rs_check(dtype: torch.dtype, m: int, n: int, k: int, lda: int, ldb: int, ldc: int,
-             ldacc: int | None, a_ptr: int, b_ptr: int, c_ptr: int, acc_ptr: int | None,
-             tile: tuple[int, int, int], device: torch.device | str = "cuda") -> int:
-    """What csrc/ring_rs.cu says of these operands without launching
-    (tmb_rs_check): 0 where it takes them, else the cudaError_t code it
-    refuses them with. `rs_route` gives `wgmma_persistent` exactly where
-    this is 0 (`chip_smoke.py` holds the two together on the card)."""
+def _check_forward_slot(fwd: torch.Tensor, a: torch.Tensor) -> None:
+    """The forwarding slot: A's shape, dtype and device, with unit column
+    stride and rows at least k apart."""
+    if tuple(fwd.shape) != tuple(a.shape) or fwd.dtype != a.dtype or fwd.device != a.device:
+        raise ValueError(f"fwd must be {tuple(a.shape)} {a.dtype} on {a.device}, got "
+                         f"{tuple(fwd.shape)} {fwd.dtype} on {fwd.device}")
+    if ((fwd.stride(1) != 1 and fwd.shape[1] > 1)
+            or (fwd.stride(0) < fwd.shape[1] and fwd.shape[0] > 1)):
+        raise ValueError(f"fwd must have unit column stride and rows at least "
+                         f"{fwd.shape[1]} apart, got strides {fwd.stride()}")
+
+
+def ag_forwards(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, fwd: torch.Tensor,
+                blocks: tuple[int, int, int] | None = None) -> bool:
+    """Whether `cuda_matmul_ag(a, b, out, fwd)` forwards A in its own launch
+    (`step_route` gives `wgmma_persistent` for these tensors). A ring call
+    on one card forwards where every step does, and hops its chunks where
+    one does not."""
+    (m, k), n = a.shape, b.shape[1]
+    return step_route(a.dtype, m, n, k, _ld(a), _ld(b), _ld(out), _ld(fwd), a.data_ptr(),
+                      b.data_ptr(), out.data_ptr(), fwd.data_ptr(), _resolve(a, b, blocks),
+                      forward=True) == "wgmma_persistent"
+
+
+def cuda_matmul_ag(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                   fwd: torch.Tensor | None = None, *,
+                   blocks: tuple[int, int, int] | None = None,
+                   grid_order: str = "mnk") -> torch.Tensor:
+    """One all-gather ring step's product: out = A @ B, summed in fp32
+    (int32 for int8) and rounded once to the operand dtype (int32 for int8);
+    with `fwd` (the reader's receive slot, A's shape and dtype), A is also
+    copied into fwd unchanged.
+
+    `out` (Y's rows of the chunk) is m×n and `fwd` m×k, each with unit
+    column stride and rows that may be further apart than their width. For
+    CUDA tensors `step_route` decides before the launch: the persistent GEMM
+    of csrc/ring_rs.cu in its forwarding mode (AG_LAUNCHES, route
+    `wgmma_persistent`), or else, without `fwd`, `cuda_matmul` on its own
+    route; a `fwd` that route cannot forward raises (`ag_forwards` tells
+    the caller beforehand). The other arguments are `cuda_matmul`'s."""
+    global AG_LAUNCHES
+    order = _check_grid_order(grid_order)
+    dtype = _out_dtype(a, b, None)
+    tile = _resolve(a, b, blocks)
+    _check_result_operand(out, "out", a, b, dtype)
+    if fwd is not None:
+        _check_forward_slot(fwd, a)
+    if a.device.type == "cpu":
+        out.copy_(matmul_plain(a, b))
+        if fwd is not None:
+            fwd.copy_(a)
+        return out
+    _check_card_operands(a, b, "cuda_matmul_ag")
+    (m, k), n = a.shape, b.shape[1]
+    if max(_ld(out), 0 if fwd is None else _ld(fwd)) > _INT_MAX:
+        raise ValueError("cuda_matmul_ag: a row stride exceeds the kernel's int range")
+    route = step_route(a.dtype, m, n, k, _ld(a), _ld(b), _ld(out),
+                       None if fwd is None else _ld(fwd), a.data_ptr(), b.data_ptr(),
+                       out.data_ptr(), None if fwd is None else fwd.data_ptr(), tile,
+                       forward=True)
+    if route != "wgmma_persistent":
+        if fwd is not None:
+            raise ValueError(f"cuda_matmul_ag: the {route} route does not forward; "
+                             "run cuda_matmul and copy the chunk (ag_forwards)")
+        return cuda_matmul(a, b, blocks=blocks, grid_order=grid_order, out=out)
+    lib = _rs_lib(a.device)
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.tmb_ag_step(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                             None if fwd is None else fwd.data_ptr(), m, n, k, _ld(a),
+                             _ld(b), _ld(out), 0 if fwd is None else _ld(fwd),
+                             _CODES[a.dtype], *tile, order, stream, ctypes.byref(grid))
+    _raise_on(rc, "all-gather step matmul", lib, "tmb_rs_error_string")
+    AG_LAUNCHES += 1
+    _count(route)
+    return out
+
+
+def step_check(dtype: torch.dtype, m: int, n: int, k: int, lda: int, ldb: int, ldc: int,
+               ldx: int | None, a_ptr: int, b_ptr: int, c_ptr: int, x_ptr: int | None,
+               tile: tuple[int, int, int], forward: bool = False,
+               device: torch.device | str = "cuda") -> int:
+    """What csrc/ring_rs.cu says of a ring step's operands without launching
+    (tmb_rs_check, or tmb_ag_check with `forward`, X then the slot): 0 where
+    it takes them, else the cudaError_t code it refuses them with.
+    `step_route` gives `wgmma_persistent` exactly where this is 0
+    (`chip_smoke.py` holds the two together on the card)."""
     lib = _rs_lib(torch.device(device))
-    return lib.tmb_rs_check(a_ptr, b_ptr, acc_ptr, c_ptr, m, n, k, lda, ldb,
-                            0 if ldacc is None else ldacc, ldc,
-                            _CODES.get(dtype, -1), *tile)
+    ldx, code = 0 if ldx is None else ldx, _CODES.get(dtype, -1)
+    if forward:
+        return lib.tmb_ag_check(a_ptr, b_ptr, c_ptr, x_ptr, m, n, k, lda, ldb, ldc, ldx,
+                                code, *tile)
+    return lib.tmb_rs_check(a_ptr, b_ptr, x_ptr, c_ptr, m, n, k, lda, ldb, ldx, ldc,
+                            code, *tile)
 
 
 def cuda_matmul_ksplit(a: torch.Tensor, b: torch.Tensor, *, splits: int = 2,
@@ -535,19 +639,24 @@ def cuda_matmul_ksplit(a: torch.Tensor, b: torch.Tensor, *, splits: int = 2,
 
 
 def occupancy(tile: tuple[int, int, int], dtype: torch.dtype = torch.bfloat16,
-              device: torch.device | str = "cuda", route: str = "wmma") -> int:
+              device: torch.device | str = "cuda", route: str = "wmma",
+              forward: bool = False) -> int:
     """Resident blocks per SM of the tensor-core kernel of `route` at `tile`
-    for operands of `dtype`, as the CUDA runtime computes it on `device`."""
+    for operands of `dtype`, as the CUDA runtime computes it on `device`;
+    `forward`: the persistent GEMM's forwarding instantiation."""
     if route not in ("wmma", "wgmma", "wgmma_persistent") or dtype not in (
             (torch.bfloat16, torch.float16) if route != "wmma"
             else (torch.bfloat16, torch.float16, torch.int8)):
         raise TypeError(f"{dtype} operands take no {route} tile")
+    if forward and route != "wgmma_persistent":
+        raise ValueError(f"the {route} route does not forward")
     blocks = ctypes.c_int(0)
     device = torch.device(device)
     if route == "wgmma_persistent":
         lib = _rs_lib(device)
+        fn = lib.tmb_ag_occupancy if forward else lib.tmb_rs_occupancy
         with torch.cuda.device(device):
-            rc = lib.tmb_rs_occupancy(_CODES[dtype], *tile, ctypes.byref(blocks))
+            rc = fn(_CODES[dtype], *tile, ctypes.byref(blocks))
         _raise_on(rc, "occupancy", lib, "tmb_rs_error_string")
         return blocks.value
     lib = _lib(device)
@@ -589,17 +698,21 @@ _RS_INITIALIZED: set[int] = set()
 
 
 def _rs_lib(device: torch.device) -> ctypes.CDLL:
-    """The persistent pickup's library (csrc/ring_rs.cu), with its argument
+    """The persistent GEMM's library (csrc/ring_rs.cu), with its argument
     types set and `tmb_rs_init` run once for `device` (outside any CUDA-graph
     capture: the ring's first call is eager)."""
     lib = _build.load("ring_rs")
     if lib.tmb_rs_step.argtypes is None:
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.tmb_rs_step.argtypes = [p, p, p, p] + [i] * 12 + [p, ctypes.POINTER(i)]
-        lib.tmb_rs_check.argtypes = [p, p, p, p] + [i] * 11
-        lib.tmb_rs_occupancy.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+        for step in (lib.tmb_rs_step, lib.tmb_ag_step):
+            step.argtypes = [p, p, p, p] + [i] * 12 + [p, ctypes.POINTER(i)]
+        for check in (lib.tmb_rs_check, lib.tmb_ag_check):
+            check.argtypes = [p, p, p, p] + [i] * 11
+        for occupancy_of in (lib.tmb_rs_occupancy, lib.tmb_ag_occupancy):
+            occupancy_of.argtypes = [i] * 4 + [ctypes.POINTER(i)]
         lib.tmb_rs_init.argtypes = []
-        for fn in (lib.tmb_rs_step, lib.tmb_rs_check, lib.tmb_rs_occupancy, lib.tmb_rs_init):
+        for fn in (lib.tmb_rs_step, lib.tmb_ag_step, lib.tmb_rs_check, lib.tmb_ag_check,
+                   lib.tmb_rs_occupancy, lib.tmb_ag_occupancy, lib.tmb_rs_init):
             fn.restype = i
         lib.tmb_rs_error_string.argtypes = [i]
         lib.tmb_rs_error_string.restype = ctypes.c_char_p

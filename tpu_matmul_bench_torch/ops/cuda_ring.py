@@ -1,6 +1,6 @@
 """The ring matmuls over a world of ranks: all-gather (K2) and
 reduce-scatter (K3), and their bidirectional forms (K4, K5), as a schedule
-of hand-written GEMMs and ring hops on each rank's CUDA streams.
+of hand-written GEMMs on each rank's CUDA streams.
 
 Replaces `tpu_matmul_bench/ops/pallas_ring_hbm.py` (`_hbm_ring_kernel`,
 `_chunk_pipeline`, `ring_allgather_matmul_hbm`),
@@ -12,42 +12,47 @@ Replaces `tpu_matmul_bench/ops/pallas_ring_hbm.py` (`_hbm_ring_kernel`,
 `ring_reduce_scatter_matmul_bidir_hbm`). The Pallas kernels
 run one program per TPU core that multiplies a resident chunk while
 `make_async_remote_copy` moves it to the right neighbour, with semaphores
-for flow control. On Hopper, copies between cards leave the GEMM kernel:
-here each rank has a compute stream
-and a copy stream, every product is a hand-written kernel (K1 of
-`csrc/matmul.cu` for K2 and K4; for K3 and K5 `cm.cuda_matmul_rs`, the
-persistent pickup GEMM of `csrc/ring_rs.cu` where its route takes the
-operands), every hop is one `tmb_ring_hop` of `csrc/ring.cu`
-(cudaMemcpyPeerAsync on the sender's copy stream), and each semaphore
-becomes a CUDA event:
+for flow control. Here every product is a hand-written kernel on the rank's
+compute stream, and each semaphore becomes a CUDA event.
 
-| Pallas         | here                                                   |
+On ranks that share one card, the data moves inside the products, as the
+Pallas kernels move it under the MXU work: each all-gather step's product
+(`cm.cuda_matmul_ag`, the persistent GEMM of `csrc/ring_rs.cu` in its
+forwarding mode) stores the chunk it loads into the reader's receive slot
+(t+1) mod 2, and each reduce-scatter step's product (`cm.cuda_matmul_rs`)
+stores its partial sum there. A rank then has one stream and no hop
+(`ag_transfer` == "forward", `rs_transfer` == "store"):
+
+| Pallas         | here, on one card                                      |
 |----------------|--------------------------------------------------------|
 | entry barrier  | every rank stream waits on the caller's current stream |
-| `recv_sem`     | event after a hop; the receiver waits on it before it  |
-|                | reads the slot                                         |
-| `send_sem`     | event after a hop; waited on before its source slot is |
-|                | written again (K3's wait two steps later)              |
-| `free_sem`     | the receiver's events after every read of a slot (its  |
-|                | product, and for K2 its forwarding hop); the writer    |
-|                | waits on them before it overwrites the slot            |
+| DMA to the     | the step's product writes the reader's slot (t+1) mod 2|
+| right          | in the same launch (K2, K4: the chunk, K3, K5: the sum)|
+| `recv_sem`     | the compute stream waits on the writer's product of    |
+|                | step t−1, which filled slot t mod 2                    |
+| `send_sem`     | the product's own end: the slot is written when it is  |
+| `free_sem`     | the compute stream waits on the reader's product of    |
+|                | step t−1, which read slot (t+1) mod 2 (from t = 2 on)  |
 
-The reduce-scatter rings (K3, K5) on ranks that share one card have no
-hop: each step's product stores its partial sum straight into the reader's
-receive slot, as the Pallas kernel sends step t's result under step t+1's
-MXU work, and `recv_sem` and `free_sem` become waits on the products'
-events (`rs_transfer` chooses this from the mesh before the call; ranks on
-several cards keep a staging slot and a hop a step).
+Ranks on several cards keep the hop (`_hop`: one `tmb_ring_hop` of
+`csrc/ring.cu`, cudaMemcpyPeerAsync on the sender's copy stream) and its
+events: a K2/K4 product is K1 of `csrc/matmul.cu`, and the chunk hops on
+the copy stream once it has arrived (`recv_sem`) and the reader has read
+the slot it goes into (`free_sem`: its product and its own forwarding
+hop); a K3/K5 product writes a staging slot that a hop sends on. An
+all-gather call on one card in which a step cannot forward (`cm.ag_forwards`
+false: int8, fp32, rows TMA cannot describe) takes the hop schedule whole,
+decided before its first launch.
 
 The bidirectional rings split each chunk (K4) or each output chunk's
-accumulator (K5) into a top half of h = mshard // 2 rows that hops right
-and a bottom half of mshard − h rows that hops left. Each rank has a second
-copy stream for the left-going hops, so the two directions run
-independently, as the Pallas kernels' two DMA streams do, and each
-direction has its own slots and its own `free_sem` events: the forward
-writer waits on its right neighbour's reads, the backward writer on its
-left neighbour's. One loop serves each contract: it runs over the ring's
-directions (`_Way`), one for K2 and K3, two for K4 and K5.
+accumulator (K5) into a top half of h = mshard // 2 rows that goes right
+and a bottom half of mshard − h rows that goes left. Each direction has its
+own slots and its own `free_sem` events: the forward writer waits on its
+right neighbour's reads, the backward writer on its left neighbour's; with
+hops, each rank has a second copy stream for the left-going ones, so the
+two directions run independently, as the Pallas kernels' two DMA streams
+do. One loop serves each contract: it runs over the ring's directions
+(`_Way`), one for K2 and K3, two for K4 and K5.
 
 At exit the caller's current stream waits on every rank stream, so events
 on it time the whole ring and nothing races a later call. Every buffer is
@@ -58,18 +63,17 @@ streams never meet a reused buffer.
 The schedule is issued step by step (all ranks' step t before any step
 t+1), so every event is recorded before it is waited on. It is written
 once and shared by both devices: on the CPU a hop is `copy_`, a product is
-the wrappers' plain version, and the events are no-ops, so the CPU tests
-run the same slot, chunk and homing arithmetic the card runs. For CUDA
-tensors every product launches a kernel and every hop a copy, or raises:
-nothing falls back to the plain versions.
+the wrappers' plain version (with its forwarding copy), and the events are
+no-ops, so the CPU tests run the same slot, chunk and homing arithmetic the
+card runs. For CUDA tensors every product launches a kernel and every hop a
+copy, or raises: nothing falls back to the plain versions.
 
 Bound on the card: every ring computes the function of one m×k·k×n
 product, 2mnk operations, reading each input once and writing each output
-once (the hops and staged partials are the ring's own traffic, not the
-function's); at bf16 16384² over 4 ranks that is 8.9 ms of operations at
-989 TFLOP/s against 0.48 ms of bytes at 3.35 TB/s, so all four are bound
-by operations. The products are K1, so the rings run about as fast as K1
-does.
+once (the forwarded chunks, hops and staged partials are the ring's own
+traffic, not the function's); at bf16 16384² over 4 ranks that is 8.9 ms
+of operations at 989 TFLOP/s against 0.48 ms of bytes at 3.35 TB/s, so all
+four are bound by operations, and run about as fast as their products.
 
 Left for later: one fused kernel per rank across cards, where SM stores or
 TMA move the chunk and flags in peer memory replace the events (the fused
@@ -100,14 +104,16 @@ from tpu_matmul_bench_torch.utils.metrics import matmul_out_dtype
 
 # Counted where each launch happens, on the card only: RING_STEPS counts the
 # ring's products (D² a call; 2·D² for K4 and K5), HOP_LAUNCHES its hops
-# (D·(D−1) a call for K2; 2·D·(D−1) for K4; K3 and K5 as many as K2 and
-# K4, but only where their ranks span several cards). The products also
-# count in cuda_matmul's LAUNCHES, ACC_LAUNCHES and RS_LAUNCHES.
-# RS_TRANSFERS counts the reduce-scatter rings' calls on the card by how
-# their partial sums move (`rs_transfer`).
+# (D·(D−1) a call for K2 and K3, 2·D·(D−1) for K4 and K5, where their
+# ranks span several cards; on one card only the all-gather calls that
+# cannot forward hop). The products also count in cuda_matmul's LAUNCHES,
+# ACC_LAUNCHES, RS_LAUNCHES and AG_LAUNCHES. RS_TRANSFERS and AG_TRANSFERS
+# count the rings' calls on the card by how their data moved
+# (`rs_transfer`; `ag_transfer`, or "hop" where a step cannot forward).
 RING_STEPS = 0
 HOP_LAUNCHES = 0
 RS_TRANSFERS = {"store": 0, "hop": 0}
+AG_TRANSFERS = {"forward": 0, "hop": 0}
 
 
 def resolve_wres(wres: bool | None, d: int,
@@ -141,8 +147,16 @@ def rs_transfer(mesh: Mesh) -> str:
     return "store" if len(mesh.cards) == 1 else "hop"
 
 
+def ag_transfer(mesh: Mesh) -> str:
+    """How an all-gather ring over `mesh` moves its chunks, chosen before
+    the call: "forward" when every rank shares one card (each step's product
+    stores the chunk it loads into the reader's receive slot), else "hop"
+    (a copy moves the chunk to the reader's card after it has arrived)."""
+    return "forward" if len(mesh.cards) == 1 else "hop"
+
+
 # a rank's streams: products, hops (the right-going ones in K4 and K5), and
-# the left-going hops of K4 and K5
+# the left-going hops of K4 and K5; the copy streams only where the ring hops
 _COMPUTE, _COPY, _COPY_BACK = 0, 1, 2
 
 
@@ -306,14 +320,20 @@ class RingMatmul:
         self.reduce_scatter = reduce_scatter
         self.bidir = bidir
         self.blocks = blocks
-        self._streams: list[tuple[Any, ...]] | None = None
+        # each rank's streams, by how many it has (1, 2 or 3)
+        self._streams: dict[int, list[tuple[Any, ...]]] = {}
 
-    def _schedule(self, card: bool) -> _Schedule:
-        if card and self._streams is None:
-            per_rank = 3 if self.bidir else 2
-            self._streams = [tuple(torch.cuda.Stream(device=dev) for _ in range(per_rank))
-                             for dev in self.mesh.devices]
-        return _Schedule(self.mesh, self._streams if card else None)
+    def _schedule(self, card: bool, transfer: str = "hop") -> _Schedule:
+        """The call's streams: on the card a compute stream a rank, and its
+        copy streams where `transfer` is "hop" (one, two for K4 and K5)."""
+        if not card:
+            return _Schedule(self.mesh, None)
+        per_rank = (3 if self.bidir else 2) if transfer == "hop" else 1
+        if per_rank not in self._streams:
+            self._streams[per_rank] = [
+                tuple(torch.cuda.Stream(device=dev) for _ in range(per_rank))
+                for dev in self.mesh.devices]
+        return _Schedule(self.mesh, self._streams[per_rank])
 
     def _check(self, x: Sequence[torch.Tensor], w: Sequence[torch.Tensor]) -> None:
         check_shards(self.mesh, x, w, self.reduce_scatter)
@@ -331,13 +351,12 @@ class RingMatmul:
 
     def __call__(self, x: Sequence[torch.Tensor], w: Sequence[torch.Tensor]) -> Sharded:
         self._check(x, w)
-        sched = self._schedule(x[0].is_cuda)
         if not self.reduce_scatter:
-            return self._allgather(sched, x, w)
+            return self._allgather(x, w, ag_transfer(self.mesh))
         transfer = rs_transfer(self.mesh)
         if x[0].is_cuda:
             RS_TRANSFERS[transfer] += 1
-        return self._reduce_scatter(sched, x, w, transfer)
+        return self._reduce_scatter(self._schedule(x[0].is_cuda, transfer), x, w, transfer)
 
     def _ways(self, rows: int) -> list[_Way]:
         """The ring's directions over a chunk of `rows` rows: every row
@@ -351,8 +370,8 @@ class RingMatmul:
     def _product(self, sched: _Schedule, r: int, a: torch.Tensor, w: torch.Tensor,
                  dest: torch.Tensor, accin: torch.Tensor | None = None):
         """dest = a·w (+ accin, the pickup) on rank r's compute stream: K1
-        for the all-gather rings, `cm.cuda_matmul_rs` for the reduce-scatter
-        rings; returns the event after it."""
+        for the all-gather rings that hop, `cm.cuda_matmul_rs` for the
+        reduce-scatter rings; returns the event after it."""
         with sched.on(r, _COMPUTE):
             if self.reduce_scatter:
                 cm.cuda_matmul_rs(a, w, accin, dest, blocks=self.blocks)
@@ -361,22 +380,40 @@ class RingMatmul:
         _count_step(a.device)
         return sched.mark(r, _COMPUTE)
 
-    def _allgather(self, sched: _Schedule, x, w) -> Sharded:
+    def _forward(self, sched: _Schedule, r: int, a: torch.Tensor, w: torch.Tensor,
+                 dest: torch.Tensor, fwd: torch.Tensor | None):
+        """dest = a·w on rank r's compute stream, and a copied into the
+        reader's slot `fwd` (None at the last step) by the same launch
+        (`cm.cuda_matmul_ag`). Returns the event after it."""
+        with sched.on(r, _COMPUTE):
+            cm.cuda_matmul_ag(a, w, dest, fwd, blocks=self.blocks)
+        _count_step(a.device)
+        return sched.mark(r, _COMPUTE)
+
+    def _allgather(self, x, w, transfer: str) -> Sharded:
         """K2 (`_hbm_ring_kernel`) and K4 (`_bidir_ring_kernel`). In each
         direction, at step t rank r holds rows [lo, hi) of the chunk that
-        started at rank src = (r − step·t) mod D and multiplies them into Y
-        rows [src·mshard + lo, src·mshard + hi), while the direction's copy
-        stream forwards them into the next rank's slot (t+1) mod 2. K2 has
-        one direction over whole chunks; K4 splits each chunk, its top half
-        going right on the first copy stream and its bottom half left on
-        the second.
+        started at rank src = (r − step·t) mod D, multiplies them into Y
+        rows [src·mshard + lo, src·mshard + hi), and passes them on into the
+        next rank's slot (t+1) mod 2. K2 has one direction over whole
+        chunks; K4 splits each chunk, its top half going right and its
+        bottom half left.
 
-        Each direction's `free_sem` is the events of its own reader (its
-        product and forwarding hop): the forward writer waits on its right
-        neighbour's reads, the backward writer on its left neighbour's.
-        Unlike `_bidir_ring_kernel:98-102`, where one program waits on both
-        directions' acks before either DMA starts, a hop here never waits
-        on the other direction."""
+        `transfer` (`ag_transfer`) says how the chunk reaches the reader:
+        - "forward": the product stores it into the reader's slot (t+1) mod
+          2 in the same launch. Before it, the compute stream waits on the
+          writer's product of step t−1, which filled slot t mod 2
+          (`recv_sem`), and on the reader's product of step t−1, which read
+          slot (t+1) mod 2 (`free_sem`, from t = 2 on). On the card a call
+          in which a step cannot forward (`cm.ag_forwards`) hops instead,
+          decided before the first launch.
+        - "hop": the direction's copy stream sends it once it has arrived
+          and the reader's product and hop of step t−1 have read the slot
+          it goes into (`free_sem`: the forward writer waits on its right
+          neighbour's reads, the backward writer on its left neighbour's).
+          Unlike `_bidir_ring_kernel:98-102`, where one program waits on
+          both directions' acks before either DMA starts, a hop here never
+          waits on the other direction."""
         d = len(self.mesh.ranks)
         mshard, k = x[0].shape
         nshard = w[0].shape[1]
@@ -384,39 +421,58 @@ class RingMatmul:
         y = [torch.empty((mshard * d, nshard), dtype=out, device=dev)
              for dev in self.mesh.devices]
         ways = self._ways(mshard)
-        slots = {way.name: [torch.empty((2, way.hi - way.lo, k), dtype=x[0].dtype,
-                                        device=dev) for dev in self.mesh.devices]
-                 for way in ways} if d > 1 else {}
-        hop_done: dict[tuple[str, int, int], Any] = {}
-        reads: dict[tuple[str, int, int], tuple] = {}
-        sched.enter()
+        slots = self._slots(ways, k, x[0].dtype) if d > 1 else {}
+
+        # (t, r, way, writer, reader, chunk, dest, fwd) of every product, in
+        # issue order
+        steps = []
         for t in range(d):
             for r in range(d):
                 for way in ways:
                     writer, reader = way.neighbours(d, r)
                     chunk = x[r][way.lo:way.hi] if t == 0 else slots[way.name][r][t % 2]
                     row0 = (r - way.step * t) % d * mshard
-                    arrived = hop_done.get((way.name, writer, t - 1))  # recv_sem
-                    sched.wait(r, _COMPUTE, arrived)
-                    product = self._product(sched, r, chunk, w[r],
-                                            y[r][row0 + way.lo:row0 + way.hi])
-                    if t + 1 < d:
-                        # free_sem: the reader read its slot (t+1) mod 2 at
-                        # step t−1 (a slot from t−1 = 1 on; its step 0 read
-                        # its own X)
-                        freed = reads[(way.name, reader, t - 1)] if t >= 2 else ()
-                        sched.wait(r, way.copy, arrived, *freed)
-                        _hop(sched, r, slots[way.name][reader][(t + 1) % 2], chunk,
-                             way.copy)
-                        hop_done[(way.name, r, t)] = sched.mark(r, way.copy)
-                    reads[(way.name, r, t)] = (product, hop_done.get((way.name, r, t)))
+                    fwd = slots[way.name][reader][(t + 1) % 2] if t + 1 < d else None
+                    steps.append((t, r, way, writer, reader, chunk,
+                                  y[r][row0 + way.lo:row0 + way.hi], fwd))
+        card = x[0].is_cuda
+        if transfer == "forward" and card and not all(
+                fwd is None or cm.ag_forwards(chunk, w[r], dest, fwd, self.blocks)
+                for _, r, _, _, _, chunk, dest, fwd in steps):
+            transfer = "hop"
+        if card:
+            AG_TRANSFERS[transfer] += 1
+        sched = self._schedule(card, transfer)
+        hop_done: dict[tuple[str, int, int], Any] = {}
+        reads: dict[tuple[str, int, int], tuple] = {}
+        products: dict[tuple[str, int, int], Any] = {}
+        sched.enter()
+        for t, r, way, writer, reader, chunk, dest, fwd in steps:
+            if transfer == "forward":
+                freed = (products[(way.name, reader, t - 1)]
+                         if fwd is not None and t >= 2 else None)
+                sched.wait(r, _COMPUTE, products.get((way.name, writer, t - 1)), freed)
+                products[(way.name, r, t)] = self._forward(sched, r, chunk, w[r], dest, fwd)
+                continue
+            arrived = hop_done.get((way.name, writer, t - 1))  # recv_sem
+            sched.wait(r, _COMPUTE, arrived)
+            product = self._product(sched, r, chunk, w[r], dest)
+            if fwd is not None:
+                # free_sem: the reader read its slot (t+1) mod 2 at step t−1
+                # (a slot from t−1 = 1 on; its step 0 read its own X)
+                freed = reads[(way.name, reader, t - 1)] if t >= 2 else ()
+                sched.wait(r, way.copy, arrived, *freed)
+                _hop(sched, r, fwd, chunk, way.copy)
+                hop_done[(way.name, r, t)] = sched.mark(r, way.copy)
+            reads[(way.name, r, t)] = (product, hop_done.get((way.name, r, t)))
         sched.leave()
         return Sharded(y, COLS)
 
     def _slots(self, ways: list[_Way], n: int, dtype: torch.dtype
                ) -> dict[str, list[torch.Tensor]]:
-        """Two slots of each direction's rows × n a rank: a reduce-scatter
-        ring's receive slots, or its staging slots."""
+        """Two slots of each direction's rows × n a rank: an all-gather
+        ring's receive slots (n = k), a reduce-scatter ring's receive slots,
+        or its staging slots."""
         return {way.name: [torch.empty((2, way.hi - way.lo, n), dtype=dtype, device=dev)
                            for dev in self.mesh.devices] for way in ways}
 

@@ -173,8 +173,11 @@ def cuda_ring_hbm_mode(config: BenchConfig, mesh: Mesh, size: int,
                                   blocks=config.blocks),
         fn,
         "all_gather-then-matmul",
-        {"kernel": "CUDA HBM ring all-gather matmul (K1 products, "
-                   "copy-engine hops between rank streams)",
+        {"kernel": "CUDA HBM ring all-gather matmul (persistent-GEMM "
+                   "products that store each chunk they load into the reader's "
+                   "receive slot; K1 products and copy-engine hops between rank "
+                   "streams across cards, or where a step "
+                   "cannot forward)",
          **_wres_extras(config, mesh, size)}, benchmark,
         fusable=False,
     )
@@ -206,8 +209,8 @@ def cuda_ring_rs_hbm_mode(config: BenchConfig, mesh: Mesh, size: int,
 def cuda_ring_bidir_hbm_mode(config: BenchConfig, mesh: Mesh, size: int,
                              benchmark: str = "overlap") -> ModeSetup:
     """The bidirectional all-gather ring (`ops/cuda_ring.py`, K4):
-    counter-rotating half chunks on two copy streams per rank, two
-    half-chunk products a step, against the gather-then-matmul baseline."""
+    counter-rotating half chunks, two half-chunk products a step, against
+    the gather-then-matmul baseline."""
     from tpu_matmul_bench_torch.ops.cuda_ring import ring_allgather_matmul_bidir_hbm
 
     fn = ring_allgather_matmul_bidir_hbm(mesh, **_hbm_ring_kwargs(config))
@@ -217,9 +220,11 @@ def cuda_ring_bidir_hbm_mode(config: BenchConfig, mesh: Mesh, size: int,
                                   blocks=config.blocks),
         fn,
         "all_gather-then-matmul",
-        {"kernel": "CUDA bidirectional HBM ring all-gather matmul (two K1 "
-                   "half-chunk products a step, counter-rotating copy-engine "
-                   "hops on two copy streams per rank)",
+        {"kernel": "CUDA bidirectional HBM ring all-gather matmul (two "
+                   "persistent-GEMM half-chunk products a step, each storing its "
+                   "half into the reader's receive slot of its direction; "
+                   "counter-rotating copy-engine hops across cards, or where a step "
+                   "cannot forward)",
          **_wres_extras(config, mesh, size)}, benchmark,
         fusable=False,
     )
