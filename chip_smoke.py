@@ -50,7 +50,21 @@ The paths:
   partial: the data moves within the card's memory, not over NVLink, and
   no hop runs), then in the fused ring mode `cuda_ring`
   and in `cuda_ring_hbm` at the fused ring's cap, the largest size whose
-  operands fit the card's L2.
+  operands fit the card's L2;
+- the scaling and distributed programs, `tpu_matmul_bench_torch.benchmarks
+  .matmul_scaling_benchmark.main` and `.matmul_distributed_benchmark.main`,
+  in their five parallel modes at bf16 16384² over 4 ranks on the card,
+  each through the kernel under both timing protocols and through the
+  library, and `matrix_parallel` over one rank (the `scaling` phase): every
+  product on K1's wgmma route (its two other shapes, 16384x16384x4096 and
+  16384x4096x16384, held against the plain version first), as many
+  launches as the mode makes, `validation: ok`, fused runs that ran fused
+  with their operands chained;
+- `--profile-dir` (the `profile` phase): `batch_parallel` at 16384² and
+  the fused ring at its cap, each traced by torch.profiler, with the
+  device time per kernel, the device's busy and idle share inside the
+  timed windows and the fused ring's device time a launch read from the
+  traces.
 
 Standard output is one JSON object per line: one per phase, then the
 `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
@@ -62,6 +76,7 @@ is present, and when the port's package is not beside it.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import math
 import os
@@ -117,6 +132,21 @@ RING_WORLD = 4  # ranks on the card for the overlap phases and the timings
 # 16384² (128 MiB chunks)
 RACE_REPEATS, RACE_SIZES = 20, (2048, SIZE)
 OVERLAP_ITERATIONS, OVERLAP_WARMUP = 10, 2
+# the scaling and distributed programs: (program, mode) at bf16 SIZE² over
+# RING_WORLD ranks on the card, each under the kernel (dispatch, fused) and
+# the library (dispatch); matrix_parallel also over one rank (its fallback)
+SCALING_RUNS = [("scaling", "independent"), ("scaling", "batch_parallel"),
+                ("scaling", "matrix_parallel"), ("distributed", "data_parallel"),
+                ("distributed", "model_parallel")]
+SCALING_ITERATIONS, SCALING_WARMUP = 10, 2
+# rounds of the interleaved compute/full timing (utils/timing.py time_variants)
+VARIANT_ROUNDS = 3
+# K1's shape in each mode over RING_WORLD ranks, (m, k, n): held against the
+# plain version in kernel_vs_plain, on the wgmma route
+SCALING_SHAPES = {"independent": (SIZE, SIZE, SIZE), "batch_parallel": (SIZE, SIZE, SIZE),
+                  "data_parallel": (SIZE, SIZE, SIZE),
+                  "matrix_parallel": (SIZE, SIZE, SIZE // RING_WORLD),
+                  "model_parallel": (SIZE, SIZE // RING_WORLD, SIZE)}
 # the reduce-scatter rings' step products at 16384² over RING_WORLD ranks,
 # (m, k, n): K3's whole chunk and K5's half, and a ragged one whose accin
 # and dest rows lie RS_RAGGED_PAD elements further apart than n
@@ -1276,6 +1306,205 @@ def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict
     return summary, counts
 
 
+def scaling_calls(mode: str, d: int, timing: str) -> int:
+    """The mode's program calls in one run of SCALING_ITERATIONS after
+    SCALING_WARMUP: the validation's call, then the timed ones. Dispatch
+    times each program warmup + iterations calls in the first of
+    VARIANT_ROUNDS rounds and 1 + iterations in each other; fused captures
+    each program's chain once (one eager call, then `iterations` captured)
+    and replays it, which launches nothing from the host. `independent`
+    (and `matrix_parallel` over one rank, its fallback) times its one
+    program once."""
+    it, wu = SCALING_ITERATIONS, SCALING_WARMUP
+    single = mode == "independent" or (mode == "matrix_parallel" and d == 1)
+    if timing == "fused":
+        per_program = 1 + it
+    elif single:
+        per_program = wu + it
+    else:
+        per_program = wu + it + (VARIANT_ROUNDS - 1) * (1 + it)
+    return 1 + per_program * (1 if single else 2)
+
+
+def scaling_launches(mode: str, d: int, timing: str) -> int:
+    """K1 launches of one `--matmul-impl cuda` run: D ranks × products a
+    rank × the calls of both legs (`scaling_calls`), plus the single-device
+    baseline of the efficiency modes (its validation and timed calls)."""
+    per_rank = max(4 // d, 1) if mode == "batch_parallel" else 1  # the local batch
+    launches = d * per_rank * scaling_calls(mode, d, timing)
+    if d > 1 and mode in ("independent", "batch_parallel", "data_parallel"):
+        launches += 1 + (1 + SCALING_ITERATIONS if timing == "fused"
+                         else SCALING_WARMUP + SCALING_ITERATIONS)
+    return launches
+
+
+def drive_scaling(program: str, mode: str, impl: str, timing: str, out_dir: str,
+                  d: int = RING_WORLD, profile_dir: str | None = None) -> dict:
+    """One run of the scaling or distributed program through its entry
+    point, its ranks on the card; returns the record's summary. Every K1
+    launch must take the wgmma route, as many as the mode makes
+    (`scaling_launches`); the library run launches none."""
+    from tpu_matmul_bench_torch.benchmarks import (
+        matmul_distributed_benchmark,
+        matmul_scaling_benchmark,
+    )
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.utils.telemetry import is_manifest
+
+    entry = (matmul_scaling_benchmark if program == "scaling"
+             else matmul_distributed_benchmark).main
+    tag = f"{mode},{impl},{timing}" + ("" if d == RING_WORLD else f",d={d}")
+    path = f"{out_dir}/{program}-{tag.replace(',', '-')}.jsonl"
+    argv = ["--mode", mode, "--sizes", str(SIZE), "--dtype", "bfloat16",
+            "--num-devices", str(d), "--matmul-impl", impl, "--timing", timing,
+            "--iterations", str(SCALING_ITERATIONS), "--warmup", str(SCALING_WARMUP),
+            "--validate", "--json-out", path]
+    if profile_dir:
+        argv += ["--profile-dir", profile_dir]
+    # the baseline is measured in this run, not taken from an earlier one
+    matmul_scaling_benchmark._BASELINE_CACHE.clear()
+    cm.LAUNCHES = 0
+    before = routes()
+    with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr), \
+            clock_samples() as during:
+        records = entry(argv)
+    launches, by_route = cm.LAUNCHES, routes_since(before)
+    phase = f"scaling[{tag}]"
+    if len(records) != 1:
+        fail(phase, f"expected one record, got {len(records)} (the runner "
+                    "reports a failed size and returns no record for it)")
+    with open(path) as fh:
+        lines = [json.loads(line) for line in fh if line.strip()]
+    rec, x = records[0], records[0].extras
+    baseline = list(matmul_scaling_benchmark._BASELINE_CACHE.values())
+    want = scaling_launches(mode, d, timing) if impl == "cuda" else 0
+    peak = rec.peak_efficiency_pct
+    summary = {"phase": phase, "program": program, "mode": rec.mode, "world": rec.world,
+               "k1_shape": "x".join(map(str, SCALING_SHAPES[mode] if d > 1
+                                        else (SIZE, SIZE, SIZE))),
+               "avg_ms": rec.avg_time_s * 1e3,
+               "compute_ms": rec.compute_time_s * 1e3,
+               "comm_ms": None if rec.comm_time_s is None else rec.comm_time_s * 1e3,
+               "tflops_total": rec.tflops_total, "tflops_per_device": rec.tflops_per_device,
+               "peak_efficiency_pct": peak,
+               "scaling_efficiency_pct": rec.scaling_efficiency_pct,
+               "single_device_tflops": baseline[0] if baseline else None,
+               "cards": x.get("cards"), "ranks_per_card": x.get("ranks_per_card"),
+               "validation": x.get("validation"),
+               "validation_max_rel_err": x.get("validation_max_rel_err"),
+               "timing": x.get("timing", "dispatch"), "chain": x.get("chain"),
+               "k1_launches": launches, "expected_k1_launches": want,
+               "launches_by_route": by_route, "during": during}
+    problems = []
+    if x.get("validation") != "ok":
+        problems.append("validation is not ok")
+    if peak is None or not 0 < peak <= 100:
+        problems.append(f"peak_efficiency_pct {peak} outside (0, 100]")
+    if rec.world != d or x.get("cards") != 1 or x.get("ranks_per_card") != d:
+        problems.append(f"world {rec.world} on {x.get('cards')} cards, "
+                        f"{x.get('ranks_per_card')} a card, not {d} on 1")
+    if timing == "fused" and (x.get("timing"), x.get("chain")) != ("fused", "operand"):
+        problems.append(f"fused was asked, yet timing {x.get('timing')}, chain "
+                        f"{x.get('chain')}")
+    efficiency = d > 1 and mode in ("independent", "batch_parallel", "data_parallel")
+    if efficiency != (rec.scaling_efficiency_pct is not None):
+        problems.append(f"scaling_efficiency_pct {rec.scaling_efficiency_pct}")
+    if not lines or not is_manifest(lines[0]):
+        problems.append("the JSONL does not start with its manifest")
+    if len(lines) != 2 or lines[1].get("mode") != rec.mode:
+        problems.append("the JSONL does not hold the record after the manifest")
+    if launches != want:
+        problems.append(f"{launches} K1 launches, not the {want} the mode makes")
+    if impl == "cuda" and by_route != {"gemm:wgmma": want}:
+        problems.append(f"launches by route {by_route}: not all {want} on wgmma")
+    if impl == "torch" and by_route:
+        problems.append(f"the library run launched the port's kernels: {by_route}")
+    summary["ok"] = not problems
+    emit(summary)
+    if problems:
+        fail(phase, "; ".join(problems))
+    return summary
+
+
+def scaling_phase(out_dir: str) -> dict:
+    """The five modes at bf16 SIZE² over RING_WORLD ranks on the card under
+    K1 (dispatch, fused) and the library (dispatch), and matrix_parallel
+    over one rank; returns each mode's runs by label."""
+    runs = {}
+    for program, mode in SCALING_RUNS:
+        runs[mode] = {f"{impl},{timing}": drive_scaling(program, mode, impl, timing, out_dir)
+                      for impl, timing in (("cuda", "dispatch"), ("cuda", "fused"),
+                                           ("torch", "dispatch"))}
+    fallback = drive_scaling("scaling", "matrix_parallel", "cuda", "dispatch", out_dir, d=1)
+    table = {mode: {"cuda_ms": r["cuda,dispatch"]["avg_ms"],
+                    "cuda_fused_ms": r["cuda,fused"]["avg_ms"],
+                    "library_ms": r["torch,dispatch"]["avg_ms"],
+                    "cuda_over_library": r["cuda,dispatch"]["avg_ms"]
+                    / r["torch,dispatch"]["avg_ms"],
+                    "scaling_efficiency_pct": r["cuda,dispatch"]["scaling_efficiency_pct"],
+                    "peak_efficiency_pct": r["cuda,dispatch"]["peak_efficiency_pct"]}
+             for mode, r in runs.items()}
+    table["matrix_parallel,d=1"] = {"cuda_ms": fallback["avg_ms"],
+                                    "record_mode": fallback["mode"]}
+    emit({"phase": "scaling", "modes": table, "ok": True})
+    return runs
+
+
+def profile_phase(cap: int, out_dir: str) -> dict:
+    """--profile-dir on the card: batch_parallel at bf16 SIZE² and the fused
+    ring at its cap, each traced by torch.profiler; prints each trace's
+    device time per kernel, the device's busy and idle share inside the
+    timed windows, and K6's device time a launch beside its event-timed
+    ms. Fails when a trace holds no device kernel event; where the profiler
+    records no CUDA activity at all, the program raises and the phase
+    reports why."""
+    from tpu_matmul_bench_torch.benchmarks import matmul_overlap_benchmark
+    from tpu_matmul_bench_torch.utils import profiling
+
+    result = {"phase": "profile"}
+    scaling_dir, k6_dir = "build/profile/scaling", "build/profile/k6"
+    for d in (scaling_dir, k6_dir):
+        for old in glob.glob(f"{d}/*.json"):
+            os.remove(old)
+    try:
+        traced = drive_scaling("scaling", "batch_parallel", "cuda", "dispatch", out_dir,
+                               profile_dir=scaling_dir)
+        argv = ["--mode", "cuda_ring", "--sizes", str(cap), "--dtype", "bfloat16",
+                "--num-devices", str(RING_WORLD), "--matmul-impl", "cuda",
+                "--iterations", str(OVERLAP_ITERATIONS), "--warmup", str(OVERLAP_WARMUP),
+                "--profile-dir", k6_dir]
+        with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
+            (k6_rec,) = matmul_overlap_benchmark.main(argv)
+    except RuntimeError as e:
+        if "recorded no CUDA activity" not in str(e):
+            raise
+        result.update(profiler_records_cuda=False, reason=str(e), ok=True)
+        emit(result)
+        return result
+    summaries = {}
+    for label, d in (("scaling", scaling_dir), ("k6", k6_dir)):
+        (trace,) = glob.glob(f"{d}/*.json")
+        summaries[label] = {"trace": trace, "bytes": os.path.getsize(trace),
+                            **profiling.device_summary(trace)}
+    k6 = profiling.kernel_time_us(summaries["k6"]["trace"], "ring_fused")
+    k1 = profiling.kernel_time_us(summaries["scaling"]["trace"], "wgmma_gemm")
+    result.update(
+        profiler_records_cuda=True, scaling=summaries["scaling"], k6=summaries["k6"],
+        scaling_record_ms=traced["avg_ms"], scaling_k1_us_per_launch=k1["us_per_launch"],
+        scaling_k1_share=k1["device_us"] / summaries["scaling"]["device_us"],
+        k6_device_us_per_launch=k6["us_per_launch"], k6_launches_traced=k6["count"],
+        k6_event_ms=k6_rec.avg_time_s * 1e3, k6_baseline_event_ms=k6_rec.compute_time_s * 1e3)
+    problems = [f"the {label} trace holds no device kernel event"
+                for label, s in summaries.items() if not s["kernel_launches"]]
+    if not k6["count"]:
+        problems.append("the fused ring's kernel is not in its trace")
+    result["ok"] = not problems
+    emit(result)
+    if problems:
+        fail("profile", "; ".join(problems))
+    return result
+
+
 def ring_bound(m: int, k: int, n: int, item: int, out_item: int, peak: float,
                bw: float) -> tuple[float, str]:
     """The least time for the function a ring computes, Y = X·W over the
@@ -1462,6 +1691,9 @@ def main() -> None:
     apply_matmul_precision("highest")
     cases = [(d, s) for d in TOLERANCE for s in SHAPES]
     cases.append(("bfloat16", (SIZE, SIZE, SIZE)))
+    # K1's two other shapes in the scaling modes (matrix and model parallel)
+    cases += [("bfloat16", mkn) for mkn in dict.fromkeys(SCALING_SHAPES.values())
+              if mkn != (SIZE, SIZE, SIZE)]
     headline_err = None
     for dtype_name, mkn in cases:
         result = check_kernel(dtype_name, mkn)
@@ -1511,6 +1743,8 @@ def main() -> None:
             ("ring_rs_bidir", "cuda_ring_bidir_rs_hbm"))}
         overlaps["ring_fused"] = drive_overlap("cuda_ring", out_dir, size=cap)
         k2_at_cap, _ = drive_overlap("cuda_ring_hbm", out_dir, size=cap)
+        scaling = scaling_phase(out_dir)
+        profile = profile_phase(cap, out_dir)
 
     # 5. the plain version's time at the headline shape
     a, b = random_operands(0, (SIZE, SIZE), torch.bfloat16, device="cuda")
@@ -1577,6 +1811,12 @@ def main() -> None:
         "c1": c1, "card": card,
         "tiles_ms": {t: {"mnk": tiles_mnk[t], "nmk": tiles_nmk[t]}
                      for t in tiles_mnk},
+        # each parallel mode's products over RING_WORLD ranks (dispatch)
+        "scaling": {mode: {"shape": r["cuda,dispatch"]["k1_shape"],
+                           "launches": r["cuda,dispatch"]["k1_launches"],
+                           "mode_ms": r["cuda,dispatch"]["avg_ms"],
+                           "library_mode_ms": r["torch,dispatch"]["avg_ms"]}
+                    for mode, r in scaling.items()},
     }, {
         "name": "matmul_ksplit", "route": "cuda",
         "source": "tpu_matmul_bench_torch/csrc/matmul.cu",
@@ -1619,6 +1859,7 @@ def main() -> None:
         "replaces_function": "ring_allgather_matmul",
         "kernels": ["csrc/ring_fused.cu ring_fused_wgmma"],
         **entries["ring_fused"],
+        "profiled_device_us_per_launch": profile.get("k6_device_us_per_launch"),
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -14,6 +14,9 @@ _PROGRAMS = {
     # the kernel tile sweep (benchmarks/cuda_tune.py); the JAX package's
     # tuning-database subcommands are not ported yet and fail by name
     "tune": "tpu_matmul_bench_torch.benchmarks.cuda_tune",
+    # the parallel modes over a world of ranks, with a scaling efficiency
+    "scaling": "tpu_matmul_bench_torch.benchmarks.matmul_scaling_benchmark",
+    "distributed": "tpu_matmul_bench_torch.benchmarks.matmul_distributed_benchmark",
     # the ring matmuls against their baselines over a world of ranks
     "overlap": "tpu_matmul_bench_torch.benchmarks.matmul_overlap_benchmark",
 }

@@ -71,6 +71,21 @@ def make_matmul(impl: str = "torch", blocks: tuple[int, int, int] | None = None,
     return matmul_2d(impl, blocks, device_kind)
 
 
+def make_bmm() -> Matmul:
+    """Batched matmul (≙ `torch.bmm`, reference `matmul_scaling_benchmark.py:
+    142`) with `matmul_2d`'s dtype contract: floats keep their dtype with
+    fp32 accumulation, int8 accumulates in int32 (as the JAX package's
+    `preferred_element_type=jnp.int32`). `torch.bmm` has no integer path
+    on the card, so int8 takes the library's int8 product (`_library`) one
+    matrix at a time."""
+    def bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if is_integer_dtype(a.dtype):
+            return torch.stack([_library(x, y) for x, y in zip(a, b)])
+        return torch.bmm(a, b)
+
+    return bmm
+
+
 # Integer operands draw uniformly from [-INT_OPERAND_BOUND, INT_OPERAND_BOUND).
 # Small magnitudes keep int32 accumulation exact at any benchmark size
 # (|sum| ≤ 64·16384 ≪ 2³¹).

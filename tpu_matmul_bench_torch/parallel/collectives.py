@@ -31,31 +31,53 @@ def _check(mesh: Mesh, shards: Shards) -> None:
 def _sum_on(shards: Shards, device: torch.device,
             parts: Callable[[torch.Tensor], torch.Tensor] = lambda s: s) -> torch.Tensor:
     """Σ parts(shard) in rank order, in the accumulator dtype (fp32, int32
-    for integers), rounded once to the shards' dtype, on `device`."""
+    for integers), rounded once to the shards' dtype, on `device`. Each
+    part is added into the accumulator in place; widening a part is exact,
+    so this is the sum of the widened parts."""
     acc_dtype = matmul_acc_dtype(shards[0].dtype)
     acc = None
     for s in shards:
-        part = parts(s).to(device=device, dtype=acc_dtype)
-        acc = part if acc is None else acc + part
+        part = parts(s).to(device)
+        if acc is None:
+            acc = part.to(acc_dtype, copy=True)
+        else:
+            acc.add_(part)
     return acc.to(shards[0].dtype)
+
+
+def _per_card(mesh: Mesh, total: Callable[[torch.device], torch.Tensor]
+              ) -> list[torch.Tensor]:
+    """`total(card)` once for each device the ranks occupy; the first rank
+    on a device takes it, each other rank there its own copy."""
+    out, seen = [], {}
+    for device in mesh.devices:
+        if device in seen:
+            out.append(seen[device].clone())
+        else:
+            seen[device] = total(device)
+            out.append(seen[device])
+    return out
 
 
 def psum_over(mesh: Mesh) -> Callable[[Shards], list[torch.Tensor]]:
     """all_reduce(SUM): every rank ends with the sum of all shards
-    (≙ `jax.lax.psum`, reference `dist.all_reduce(..., SUM)`)."""
+    (≙ `jax.lax.psum`, reference `dist.all_reduce(..., SUM)`). The sum is
+    made once for each device the ranks occupy; the other ranks on that
+    device get copies of it."""
     def fn(shards: Shards) -> list[torch.Tensor]:
         _check(mesh, shards)
-        return [_sum_on(shards, d) for d in mesh.devices]
+        return _per_card(mesh, lambda d: _sum_on(shards, d))
     return fn
 
 
 def pmean_over(mesh: Mesh) -> Callable[[Shards], list[torch.Tensor]]:
-    """all_reduce(AVG) of float shards (≙ `jax.lax.pmean`)."""
+    """all_reduce(AVG) of float shards (≙ `jax.lax.pmean`), made once for
+    each device as `psum_over` is."""
     def fn(shards: Shards) -> list[torch.Tensor]:
         _check(mesh, shards)
         n = len(shards)
-        return [(_sum_on(shards, d).float() / n).to(shards[0].dtype)
-                for d in mesh.devices]
+        return _per_card(mesh, lambda d: (_sum_on(shards, d).float() / n)
+                         .to(shards[0].dtype))
     return fn
 
 

@@ -5,8 +5,9 @@ The JAX package runs a sharded program under `shard_map` over a `Mesh` of
 devices, and its tests force 8 virtual CPU devices
 (`XLA_FLAGS=--xla_force_host_platform_device_count=8`). The port keeps the
 ranks in one process instead: a rank is a (rank index, device) pair, and a
-sharded operand is a list of D per-rank tensors with its spec, `ROWS`
-(P("x", None)) or `COLS` (P(None, "x")).
+sharded operand is a list of D per-rank tensors with its spec: `ROWS`
+(P("x", None); on a 3-D stacked operand, P("x"): dim 0 cut), `COLS`
+(P(None, "x")) or `REPLICATED` (P(): every rank holds the whole array).
 
 Placement: `TMB_RANKS_PER_CARD=R` (default 1), read only here, lets R ranks
 share each card (or the CPU), the counterpart of the forced host device
@@ -26,6 +27,7 @@ import torch
 AXIS = "x"
 ROWS = (AXIS, None)  # P("x", None): dim 0 cut into D blocks
 COLS = (None, AXIS)  # P(None, "x"): dim 1 cut into D blocks
+REPLICATED = ()  # P(): every rank holds the whole array
 RANKS_PER_CARD_ENV = "TMB_RANKS_PER_CARD"
 
 
@@ -83,9 +85,13 @@ class Sharded(list):
         self.spec = tuple(spec)
 
     @property
-    def dim(self) -> int:
-        """The dimension cut across the ranks."""
-        return self.spec.index(AXIS)
+    def dim(self) -> int | None:
+        """The dimension cut across the ranks; None when replicated."""
+        return _cut_dim(self.spec)
+
+
+def _cut_dim(spec: tuple) -> int | None:
+    return spec.index(AXIS) if AXIS in spec else None
 
 
 def make_mesh(devices: Sequence[torch.device]) -> Mesh:
@@ -137,9 +143,12 @@ def shard_from_numpy(global_array: Any, spec: tuple, mesh: Mesh) -> Sharded:
 
 def shard_tensor(global_tensor: torch.Tensor, spec: tuple, mesh: Mesh) -> Sharded:
     """`global_tensor` cut by `spec`: one contiguous copy per rank, on the
-    rank's device."""
+    rank's device (the whole tensor for each rank when replicated)."""
     d = world_size(mesh)
-    dim = spec.index(AXIS)
+    dim = _cut_dim(spec)
+    if dim is None:
+        return Sharded([global_tensor.to(r.device, copy=True).contiguous()
+                        for r in mesh.ranks], spec)
     size = _blocks(global_tensor.shape[dim], d,
                    f"dimension {dim} of {tuple(global_tensor.shape)}")
     return Sharded([global_tensor.narrow(dim, r.index * size, size)
@@ -149,8 +158,10 @@ def shard_tensor(global_tensor: torch.Tensor, spec: tuple, mesh: Mesh) -> Sharde
 
 def gather(sharded: Sharded, device: torch.device | str | None = None) -> torch.Tensor:
     """The global tensor, put back together on `device` (default: the
-    first rank's)."""
+    first rank's); a replicated operand's first copy."""
     device = sharded[0].device if device is None else device
+    if sharded.dim is None:
+        return sharded[0].to(device)
     return torch.cat([s.to(device) for s in sharded], dim=sharded.dim)
 
 
@@ -159,6 +170,8 @@ def global_block(sharded: Sharded, rows: int, cols: int) -> torch.Tensor:
     that hold it, without putting the rest together."""
     device = sharded[0].device
     dim = sharded.dim
+    if dim is None:
+        return sharded[0][:rows, :cols]
     want = (rows, cols)[dim]
     parts, offset = [], 0
     for s in sharded:
@@ -169,6 +182,15 @@ def global_block(sharded: Sharded, rows: int, cols: int) -> torch.Tensor:
         parts.append(part.to(device))
         offset += take
     return torch.cat(parts, dim=dim)
+
+
+def stacked_item(sharded: Sharded, index: int) -> torch.Tensor:
+    """global[index] of a stacked operand cut along dim 0 (`ROWS` on a 3-D
+    tensor): a view of the one shard that holds it, on its rank's device."""
+    if sharded.dim != 0:
+        raise ValueError(f"a stacked item needs dim 0 cut, got spec {sharded.spec}")
+    per = sharded[0].shape[0]
+    return sharded[index // per][index % per]
 
 
 def sharded_normal(seed: int, shape: tuple[int, ...], dtype: torch.dtype,

@@ -1,12 +1,23 @@
-"""Mode machinery: `ModeSetup`, `run_mode_benchmark`, the memory estimate,
-and result validation for `--validate`.
+"""The scaling modes and their machinery: `ModeSetup`, `run_mode_benchmark`,
+the memory estimate, and result validation for `--validate`.
 
-Port of `tpu_matmul_bench/parallel/modes.py:57-160, 197-298, 633-713`: a
-mode builds two programs over the world of ranks (`parallel/mesh.py`), a
-compute leg (for the overlap modes, the serialized baseline) and a full
-program (the ring), which `run_mode_benchmark` times interleaved; and the
-corner check that compares a result's top-left corner with a recomputed
-reference. The scaling modes of that file come with the scaling slice.
+Port of `tpu_matmul_bench/parallel/modes.py`: a mode builds two programs
+over the world of ranks (`parallel/mesh.py`), a compute leg (for the
+overlap modes, the serialized baseline) and a full program (compute, then
+the collective; for the overlap modes, the ring), which
+`run_mode_benchmark` times interleaved; and the corner check that compares
+a result's top-left corner with a float64 reference. The five parallel
+modes (`independent`, `batch_parallel`, `matrix_parallel`, `data_parallel`,
+`model_parallel`) take every product from `ops/matmul.py matmul_2d`, so
+`--matmul-impl cuda` runs each on the hand-written GEMM (K1). Their
+collectives are `psum_over` and `all_gather_over` (`--comm-quant` is not
+ported: ROADMAP A8).
+
+TFLOPS: `tflops_total` keeps the JAX formula of each mode. The ranks that
+share a card run their products one after another, so that formula gives
+the total over the cards; `tflops_per_device` is `tflops_total / cards`
+(extras `cards`, `ranks_per_card`), so `peak_efficiency_pct` keeps its
+0–100 meaning. With one rank per card both reduce to the JAX package's.
 """
 
 from __future__ import annotations
@@ -16,11 +27,27 @@ from typing import Any, Callable
 
 import torch
 
+from tpu_matmul_bench_torch.ops.matmul import Matmul, matmul_2d
+from tpu_matmul_bench_torch.parallel.collectives import all_gather_over, psum_over
+from tpu_matmul_bench_torch.parallel.mesh import (
+    COLS,
+    REPLICATED,
+    ROWS,
+    Mesh,
+    Sharded,
+    global_block,
+    mesh_device_kind,
+    sharded_normal,
+    stacked_item,
+    world_size,
+)
 from tpu_matmul_bench_torch.utils.config import BenchConfig
 from tpu_matmul_bench_torch.utils.metrics import (
     as_dtype,
     bytes_per_element,
+    calculate_tflops,
     is_integer_dtype,
+    matmul_acc_dtype,
     matmul_out_dtype,
 )
 from tpu_matmul_bench_torch.utils.reporting import BenchmarkRecord
@@ -83,6 +110,14 @@ def expected_corner(a: torch.Tensor, b: torch.Tensor,
     return a[:c].double() @ b[:, :c].double()
 
 
+def expected_corner_sum(a: torch.Tensor, b: torch.Tensor,
+                        corner: int = VALIDATION_CORNER) -> torch.Tensor:
+    """Reference corner for Σ_i A[i]·B[i] over a stacked leading dim (the
+    all_reduce-of-products modes), in float64 on the operands' device."""
+    c = min(corner, a.shape[1], b.shape[2])
+    return torch.einsum("bik,bkj->ij", a[:, :c].double(), b[:, :, :c].double())
+
+
 def corner_validation(got: torch.Tensor, expected: torch.Tensor, dtype: Any,
                       tol: float | None = None) -> dict:
     """Compare a result corner with the reference: max |got - expected|
@@ -107,18 +142,52 @@ def make_corner_validate(program, operands, expected_fn, dtype,
     the global result against `expected_fn()`. A sharded result (a list of
     per-rank shards, `parallel/mesh.Sharded`) is read from the shards that
     hold the corner."""
-    from tpu_matmul_bench_torch.parallel.mesh import Sharded, global_block
-
     def validate() -> dict:
         out = program(*operands)
         if index is not None:
-            out = out[index]
+            out = stacked_item(out, index) if isinstance(out, Sharded) else out[index]
         c = VALIDATION_CORNER
         got = (global_block(out, c, c) if isinstance(out, Sharded)
                else out[:c, :c])
         return corner_validation(got, expected_fn(), dtype)
 
     return validate
+
+
+def _stacked_mm(mm: Matmul) -> Matmul:
+    """Per-rank batched matmul: `mm` on each matrix of the rank's (small)
+    leading dim, so `--matmul-impl cuda` stays on K1 for the stacked modes,
+    as the JAX package's `_stacked_mm` keeps Pallas. One matrix needs no
+    stacking copy."""
+    def bmm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] == 1:
+            return mm(x[0], y[0]).unsqueeze(0)
+        return torch.stack([mm(x[i], y[i]) for i in range(x.shape[0])])
+
+    return bmm
+
+
+def _per_rank(fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], spec: tuple,
+              collective: Callable[[list[torch.Tensor]], list[torch.Tensor]] | None = None
+              ) -> Callable[[Sharded, Sharded], Sharded]:
+    """A program that runs `fn` on each rank's shards, then `collective`
+    over the ranks' results when one is given; its output has `spec`
+    (JAX's `out_specs`)."""
+    def program(x: Sharded, y: Sharded) -> Sharded:
+        outs = [fn(xr, yr) for xr, yr in zip(x, y)]
+        return Sharded(outs if collective is None else collective(outs), spec)
+
+    return program
+
+
+def _stacked_corner_sum(a: Sharded, b: Sharded, indices: range) -> torch.Tensor:
+    """`expected_corner_sum` over global[indices] of two stacked operands,
+    reading only the corner's rows of A and columns of B."""
+    c = VALIDATION_CORNER
+    device = a[0].device
+    return expected_corner_sum(
+        torch.stack([stacked_item(a, i)[:c].to(device) for i in indices]),
+        torch.stack([stacked_item(b, i)[:, :c].to(device) for i in indices]))
 
 
 def _record_base(config: BenchConfig, benchmark: str, mode: str, size: int,
@@ -133,17 +202,21 @@ def _gib(size: int, dtype: Any, count: float) -> float:
 
 
 def estimate_memory_gib(mode: str, config: BenchConfig, world: int,
-                        size: int) -> float:
+                        size: int, batch: int = 4) -> float:
     """Per-rank footprint of a mode's operands, buffers and outputs, in
     GiB: the single source for ModeSetup.memory_gib_per_device and the
     pre-flight guard (pure: it never touches the allocator). The rows of
-    the JAX package's `estimate_memory_gib` for the modes the port runs;
-    ranks that share a device add up (the guard multiplies)."""
+    the JAX package's `estimate_memory_gib` for the modes the port runs,
+    counting the port's own buffers (a psum's result and its fp32 or int32
+    accumulator, `collectives._sum_on`; the accumulator is counted for
+    every rank, though ranks on one card share one); ranks that share a
+    device add up (the guard multiplies)."""
     d = world
     out_dtype = matmul_out_dtype(config.dtype)  # int8 products are int32
 
-    def gib(in_count: float, out_count: float) -> float:
-        return _gib(size, config.dtype, in_count) + _gib(size, out_dtype, out_count)
+    def gib(in_count: float, out_count: float, acc_count: float = 0.0) -> float:
+        return (_gib(size, config.dtype, in_count) + _gib(size, out_dtype, out_count)
+                + _gib(size, matmul_acc_dtype(out_dtype), acc_count))
 
     if mode in ("cuda_ring_hbm", "cuda_ring_bidir_hbm"):
         # sharded operands (2/d) + the 2-slot receive buffer (2/d, operand
@@ -159,7 +232,22 @@ def estimate_memory_gib(mode: str, config: BenchConfig, world: int,
                 "cuda_ring") and d > 1:
         # sharded operands (2/d) + full-size combined C + one temp
         return gib(2.0 / d, 2)
-    # world-1 fallback: full A, B, C per rank
+    if mode == "batch_parallel":
+        # stacked A, B (2·lb) + products and the psum's result (2·lb) + its
+        # accumulator (lb)
+        lb = max(batch // d, 1)
+        return gib(2 * lb, 2 * lb, lb)
+    if mode == "data_parallel":
+        # A, B + C and the psum's result + its accumulator
+        return gib(2, 2, 1)
+    if mode == "matrix_parallel" and d > 1:
+        # replicated A + B's column shard; C's shard + the gathered C
+        return gib(1 + 1.0 / d, 1 + 1.0 / d)
+    if mode == "model_parallel":
+        # A, B shards (2/d) + the full-shape partial and the psum's result
+        # + its accumulator
+        return gib(2.0 / d, 2, 1)
+    # independent and the world-1 fallback: full A, B, C per rank
     return gib(2, 1)
 
 
@@ -183,9 +271,13 @@ def run_mode_benchmark(setup: ModeSetup, config: BenchConfig) -> BenchmarkRecord
     protocol = config.timing if setup.fusable else "dispatch"
     verdict = _pre_validate(setup, config)
 
-    def _tag(rec: BenchmarkRecord) -> BenchmarkRecord:
+    def _tag(rec: BenchmarkRecord, *timings: Timing) -> BenchmarkRecord:
         if config.timing != "dispatch":
             rec.extras["timing"] = protocol  # what ran, not what was asked
+        if protocol == "fused":
+            # "operand" only when every timed program chained its operands
+            chains = {t.chain for t in timings}
+            rec.extras["chain"] = "operand" if chains == {"operand"} else "none"
         rec.warmup = effective_warmup(protocol, config.iterations, config.warmup)
         return rec
 
@@ -193,7 +285,7 @@ def run_mode_benchmark(setup: ModeSetup, config: BenchConfig) -> BenchmarkRecord
         t_compute = choose_timer(protocol)(
             setup.compute, setup.operands,
             iterations=config.iterations, warmup=config.warmup)
-        rec = _tag(setup.build_record(t_compute, None, 0.0))
+        rec = _tag(setup.build_record(t_compute, None, 0.0), t_compute)
         timed = setup.compute
         reliable = t_compute.reliable
     else:
@@ -201,7 +293,7 @@ def run_mode_benchmark(setup: ModeSetup, config: BenchConfig) -> BenchmarkRecord
             setup.compute, setup.full, setup.operands,
             iterations=config.iterations, warmup=config.warmup,
             protocol=protocol)
-        rec = _tag(setup.build_record(t_compute, t_full, comm_s))
+        rec = _tag(setup.build_record(t_compute, t_full, comm_s), t_compute, t_full)
         # sampled on the full program: the distribution of the quantity
         # the headline avg_time_s reports
         timed = setup.full
@@ -215,3 +307,206 @@ def run_mode_benchmark(setup: ModeSetup, config: BenchConfig) -> BenchmarkRecord
         rec.extras["samples"] = sample_extras(timed, setup.operands, config)
     rec.extras.update(verdict)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# The five parallel modes (the JAX package's P2-P6)
+# ---------------------------------------------------------------------------
+
+def _mode_record(config: BenchConfig, benchmark: str, mode: str, size: int,
+                 mesh: Mesh, timing: Timing, tflops_total: float,
+                 extras: dict | None = None, **kw) -> BenchmarkRecord:
+    """A parallel mode's record: `tflops_total` by the mode's JAX formula,
+    `tflops_per_device` that total over the cards the ranks occupy (the
+    JAX per-device figure × world / cards), the card's name, and the
+    extras `cards` and `ranks_per_card`."""
+    cards = len(mesh.cards)
+    return _record_base(
+        config, benchmark, mode, size, world_size(mesh), timing,
+        tflops_per_device=tflops_total / cards, tflops_total=tflops_total,
+        device_kind=mesh_device_kind(mesh),
+        extras={**(extras or {}), "cards": cards,
+                "ranks_per_card": mesh.ranks_per_card}, **kw)
+
+
+def _mm(config: BenchConfig, mesh: Mesh) -> Matmul:
+    return matmul_2d(config.matmul_impl, config.blocks, mesh_device_kind(mesh))
+
+
+def independent(config: BenchConfig, mesh: Mesh, size: int,
+                benchmark: str = "scaling") -> ModeSetup:
+    """≙ JAX `independent` (`modes.py:304`; reference
+    `matmul_scaling_benchmark.py:69-104`). Every rank multiplies its own
+    distinct matrices; no collective. Total = one product's TFLOPS · world
+    (the sum over ranks)."""
+    d = world_size(mesh)
+    a, b = sharded_normal(config.seed, (d, size, size), config.dtype, mesh, ROWS)
+    compute = _per_rank(_stacked_mm(_mm(config, mesh)), ROWS)
+
+    def build(t_compute: Timing, t_full: Timing | None, comm_s: float) -> BenchmarkRecord:
+        return _mode_record(
+            config, benchmark, "independent", size, mesh, t_compute,
+            calculate_tflops(size, t_compute.avg_s) * d,
+            avg_time_s=t_compute.avg_s, compute_time_s=t_compute.avg_s,
+            comm_time_s=0.0)
+
+    return ModeSetup("independent", (a, b), compute, None, build,
+                     memory_gib_per_device=estimate_memory_gib(
+                         "independent", config, d, size),
+                     validate=make_corner_validate(
+                         compute, (a, b),
+                         lambda: expected_corner(stacked_item(a, 0), stacked_item(b, 0)),
+                         config.dtype, index=0))
+
+
+def batch_parallel(config: BenchConfig, mesh: Mesh, size: int, batch: int = 4,
+                   benchmark: str = "scaling") -> ModeSetup:
+    """≙ JAX `batch_parallel` (`modes.py:346`; reference
+    `matmul_scaling_benchmark.py:106-165`). The global batch (default 4)
+    is split across the ranks; each call multiplies the rank's local batch,
+    then all_reduce(SUM)s the products (the gradient sync). Total = local
+    batch ops over compute+comm time · world. The local batch is floored at
+    1, so the global batch grows to world · local where world > batch (the
+    record's note says so)."""
+    d = world_size(mesh)
+    local_batch = max(batch // d, 1)
+    g = local_batch * d
+    a, b = sharded_normal(config.seed, (g, size, size), config.dtype, mesh, ROWS)
+    bmm = _stacked_mm(_mm(config, mesh))
+    compute = _per_rank(bmm, ROWS)
+    full = _per_rank(bmm, ROWS, psum_over(mesh))
+
+    def build(t_compute: Timing, t_full: Timing | None, comm_s: float) -> BenchmarkRecord:
+        total_s = t_full.avg_s if t_full else t_compute.avg_s
+        extras = {"global_batch": g, "local_batch": local_batch}
+        if g != batch:
+            extras["note"] = f"global batch grown from {batch} to {g} to cover {d} devices"
+        return _mode_record(
+            config, benchmark, "batch_parallel", size, mesh, t_full or t_compute,
+            calculate_tflops(size, total_s, num_ops=local_batch) * d, extras,
+            avg_time_s=total_s, compute_time_s=t_compute.avg_s, comm_time_s=comm_s)
+
+    # the psum sums each slot across ranks: global row 0 of the full output
+    # is Σ_j A[j·lb]·B[j·lb], the stride-lb subset, not the whole batch
+    return ModeSetup("batch_parallel", (a, b), compute, full, build,
+                     memory_gib_per_device=estimate_memory_gib(
+                         "batch_parallel", config, d, size, batch=batch),
+                     validate=make_corner_validate(
+                         full, (a, b),
+                         lambda: _stacked_corner_sum(a, b, range(0, g, local_batch)),
+                         config.dtype, index=0))
+
+
+def matrix_parallel(config: BenchConfig, mesh: Mesh, size: int,
+                    benchmark: str = "scaling") -> ModeSetup:
+    """≙ JAX `matrix_parallel` (`modes.py:414`; reference
+    `matmul_scaling_benchmark.py:167-238`). A replicated, B cut by columns;
+    each rank's product, then an all_gather of the C shards. World 1 falls
+    back to `independent`. Total = the full product's FLOPs over
+    compute+comm time."""
+    d = world_size(mesh)
+    if d == 1:
+        return dataclasses.replace(independent(config, mesh, size, benchmark),
+                                   mode="matrix_parallel")
+    (a,) = sharded_normal(config.seed, (size, size), config.dtype, mesh, REPLICATED,
+                          count=1)
+    (b,) = sharded_normal(config.seed + 1, (size, size), config.dtype, mesh, COLS,
+                          count=1)
+    mm = _mm(config, mesh)
+    compute = _per_rank(mm, COLS)
+    full = _per_rank(mm, REPLICATED, all_gather_over(mesh, gather_axis=1))
+
+    def build(t_compute: Timing, t_full: Timing | None, comm_s: float) -> BenchmarkRecord:
+        total_s = t_full.avg_s if t_full else t_compute.avg_s
+        return _mode_record(
+            config, benchmark, "matrix_parallel", size, mesh, t_full or t_compute,
+            calculate_tflops(size, total_s),
+            {"portion_per_device": f"1/{d} of B's columns"},
+            avg_time_s=total_s, compute_time_s=t_compute.avg_s, comm_time_s=comm_s)
+
+    c = VALIDATION_CORNER
+    return ModeSetup("matrix_parallel", (a, b), compute, full, build,
+                     memory_gib_per_device=estimate_memory_gib(
+                         "matrix_parallel", config, d, size),
+                     validate=make_corner_validate(
+                         full, (a, b),
+                         lambda: expected_corner(a[0], global_block(b, size, c)),
+                         config.dtype))
+
+
+def data_parallel(config: BenchConfig, mesh: Mesh, size: int,
+                  benchmark: str = "distributed") -> ModeSetup:
+    """≙ JAX `data_parallel` (`modes.py:495`; reference
+    `backup/matmul_distributed_benchmark.py:66-110`). Every rank computes
+    a full distinct product, then all_reduce(SUM)s it. TFLOPS come from
+    the compute leg alone (total = one product's TFLOPS · world), with the
+    communication reported apart."""
+    d = world_size(mesh)
+    a, b = sharded_normal(config.seed, (d, size, size), config.dtype, mesh, ROWS)
+    bmm = _stacked_mm(_mm(config, mesh))
+    compute = _per_rank(bmm, ROWS)
+    full = _per_rank(bmm, ROWS, psum_over(mesh))
+
+    def build(t_compute: Timing, t_full: Timing | None, comm_s: float) -> BenchmarkRecord:
+        total_s = t_full.avg_s if t_full else t_compute.avg_s
+        return _mode_record(
+            config, benchmark, "data_parallel", size, mesh, t_full or t_compute,
+            calculate_tflops(size, t_compute.avg_s) * d, {},
+            avg_time_s=total_s, compute_time_s=t_compute.avg_s, comm_time_s=comm_s)
+
+    return ModeSetup("data_parallel", (a, b), compute, full, build,
+                     memory_gib_per_device=estimate_memory_gib(
+                         "data_parallel", config, d, size),
+                     validate=make_corner_validate(
+                         full, (a, b), lambda: _stacked_corner_sum(a, b, range(d)),
+                         config.dtype, index=0))
+
+
+def model_parallel(config: BenchConfig, mesh: Mesh, size: int,
+                   benchmark: str = "distributed") -> ModeSetup:
+    """≙ JAX `model_parallel` (`modes.py:550`; reference
+    `backup/matmul_distributed_benchmark.py:112-174`). The inner dimension
+    is split: A cut by columns, B by rows; each rank computes a full-shape
+    partial product, and the partials are summed (psum, the correct
+    combine where the reference all_gathers them). Total = the full
+    product's FLOPs over compute+comm time."""
+    d = world_size(mesh)
+    (a,) = sharded_normal(config.seed, (size, size), config.dtype, mesh, COLS, count=1)
+    (b,) = sharded_normal(config.seed + 1, (size, size), config.dtype, mesh, ROWS,
+                          count=1)
+    mm = _mm(config, mesh)
+    # each rank's partial is a full-shape product: the global compute
+    # output is the partials side by side (JAX's out_specs P(None, "x"))
+    compute = _per_rank(mm, COLS)
+    full = _per_rank(mm, REPLICATED, psum_over(mesh))
+
+    def build(t_compute: Timing, t_full: Timing | None, comm_s: float) -> BenchmarkRecord:
+        total_s = t_full.avg_s if t_full else t_compute.avg_s
+        return _mode_record(
+            config, benchmark, "model_parallel", size, mesh, t_full or t_compute,
+            calculate_tflops(size, total_s),
+            {"combine": "psum (reference used all_gather on partial sums)"},
+            avg_time_s=total_s, compute_time_s=t_compute.avg_s, comm_time_s=comm_s)
+
+    c = VALIDATION_CORNER
+    return ModeSetup("model_parallel", (a, b), compute, full, build,
+                     memory_gib_per_device=estimate_memory_gib(
+                         "model_parallel", config, d, size),
+                     validate=make_corner_validate(
+                         full, (a, b),
+                         lambda: expected_corner(global_block(a, c, size),
+                                                 global_block(b, size, c)),
+                         config.dtype))
+
+
+SCALING_MODES: dict[str, Callable[..., ModeSetup]] = {
+    "independent": independent,
+    "batch_parallel": batch_parallel,
+    "matrix_parallel": matrix_parallel,
+}
+
+DISTRIBUTED_MODES: dict[str, Callable[..., ModeSetup]] = {
+    "independent": independent,
+    "data_parallel": data_parallel,
+    "model_parallel": model_parallel,
+}

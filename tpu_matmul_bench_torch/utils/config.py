@@ -5,8 +5,10 @@ programs consume: the reference's --sizes (default 4096 8192 16384),
 --iterations (50), --warmup (10) and --dtype (default bfloat16, plus int8),
 and the benchmark's --mode --device --num-devices --json-out --matmul-impl
 --seed --validate --precision --trace-out --samples --percentiles --repeats
---timing --block-m/n/k --wres. `--repeats` and `--timing` are offered only
-to programs whose timed loop reads them (`best_of`, `fused_timing`). The
+--timing --block-m/n/k --wres --profile-dir. `--repeats` and `--timing` are
+offered only to programs whose timed loop reads them (`best_of`,
+`fused_timing`), `--mode`, `--wres` and `--profile-dir` only to the mode
+programs (scaling, distributed, overlap), whose shared runner reads them. The
 JAX package's flags that no program of the port consumes yet are left out
 rather than accepted and ignored.
 """
@@ -75,6 +77,8 @@ class BenchConfig:
     # the ring kernels' W-resident mode: auto, on (error when it cannot
     # engage), off; the port has no W-resident kernel (ops/cuda_ring.py)
     wres: str = "auto"
+    # torch.profiler trace of the run (utils/profiling.py maybe_trace)
+    profile_dir: str | None = None
 
     @property
     def wres_override(self) -> bool | None:
@@ -107,9 +111,10 @@ def build_parser(description: str,
                  fused_timing: bool = True,
                  best_of: bool = True) -> argparse.ArgumentParser:
     """The shared parser. `modes` adds --mode (default `default_mode`, else
-    the first) and --wres, which the mode programs' ring kernels read;
-    `best_of` adds --repeats and `fused_timing` adds --timing, for the
-    programs whose timed loop reads them."""
+    the first), --wres, which the mode programs' ring kernels read, and
+    --profile-dir, which their runner reads; `best_of` adds --repeats and
+    `fused_timing` adds --timing, for the programs whose timed loop reads
+    them."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument(
         "--sizes", type=int, nargs="+", default=list(DEFAULT_SIZES),
@@ -127,6 +132,13 @@ def build_parser(description: str,
                  "W-resident kernel (a W shard is far larger than a block's "
                  "shared memory): auto and off stream W from device memory "
                  "and the record says why; on is an error.",
+        )
+        p.add_argument(
+            "--profile-dir", type=str, default=None,
+            help="Write a torch.profiler trace of the benchmark here (Chrome "
+                 "trace: host operations, and the card's kernels when the "
+                 "ranks are on a card; view with Perfetto). The reference's "
+                 "nearest analogue is NCCL_DEBUG=INFO (run_benchmark.sh:16-17).",
         )
     p.add_argument(
         "--iterations", type=int, default=50,
@@ -243,6 +255,7 @@ def config_from_args(args: argparse.Namespace) -> BenchConfig:
         block_k=args.block_k,
         mode=getattr(args, "mode", None),
         wres=getattr(args, "wres", "auto"),
+        profile_dir=getattr(args, "profile_dir", None),
     )
 
 

@@ -23,6 +23,7 @@ from tpu_matmul_bench_torch.utils.metrics import (
     matmul_out_dtype,
     matmul_roofline_s,
     matrix_memory_gib,
+    scaling_efficiency,
     theoretical_peak_tflops,
     throughput_unit,
 )
@@ -104,6 +105,22 @@ class BenchmarkRecord:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), sort_keys=True)
+
+
+def attach_scaling_efficiency(
+    rec: BenchmarkRecord, single_device_tflops: float | None
+) -> BenchmarkRecord:
+    """`scaling_efficiency_pct` = tflops_total / (single-device TFLOPS ·
+    cards) · 100, counting the cards the ranks occupy (extra `cards`,
+    default the world), not the ranks: R ranks on one card run their
+    products one after another, so the mode's total is already that card's,
+    and R ranks must not read as R cards. With one rank per card, cards ==
+    world and this is the JAX package's formula exactly."""
+    if single_device_tflops:
+        rec.scaling_efficiency_pct = scaling_efficiency(
+            rec.tflops_total, single_device_tflops,
+            rec.extras.get("cards", rec.world))
+    return rec
 
 
 def is_reporting_process() -> bool:

@@ -170,6 +170,26 @@ class SpanTracker:
 
 
 _TRACKER: SpanTracker | None = None
+# sibling artifacts of the run in progress (kind -> path), named in the
+# manifest: the profiler's trace directory while `--profile-dir` traces
+_ARTIFACTS: dict[str, str] = {}
+
+
+def note_artifact(kind: str, path: str) -> None:
+    """Register a sibling artifact (the profiler's trace directory) so the
+    manifest cross-references it."""
+    _ARTIFACTS[kind] = path
+
+
+def forget_artifact(kind: str) -> None:
+    """Drop an artifact note when its run ends, so that a later run in the
+    same process does not name it (the JAX package keeps its notes for the
+    whole process)."""
+    _ARTIFACTS.pop(kind, None)
+
+
+def artifacts() -> dict[str, str]:
+    return dict(_ARTIFACTS)
 
 
 @contextlib.contextmanager
@@ -292,14 +312,17 @@ def build_manifest(config: Any = None) -> dict[str, Any]:
             "precision": config.precision,
             "timing": config.timing,
             "matmul_impl": config.matmul_impl,
-            "mode": None,  # the port's matmul program has no modes
+            "mode": config.mode,
             "iterations": config.iterations,
             "warmup": config.warmup,
             "seed": config.seed,
         }
+    noted = artifacts()
     if _TRACKER is not None:
         # the run's chrome trace, cross-referenced from its ledger
-        manifest["artifacts"] = {"chrome_trace": _TRACKER.path}
+        noted["chrome_trace"] = _TRACKER.path
+    if noted:
+        manifest["artifacts"] = noted
     return manifest
 
 

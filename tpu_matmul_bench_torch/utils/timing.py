@@ -35,7 +35,9 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from tpu_matmul_bench_torch.parallel.mesh import Sharded
 from tpu_matmul_bench_torch.utils import telemetry
+from tpu_matmul_bench_torch.utils.profiling import MEASURE_REGION
 
 
 def _tensors(out: Any) -> list[torch.Tensor]:
@@ -119,21 +121,24 @@ def _timed_loop(call: Callable[[], Any], n: int, card: bool,
                 overhead: float) -> tuple[Any, float]:
     """`n` calls and their device seconds. On the card: the time between
     two CUDA events on the current stream around the launches. On the CPU:
-    the host clock to the end of a sync, less the sync's cost."""
-    if card:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    the host clock to the end of a sync, less the sync's cost. Under
+    `--profile-dir` the window is the trace's `MEASURE_REGION` range
+    (`utils/profiling.py`)."""
+    with torch.profiler.record_function(MEASURE_REGION):
+        if card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                out = call()
+            end.record()
+            end.synchronize()
+            return out, start.elapsed_time(end) / 1e3
+        t0 = time.perf_counter()
         for _ in range(n):
             out = call()
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end) / 1e3
-    t0 = time.perf_counter()
-    for _ in range(n):
-        out = call()
-    sync(out)
-    return out, time.perf_counter() - t0 - overhead
+        sync(out)
+        return out, time.perf_counter() - t0 - overhead
 
 
 def time_jitted(
@@ -176,14 +181,32 @@ def _chainable(x: Any) -> bool:
             and x.dtype != torch.bool and not x.is_complex())
 
 
+def _chain_targets(op: Any) -> list[torch.Tensor]:
+    """The tensors that hold element [0, ..., 0] of operand `op`: the
+    tensor itself; shard 0 of a sharded operand, where its global
+    [0, ..., 0] lies whatever dim is cut; every copy of a replicated one."""
+    if isinstance(op, Sharded):
+        targets = list(op) if op.dim is None else [op[0]]
+        return [t for t in targets if _chainable(t)]
+    return [op] if _chainable(op) else []
+
+
 def _chain(ops: Sequence[Any], src: torch.Tensor) -> None:
     """Write a bounded scalar derived from `src` (the previous output)
     into element [0, ..., 0] of every chainable operand, in place."""
     patch = src.reshape(-1)[:1].float()
     bounded = torch.where(torch.isfinite(patch), patch.clamp(0.0, 1.0), 0.5)
     for op in ops:
-        if _chainable(op):
-            op.view(-1)[:1].copy_(bounded)
+        for t in _chain_targets(op):
+            t.view(-1)[:1].copy_(bounded)
+
+
+def _clone(x: Any) -> Any:
+    """A copy of an operand the chain may write into: a tensor, or every
+    shard of a sharded operand."""
+    if isinstance(x, Sharded):
+        return Sharded([s.clone() for s in x], x.spec)
+    return x.clone() if isinstance(x, torch.Tensor) else x
 
 
 def fuse_iterations(
@@ -194,8 +217,11 @@ def fuse_iterations(
 
     Between calls, a bounded scalar from the previous output is written into
     element [0, ..., 0] of each operand, so every call depends on the one
-    before and none can be skipped or merged. The chain writes into the
-    operands, so the loop runs on clones; the caller's tensors are not
+    before and none can be skipped or merged. For a sharded operand
+    (`parallel/mesh.Sharded`) that element is the global array's, shard
+    0's [0, ..., 0] (every copy's, when replicated), as JAX's chain writes
+    into a sharded array. The chain writes into the operands, so the loop
+    runs on clones (every shard cloned); the caller's tensors are not
     touched.
 
     On the card the first call captures the whole chain in one CUDA graph
@@ -203,7 +229,8 @@ def fuse_iterations(
     kernels. On the CPU each call runs the chain eagerly.
 
     `chain_state` (optional dict) receives {"chain": "operand" | "none"}:
-    how the loop was serialized.
+    how the loop was serialized, "operand" only when the output has a
+    chainable tensor and some operand was written into.
     """
     if iterations < 1:
         raise ValueError(f"iterations must be >= 1, got {iterations}")
@@ -212,7 +239,8 @@ def fuse_iterations(
 
     def run_chain(ops: list[Any]) -> Any:
         out = fn(*ops)
-        chained = _chainable(_last_tensor(out))
+        chained = (_chainable(_last_tensor(out))
+                   and any(_chain_targets(op) for op in ops))
         if chain_state is not None:
             chain_state["chain"] = "operand" if chained else "none"
         for _ in range(iterations - 1):
@@ -226,7 +254,7 @@ def fuse_iterations(
         if graph is not None:
             graph.replay()
             return result
-        ops = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+        ops = [_clone(a) for a in args]
         if not _on_card(ops):
             return run_chain(ops)
         # a first eager call on a side stream sets up whatever the callee
