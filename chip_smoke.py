@@ -60,6 +60,20 @@ The paths:
   16384x4096x16384, held against the plain version first), as many
   launches as the mode makes, `validation: ok`, fused runs that ran fused
   with their operands chained;
+- the overlap program's seven library modes (the `overlap_modes` phase):
+  `no_overlap`, `overlap` and `pipeline` (8 product+psum steps a call on
+  the ranks' compute and communication streams) and the four
+  collective-matmul rings (K1 products and hops on copy streams), at bf16
+  16384² over 4 ranks on the card, each through the kernel under both
+  timing protocols and through the library: as many K1 launches and hops as
+  the protocol derives (`overlap_counts`), all on wgmma (K1's four ring
+  shapes held against the plain version first), `validation: ok` on the
+  rings, fused runs that ran fused and chained, no negative comm or
+  overhead time; then each ring in turns with the ring kernel of its
+  contract (K2–K5) and the library product (`collective_turns`). A 20-call
+  race check of `overlap`, `pipeline` and the four rings at 2048² holds
+  each call to the same program run with the card synchronised after every
+  launch;
 - `--profile-dir` (the `profile` phase): `batch_parallel` at 16384² and
   the fused ring at its cap, each traced by torch.profiler, with the
   device time per kernel, the device's busy and idle share inside the
@@ -147,6 +161,24 @@ SCALING_SHAPES = {"independent": (SIZE, SIZE, SIZE), "batch_parallel": (SIZE, SI
                   "data_parallel": (SIZE, SIZE, SIZE),
                   "matrix_parallel": (SIZE, SIZE, SIZE // RING_WORLD),
                   "model_parallel": (SIZE, SIZE // RING_WORLD, SIZE)}
+# the overlap program's seven library modes (the `overlap_modes` phase) at
+# bf16 SIZE² over RING_WORLD ranks: the step programs run STEPS_PER_CALL
+# steps of one SIZE³ product a rank a call (about 0.4 s), so they time
+# STEP_ITERATIONS call after STEP_WARMUP; the collective-matmul rings
+# OVERLAP_ITERATIONS after OVERLAP_WARMUP, as the ring kernels
+STEP_MODES = {"no_overlap": 1, "overlap": 2, "pipeline": 3}  # mode: buffers (k)
+CM_MODES = ("collective_matmul", "collective_matmul_bidir", "collective_matmul_rs",
+            "collective_matmul_bidir_rs")
+STEP_ITERATIONS, STEP_WARMUP, STEPS_PER_CALL = 1, 1, 8
+# K1's new shapes in the collective-matmul rings, (m, k, n): the all-gather
+# rings' chunk and half chunk, the reduce-scatter rings' row chunk and half
+# (their baselines' products are SCALING_SHAPES' matrix and model parallel)
+CM_SHAPES = [(SIZE // RING_WORLD, SIZE, SIZE // RING_WORLD),
+             (SIZE // RING_WORLD // 2, SIZE, SIZE // RING_WORLD),
+             (SIZE // RING_WORLD, SIZE // RING_WORLD, SIZE),
+             (SIZE // RING_WORLD // 2, SIZE // RING_WORLD, SIZE)]
+# the race check of the step rings and the collective-matmul rings
+OVERLAP_RACE_SIZE = 2048
 # the reduce-scatter rings' step products at 16384² over RING_WORLD ranks,
 # (m, k, n): K3's whole chunk and K5's half, and a ragged one whose accin
 # and dest rows lie RS_RAGGED_PAD elements further apart than n
@@ -1306,6 +1338,288 @@ def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict
     return summary, counts
 
 
+def overlap_programs(mode: str, d: int) -> list[tuple[int, int]]:
+    """(K1 products a call, hops a call) of each program an overlap mode
+    times over d ranks, the compute leg first: the step programs run one
+    product a rank a step (compute_only, then the mode's nocomm program
+    where it has one, then the mode); the collective-matmul rings' baseline
+    one product a rank, the ring d a rank (d − 1 of them half-chunk pairs in
+    the bidirectional all-gather form, all of them in the bidirectional
+    reduce-scatter form) with d − 1 hops a rank a direction."""
+    if mode in STEP_MODES:
+        return [(d * STEPS_PER_CALL, 0)] * (2 if mode == "no_overlap" else 3)
+    ways = 2 if "bidir" in mode else 1
+    ring = (d * (1 + 2 * (d - 1)) if mode == "collective_matmul_bidir"
+            else ways * d * d)
+    return [(d, 0), (ring, ways * d * (d - 1))]
+
+
+def overlap_counts(mode: str, d: int, timing: str) -> tuple[int, int]:
+    """(K1 launches, hops) of one `--matmul-impl cuda` overlap run of an
+    overlap mode: every program's calls (as `scaling_calls` counts them:
+    warmup and timed calls over VARIANT_ROUNDS rounds, or one eager call and
+    `iterations` captured ones), the ring fill of `overlap` and `pipeline`
+    (k products a rank at set-up) and the validation call of the rings."""
+    step = mode in STEP_MODES
+    it, wu = (STEP_ITERATIONS, STEP_WARMUP) if step else (OVERLAP_ITERATIONS, OVERLAP_WARMUP)
+    calls = 1 + it if timing == "fused" else wu + it + (VARIANT_ROUNDS - 1) * (1 + it)
+    programs = overlap_programs(mode, d)
+    launches = sum(p * calls for p, _ in programs)
+    hops = sum(h * calls for _, h in programs)
+    if step and STEP_MODES[mode] > 1:
+        launches += d * STEP_MODES[mode]
+    if not step:
+        launches, hops = launches + programs[-1][0], hops + programs[-1][1]
+    return launches, hops
+
+
+def overlap_program(name: str, mesh, s: int, seed: int):
+    """One of the programs the overlap race check runs, with its bf16
+    operands at s² over the mesh: `overlap` or `pipeline` (8 steps, its
+    ring filled), or a collective-matmul ring."""
+    import torch
+
+    from tpu_matmul_bench_torch.parallel import overlap as ovl
+    from tpu_matmul_bench_torch.parallel.mesh import ROWS, sharded_normal
+
+    d = len(mesh.ranks)
+    if name in STEP_MODES:
+        k = STEP_MODES[name]
+        a, b = sharded_normal(seed, (d * k, s, s), torch.bfloat16, mesh, ROWS)
+        ring0 = ovl.fill_ring(mesh, k, "cuda")(a, b)
+        return ovl.StepProgram(mesh, name, STEPS_PER_CALL, "cuda"), (a, b, ring0)
+    setup = ovl.OVERLAP_MODES[name](_race_config(seed), mesh, s)
+    return setup.full, setup.operands
+
+
+def _race_config(seed: int):
+    from tpu_matmul_bench_torch.parallel.overlap import OVERLAP_MODES
+    from tpu_matmul_bench_torch.utils.config import parse_config
+
+    return parse_config(["--dtype", "bfloat16", "--matmul-impl", "cuda", "--seed", str(seed)],
+                        "race", modes=list(OVERLAP_MODES), default_mode="overlap")
+
+
+def check_overlap_races(s: int = OVERLAP_RACE_SIZE) -> None:
+    """`overlap`, `pipeline` and the four collective-matmul rings at bf16 s²
+    over RING_WORLD ranks: RACE_REPEATS calls in a row before one
+    synchronize, each of which must equal, bit for bit, the output of the
+    same program run with the card synchronised after every launch
+    (`serial`). A missing event between the compute, communication and copy
+    streams shows here as a call that differs now and then."""
+    import torch
+
+    mesh = card_mesh(RING_WORLD)
+    for name in (*[m for m in STEP_MODES if STEP_MODES[m] > 1], *CM_MODES):
+        program, ops = overlap_program(name, mesh, s, seed=5)
+        program.serial = True
+        want = [t.clone() for t in program(*ops)]
+        torch.cuda.synchronize()
+        program.serial = False
+        outs = [program(*ops) for _ in range(RACE_REPEATS)]
+        torch.cuda.synchronize()
+        bad = [i for i, y in enumerate(outs)
+               if not all(torch.equal(g, w) for g, w in zip(y, want))]
+        emit({"phase": f"races[{name}]", "ranks": RING_WORLD, "size": s,
+              "calls": RACE_REPEATS, "wrong_calls": bad, "ok": not bad})
+        if bad:
+            fail(f"races[{name}]", f"calls {bad} of {RACE_REPEATS} differ from the "
+                                   "serialised run")
+        del program, ops, want, outs
+        torch.cuda.empty_cache()
+
+
+def drive_overlap_mode(mode: str, impl: str, timing: str, out_dir: str) -> dict:
+    """One run of the overlap program in a library mode through its entry
+    point, bf16 SIZE² over RING_WORLD ranks on the card; returns the
+    record's summary, with the SM clock during the run and K1's launches by
+    route. Fails on a K1 launch count or hop count other than
+    `overlap_counts`, a launch off the wgmma route, a ring whose validation
+    is not ok, a fused run that did not run fused and chained, and a
+    negative comm or overhead time."""
+    import torch
+
+    from tpu_matmul_bench_torch.benchmarks import matmul_overlap_benchmark
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.ops import cuda_ring as cr
+    from tpu_matmul_bench_torch.utils.telemetry import is_manifest
+
+    step = mode in STEP_MODES
+    it, wu = (STEP_ITERATIONS, STEP_WARMUP) if step else (OVERLAP_ITERATIONS, OVERLAP_WARMUP)
+    tag = f"{mode},{impl},{timing}"
+    path = f"{out_dir}/overlap-{tag.replace(',', '-')}.jsonl"
+    argv = ["--mode", mode, "--sizes", str(SIZE), "--dtype", "bfloat16",
+            "--num-devices", str(RING_WORLD), "--matmul-impl", impl, "--timing", timing,
+            "--iterations", str(it), "--warmup", str(wu), "--validate", "--json-out", path]
+    cm.LAUNCHES = 0
+    cr.HOP_LAUNCHES = 0
+    before = routes()
+    with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr), \
+            clock_samples() as during:
+        records = matmul_overlap_benchmark.main(argv)
+    launches, hops, by_route = cm.LAUNCHES, cr.HOP_LAUNCHES, routes_since(before)
+    torch.cuda.empty_cache()
+    phase = f"overlap_modes[{tag}]"
+    if len(records) != 1:
+        fail(phase, f"expected one record, got {len(records)} (the runner "
+                    "reports a failed size and returns no record for it)")
+    with open(path) as fh:
+        lines = [json.loads(line) for line in fh if line.strip()]
+    rec, x = records[0], records[0].extras
+    want, want_hops = overlap_counts(mode, RING_WORLD, timing)
+    if impl != "cuda":
+        want = 0
+    ms = lambda v: None if v is None else v * 1e3  # noqa: E731
+    summary = {"phase": phase, "mode": rec.mode, "world": rec.world,
+               "avg_ms": ms(rec.avg_time_s), "compute_ms": ms(rec.compute_time_s),
+               "comm_ms": ms(rec.comm_time_s), "overhead_ms": ms(x.get("overhead_time_s")),
+               "per": "step" if step else "call",
+               "comm_overhead_vs_compute_pct": x.get("comm_overhead_vs_compute_pct"),
+               "baseline_ms": x.get("baseline_time_ms"),
+               "overlap_speedup_x": x.get("overlap_speedup_x"),
+               "tflops_per_card": rec.tflops_per_device,
+               "peak_efficiency_pct": rec.peak_efficiency_pct,
+               "cards": x.get("cards"), "ranks_per_card": x.get("ranks_per_card"),
+               "validation": x.get("validation"),
+               "validation_max_rel_err": x.get("validation_max_rel_err"),
+               "timing": x.get("timing", "dispatch"), "chain": x.get("chain"),
+               "k1_launches": launches, "expected_k1_launches": want,
+               "hops": hops, "expected_hops": want_hops, "launches_by_route": by_route,
+               "during": during}
+    problems = []
+    peak = rec.peak_efficiency_pct
+    if peak is None or not 0 < peak <= 100:
+        problems.append(f"peak_efficiency_pct {peak} outside (0, 100]")
+    if rec.world != RING_WORLD or x.get("cards") != 1 or x.get("ranks_per_card") != RING_WORLD:
+        problems.append(f"world {rec.world} on {x.get('cards')} cards, not {RING_WORLD} on 1")
+    if step and x.get("validation") != "n/a (program outputs per-step scalars)":
+        problems.append(f"validation {x.get('validation')!r}")
+    if not step and x.get("validation") != "ok":
+        problems.append("validation is not ok")
+    if timing == "fused" and (x.get("timing"), x.get("chain")) != ("fused", "operand"):
+        problems.append(f"fused was asked, yet timing {x.get('timing')}, chain {x.get('chain')}")
+    for key, value in (("comm_time_s", rec.comm_time_s),
+                       ("overhead_time_s", x.get("overhead_time_s"))):
+        if value is not None and value < 0:
+            problems.append(f"{key} {value} < 0")
+    if step and (rec.comm_time_s is None
+                 or (mode != "no_overlap") != ("overhead_time_s" in x)):
+        problems.append(f"comm_time_s {rec.comm_time_s}, overhead_time_s "
+                        f"{x.get('overhead_time_s')}")
+    if not lines or not is_manifest(lines[0]):
+        problems.append("the JSONL does not start with its manifest")
+    if len(lines) != 2 or lines[1].get("mode") != mode:
+        problems.append("the JSONL does not hold the record after the manifest")
+    if launches != want:
+        problems.append(f"{launches} K1 launches, not the {want} the mode makes")
+    if hops != want_hops:
+        problems.append(f"{hops} hops, not the {want_hops} the mode makes")
+    if impl == "cuda" and by_route != {"gemm:wgmma": want}:
+        problems.append(f"launches by route {by_route}: not all {want} on wgmma")
+    if impl == "torch" and by_route:
+        problems.append(f"the library run launched the port's kernels: {by_route}")
+    summary["ok"] = not problems
+    emit(summary)
+    if problems:
+        fail(phase, "; ".join(problems))
+    return summary
+
+
+# each collective-matmul ring beside the ring kernel of its contract
+CM_KERNELS = {"collective_matmul": "ring_ag", "collective_matmul_bidir": "ring_ag_bidir",
+              "collective_matmul_rs": "ring_rs", "collective_matmul_bidir_rs": "ring_rs_bidir"}
+CM_TURN_RUNS, CM_TURN_WARMUP, CM_TURN_PASSES = 20, 5, 2
+
+
+def collective_turns(card: str) -> dict:
+    """Each collective-matmul ring (K1 products and hops) at bf16 SIZE² over
+    RING_WORLD ranks on the card, in turns with the ring kernel of its
+    contract (K2–K5) and `torch.matmul` of the gathered operands, on the
+    same operands: CM_TURN_RUNS calls after CM_TURN_WARMUP, in
+    CM_TURN_PASSES passes, every other in the mirrored order; the medians.
+    The library ring's output is first held against the kernel's, within
+    the modes' bf16 validation tolerance: the reduce-scatter rings round
+    their bf16 accumulator twice a step (the product, then the sum, JAX's
+    arithmetic), where K3 and K5 round once a step."""
+    import torch
+
+    from tpu_matmul_bench_torch.parallel import overlap as ovl
+    from tpu_matmul_bench_torch.parallel.mesh import gather
+    from tpu_matmul_bench_torch.parallel.modes import validation_tolerance
+
+    tol = validation_tolerance(torch.bfloat16)
+
+    mesh = card_mesh(RING_WORLD)
+    result = {}
+    for mode, label in CM_KERNELS.items():
+        reduce_scatter, build, _, _ = rings()[label]
+        library_ring = ovl.CollectiveMatmul(mesh, reduce_scatter=reduce_scatter,
+                                            bidir="bidir" in mode, impl="cuda")
+        kernel_ring = build(mesh)
+        x, w = ring_operands(mesh, reduce_scatter, (SIZE, SIZE, SIZE), torch.bfloat16, seed=17)
+        xg, wg = gather(x), gather(w)
+        got, want = gather(library_ring(x, w)), gather(kernel_ring(x, w))
+        torch.cuda.synchronize()
+        rel = ((got.float() - want.float()).abs().max().item()
+               / (want.float().abs().max().item() or 1.0))
+        del got, want
+        calls = {mode: lambda: library_ring(x, w), label: lambda: kernel_ring(x, w),
+                 "library": lambda: torch.matmul(xg, wg)}
+        runs: dict[str, list[float]] = {name: [] for name in calls}
+        order = list(calls)
+        for p in range(CM_TURN_PASSES):
+            for name in order if p % 2 == 0 else order[::-1]:
+                for _ in range(CM_TURN_WARMUP):
+                    calls[name]()
+                runs[name].append(events_ms(calls[name], CM_TURN_RUNS))
+        del x, w, xg, wg, calls
+        torch.cuda.empty_cache()
+        ms = {name: statistics.median(v) for name, v in runs.items()}
+        result[mode] = {"kernel": label, "ms": ms[mode], "kernel_ms": ms[label],
+                        "library_ms": ms["library"], "passes_ms": runs,
+                        "over_kernel": ms[mode] / ms[label],
+                        "over_library": ms[mode] / ms["library"], "max_rel_err": rel}
+    ok = all(v["max_rel_err"] <= tol for v in result.values())
+    emit({"phase": "collective_turns", "ranks": RING_WORLD, "shape": [SIZE] * 3,
+          "card": card, "runs": CM_TURN_RUNS, "warmup": CM_TURN_WARMUP,
+          "tolerance": tol, "rings": result, "ok": ok})
+    if not ok:
+        fail("collective_turns", f"a collective-matmul ring differs from its kernel: {result}")
+    return result
+
+
+def overlap_modes_phase(out_dir: str) -> dict:
+    """The seven library modes at bf16 SIZE² over RING_WORLD ranks on the
+    card: under K1 (dispatch, and fused where the mode is fusable) and the
+    library (dispatch); returns each mode's runs by label and prints the
+    phase's table and its seconds."""
+    from tpu_matmul_bench_torch.parallel.overlap import OVERLAP_MODES
+
+    t0 = time.perf_counter()
+    runs = {}
+    for mode in (*STEP_MODES, *CM_MODES):
+        # whether the mode takes --timing fused, as its ModeSetup says
+        fusable = OVERLAP_MODES[mode](_race_config(0), card_mesh(1), 256).fusable
+        legs = [("cuda", "dispatch"), *([("cuda", "fused")] if fusable else []),
+                ("torch", "dispatch")]
+        runs[mode] = {f"{impl},{timing}": drive_overlap_mode(mode, impl, timing, out_dir)
+                      for impl, timing in legs}
+    table = {mode: {"per": r["cuda,dispatch"]["per"],
+                    "cuda_ms": r["cuda,dispatch"]["avg_ms"],
+                    "cuda_fused_ms": r.get("cuda,fused", {}).get("avg_ms"),
+                    "library_ms": r["torch,dispatch"]["avg_ms"],
+                    "compute_ms": r["cuda,dispatch"]["compute_ms"],
+                    "comm_ms": r["cuda,dispatch"]["comm_ms"],
+                    "overhead_ms": r["cuda,dispatch"]["overhead_ms"],
+                    "overlap_speedup_x": r["cuda,dispatch"]["overlap_speedup_x"],
+                    "comm_overhead_vs_compute_pct":
+                        r["cuda,dispatch"]["comm_overhead_vs_compute_pct"]}
+             for mode, r in runs.items()}
+    emit({"phase": "overlap_modes", "modes": table,
+          "seconds": time.perf_counter() - t0, "ok": True})
+    return runs
+
+
 def scaling_calls(mode: str, d: int, timing: str) -> int:
     """The mode's program calls in one run of SCALING_ITERATIONS after
     SCALING_WARMUP: the validation's call, then the timed ones. Dispatch
@@ -1694,6 +2008,8 @@ def main() -> None:
     # K1's two other shapes in the scaling modes (matrix and model parallel)
     cases += [("bfloat16", mkn) for mkn in dict.fromkeys(SCALING_SHAPES.values())
               if mkn != (SIZE, SIZE, SIZE)]
+    # and its four in the collective-matmul rings
+    cases += [("bfloat16", mkn) for mkn in CM_SHAPES]
     headline_err = None
     for dtype_name, mkn in cases:
         result = check_kernel(dtype_name, mkn)
@@ -1718,6 +2034,7 @@ def main() -> None:
     cap = cuda_ring_max_size(RING_WORLD, torch.bfloat16, l2, RING_WORLD)
     emit({"phase": "fused_cap", "l2_bytes": l2, "ranks": RING_WORLD, "cap": cap})
     check_races(cap, ["ring_fused"])
+    check_overlap_races()
 
     # 4. the paths through their entry points; launch counts are set to 0
     # just before each run and read just after
@@ -1744,6 +2061,8 @@ def main() -> None:
         overlaps["ring_fused"] = drive_overlap("cuda_ring", out_dir, size=cap)
         k2_at_cap, _ = drive_overlap("cuda_ring_hbm", out_dir, size=cap)
         scaling = scaling_phase(out_dir)
+        overlap_modes = overlap_modes_phase(out_dir)
+        cm_turns = collective_turns(card)
         profile = profile_phase(cap, out_dir)
 
     # 5. the plain version's time at the headline shape
@@ -1786,6 +2105,12 @@ def main() -> None:
         entries[label].update(step=rs_step_ms(label), step_max_abs_err=rs_errors[label])
     # the all-gather rings keep the main path's short timing in ms and
     # library_ms, as every ring does; their turns at steady clocks go beside it
+    # each ring kernel beside the collective-matmul ring of its contract
+    for mode, turns in cm_turns.items():
+        entries[turns["kernel"]].update(
+            turns_vs_collective_matmul={"mode": mode, "kernel_ms": turns["kernel_ms"],
+                                        "collective_matmul_ms": turns["ms"],
+                                        "library_ms": turns["library_ms"]})
     for label in AG_STEPS:
         turns = ring_turns(label, card)
         entries[label].update(
@@ -1817,6 +2142,13 @@ def main() -> None:
                            "mode_ms": r["cuda,dispatch"]["avg_ms"],
                            "library_mode_ms": r["torch,dispatch"]["avg_ms"]}
                     for mode, r in scaling.items()},
+        # the overlap program's library modes over RING_WORLD ranks
+        # (dispatch; a step's ms for the step modes, a call's for the rings)
+        "overlap_modes": {mode: {"launches": r["cuda,dispatch"]["k1_launches"],
+                                 "per": r["cuda,dispatch"]["per"],
+                                 "mode_ms": r["cuda,dispatch"]["avg_ms"],
+                                 "library_mode_ms": r["torch,dispatch"]["avg_ms"]}
+                          for mode, r in overlap_modes.items()},
     }, {
         "name": "matmul_ksplit", "route": "cuda",
         "source": "tpu_matmul_bench_torch/csrc/matmul.cu",

@@ -43,7 +43,7 @@ from tpu_matmul_bench_torch.ops import cuda_ring as cr
 from tpu_matmul_bench_torch.ops.matmul import operands_from_numpy
 from tpu_matmul_bench_torch.parallel import mesh, modes
 from tpu_matmul_bench_torch.parallel.mesh import COLS, ROWS, gather, shard_from_numpy
-from tpu_matmul_bench_torch.parallel.overlap import OVERLAP_MODE_NAMES, OVERLAP_MODES
+from tpu_matmul_bench_torch.parallel.overlap import OVERLAP_MODES
 from tpu_matmul_bench_torch.utils.config import parse_config
 from tpu_matmul_bench_torch.utils.device import resolve_devices
 
@@ -266,18 +266,15 @@ def test_ring_perm_rev_matches_jax(n):
 # --- the overlap program's two modes
 
 def test_every_ring_mode_is_ported():
-    # every cuda_ring* name maps to None; the stream-overlap and
-    # collective-matmul modes still name the ROADMAP item that brings them
-    for name, brings in OVERLAP_MODE_NAMES.items():
-        if name.startswith("cuda_ring"):
-            assert brings is None and name in OVERLAP_MODES
-        else:
-            assert "ROADMAP A7" in brings
+    # every one of the JAX suite's twelve modes, `pallas_` → `cuda_`, is a
+    # mode of the port's overlap program
+    assert len(JAX_MODES) == len(OVERLAP_MODES) == 12
+    assert set(OVERLAP_MODES) == {name.replace("pallas_", "cuda_") for name in JAX_MODES}
 
 
 def _config(*extra):
     return parse_config([*SMALL, "--device", "cpu", *extra], "t",
-                        modes=list(OVERLAP_MODE_NAMES), default_mode="cuda_ring_hbm",
+                        modes=list(OVERLAP_MODES), default_mode="cuda_ring_hbm",
                         extra_dtypes=("int8",), fused_timing=True)
 
 

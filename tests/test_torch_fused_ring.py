@@ -43,7 +43,7 @@ from tpu_matmul_bench_torch.ops.matmul import operands_from_numpy
 from tpu_matmul_bench_torch.parallel import mesh, modes
 from tpu_matmul_bench_torch.parallel import overlap as port_overlap
 from tpu_matmul_bench_torch.parallel.mesh import COLS, ROWS, gather, shard_from_numpy
-from tpu_matmul_bench_torch.parallel.overlap import OVERLAP_MODE_NAMES, OVERLAP_MODES
+from tpu_matmul_bench_torch.parallel.overlap import OVERLAP_MODES
 from tpu_matmul_bench_torch.utils.config import parse_config
 from tpu_matmul_bench_torch.utils.device import resolve_devices
 
@@ -205,7 +205,7 @@ def test_mode_refuses_past_the_cap_on_the_card(ranks8, monkeypatch):
 
 def _config(*extra):
     return parse_config([*SMALL, "--device", "cpu", *extra], "t",
-                        modes=list(OVERLAP_MODE_NAMES), default_mode="cuda_ring_hbm",
+                        modes=list(OVERLAP_MODES), default_mode="cuda_ring_hbm",
                         extra_dtypes=("int8",), fused_timing=True)
 
 

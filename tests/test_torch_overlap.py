@@ -21,7 +21,7 @@ from tpu_matmul_bench.utils.config import parse_config as jax_parse_config
 from tpu_matmul_bench_torch.benchmarks import matmul_overlap_benchmark as overlap
 from tpu_matmul_bench_torch.parallel import mesh, modes
 from tpu_matmul_bench_torch.parallel.mesh import gather
-from tpu_matmul_bench_torch.parallel.overlap import OVERLAP_MODE_NAMES, OVERLAP_MODES
+from tpu_matmul_bench_torch.parallel.overlap import OVERLAP_MODES
 from tpu_matmul_bench_torch.utils import timing
 from tpu_matmul_bench_torch.utils.config import parse_config
 from tpu_matmul_bench_torch.utils.device import resolve_devices
@@ -44,14 +44,13 @@ def port_mesh(d: int) -> mesh.Mesh:
 
 def _config(*extra):
     return parse_config([*SMALL, "--device", "cpu", *extra], "t",
-                        modes=list(OVERLAP_MODE_NAMES), default_mode="cuda_ring_hbm",
+                        modes=list(OVERLAP_MODES), default_mode="cuda_ring_hbm",
                         extra_dtypes=("int8",), fused_timing=True)
 
 
 def test_mode_names_are_the_jax_suites():
-    assert set(OVERLAP_MODE_NAMES) == {
+    assert set(OVERLAP_MODES) == {
         name.replace("pallas_", "cuda_") for name in JAX_MODES}
-    assert {m for m, q in OVERLAP_MODE_NAMES.items() if q is None} == set(OVERLAP_MODES)
 
 
 def test_parse_config_takes_mode_and_wres():
@@ -103,7 +102,7 @@ def test_baseline_and_ring_agree(ranks8, port_mode, dtype_name):
 def test_wres_on_raises(ranks8):
     cfg = _config("--wres", "on")
     # the HBM rings; the fused ring has no W-resident option, as pallas_ring
-    for mode in (m for name, m in OVERLAP_MODES.items() if name != "cuda_ring"):
+    for mode in (m for name, m in OVERLAP_MODES.items() if name.startswith("cuda_ring_")):
         with pytest.raises(ValueError, match="wres=True but the W-resident layout"):
             mode(cfg, port_mesh(2), 64)
     off = _config("--wres", "off")
@@ -113,14 +112,7 @@ def test_wres_on_raises(ranks8):
     assert f"({64 * 32 * 4} B)" in x["wres_reason"]  # a float32 W shard
     # the program reports the size's error and returns no record for it
     assert overlap.main([*SMALL, "--device", "cpu", "--num-devices", "2",
-                         "--wres", "on"]) == []
-
-
-@pytest.mark.parametrize("name", [m for m, q in OVERLAP_MODE_NAMES.items() if q])
-def test_unported_mode_fails_by_name(name):
-    with pytest.raises(SystemExit) as e:
-        overlap.main([*SMALL, "--device", "cpu", "--mode", name])
-    assert name in str(e.value) and "ROADMAP" in str(e.value)
+                         "--mode", "cuda_ring_hbm", "--wres", "on"]) == []
 
 
 def test_too_many_ranks_name_the_count(monkeypatch):
@@ -198,7 +190,8 @@ def test_memory_guard_sums_the_ranks_on_a_card(ranks8, monkeypatch, capsys):
     assert info.ranks_per_card == 4 and info.cards == 1
     monkeypatch.setattr(msb, "collect_device_info",
                         lambda devices: dataclasses.replace(info, memory_gib=4.0))
-    assert overlap.main(["--sizes", "16384", "--device", "cpu", "--num-devices", "4"]) == []
+    assert overlap.main(["--sizes", "16384", "--device", "cpu", "--num-devices", "4",
+                         "--mode", "cuda_ring_hbm"]) == []
     assert "needs ~6.0 GiB" in capsys.readouterr().out
 
 

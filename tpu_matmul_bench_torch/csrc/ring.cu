@@ -6,9 +6,11 @@
 // tpu_matmul_bench/ops/pallas_ring_rs_hbm.py::_hbm_ring_rs_kernel (:245-253):
 // `pltpu.make_async_remote_copy` of a chunk to the right neighbour over ICI.
 // On Hopper the copy leaves the kernel (the products are hand-written GEMMs
-// in matmul.cu) and becomes cudaMemcpyPeerAsync on the sending rank's copy
-// stream: a DMA that the copy engines run beside the SMs' work, between two
-// cards or, for ranks that share one card, within its memory. The semaphores
+// in matmul.cu) and becomes a copy on the sending rank's copy stream: a DMA
+// that the copy engines run beside the SMs' work, between two cards
+// (cudaMemcpyPeerAsync) or, for ranks that share one card, within its memory
+// (cudaMemcpyAsync, which a CUDA graph can capture; the peer form cannot be
+// captured, so a ring across cards runs only outside a graph). The semaphores
 // around the Pallas DMA become CUDA events, recorded and waited on in
 // ops/cuda_ring.py.
 //
@@ -29,9 +31,11 @@ int tmb_ring_hop(void* dst, const void* src, long long bytes, int dst_device, in
                  void* stream) {
   if (bytes < 0 || dst == nullptr || src == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (bytes == 0) return 0;
-  const cudaError_t e = cudaMemcpyPeerAsync(dst, dst_device, src, src_device,
-                                            static_cast<size_t>(bytes),
-                                            static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t n = static_cast<size_t>(bytes);
+  const cudaError_t e = dst_device == src_device
+                            ? cudaMemcpyAsync(dst, src, n, cudaMemcpyDeviceToDevice, s)
+                            : cudaMemcpyPeerAsync(dst, dst_device, src, src_device, n, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

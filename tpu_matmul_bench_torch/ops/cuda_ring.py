@@ -178,6 +178,21 @@ class _Way(NamedTuple):
         return (left, right) if self.step > 0 else (right, left)
 
 
+def ring_ways(rows: int, bidir: bool) -> list[_Way]:
+    """A ring's directions over a chunk of `rows` rows: every row hops
+    right, or (`bidir`) the top rows // 2 hop right and the rest left."""
+    if not bidir:
+        return [_Way("f", _COPY, 0, rows, +1)]
+    h = rows // 2
+    return [_Way("f", _COPY, 0, h, +1), _Way("b", _COPY_BACK, h, rows, -1)]
+
+
+def rank_streams(mesh: Mesh, per_rank: int) -> list[tuple[Any, ...]]:
+    """`per_rank` new streams on each rank's card, in rank order."""
+    return [tuple(torch.cuda.Stream(device=dev) for _ in range(per_rank))
+            for dev in mesh.devices]
+
+
 class _Schedule:
     """The streams and events of one ring call on the card; on the CPU
     every method is a no-op and each step runs at once, in issue order."""
@@ -330,9 +345,7 @@ class RingMatmul:
             return _Schedule(self.mesh, None)
         per_rank = (3 if self.bidir else 2) if transfer == "hop" else 1
         if per_rank not in self._streams:
-            self._streams[per_rank] = [
-                tuple(torch.cuda.Stream(device=dev) for _ in range(per_rank))
-                for dev in self.mesh.devices]
+            self._streams[per_rank] = rank_streams(self.mesh, per_rank)
         return _Schedule(self.mesh, self._streams[per_rank])
 
     def _check(self, x: Sequence[torch.Tensor], w: Sequence[torch.Tensor]) -> None:
@@ -359,13 +372,9 @@ class RingMatmul:
         return self._reduce_scatter(self._schedule(x[0].is_cuda, transfer), x, w, transfer)
 
     def _ways(self, rows: int) -> list[_Way]:
-        """The ring's directions over a chunk of `rows` rows: every row
-        hops right (K2, K3), or the top rows // 2 hop right and the rest
-        left (K4, K5)."""
-        if not self.bidir:
-            return [_Way("f", _COPY, 0, rows, +1)]
-        h = rows // 2
-        return [_Way("f", _COPY, 0, h, +1), _Way("b", _COPY_BACK, h, rows, -1)]
+        """The ring's directions (`ring_ways`): one for K2 and K3, two for
+        K4 and K5."""
+        return ring_ways(rows, self.bidir)
 
     def _product(self, sched: _Schedule, r: int, a: torch.Tensor, w: torch.Tensor,
                  dest: torch.Tensor, accin: torch.Tensor | None = None):

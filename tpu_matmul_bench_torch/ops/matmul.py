@@ -19,21 +19,25 @@ import torch
 
 from tpu_matmul_bench_torch.utils.metrics import is_integer_dtype
 
-Matmul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# C = A @ B; with `out=`, a contiguous m×n tensor of the output dtype that
+# receives C in place of a new tensor
+Matmul = Callable[..., torch.Tensor]
 
 
-def _library(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _library(a: torch.Tensor, b: torch.Tensor,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """The library product. cuBLAS's int8 product (`torch._int_mm`) needs
     m > 16 and k, n multiples of 8; the CPU multiplies int8 in int32."""
+    kw = {} if out is None else {"out": out}
     if not is_integer_dtype(a.dtype):
-        return torch.matmul(a, b)
+        return torch.matmul(a, b, **kw)
     if a.device.type == "cpu":
-        return a.to(torch.int32) @ b.to(torch.int32)
+        return torch.matmul(a.to(torch.int32), b.to(torch.int32), **kw)
     (m, k), n = a.shape, b.shape[1]
     if m <= 16 or k % 8 or n % 8:
         raise ValueError(f"torch._int_mm needs m > 16 and k, n multiples of "
                          f"8; got {m}x{k}x{n}")
-    return torch._int_mm(a, b)
+    return torch._int_mm(a, b, **kw)
 
 
 def matmul_2d(impl: str = "torch", blocks: tuple[int, int, int] | None = None,
@@ -43,22 +47,23 @@ def matmul_2d(impl: str = "torch", blocks: tuple[int, int, int] | None = None,
     ignores it. `impl="auto"` routes each call's (dtype, shape) to the
     implementation `ops/impl_select.py` names for `device_kind`, the name
     of the device the operands live on; an explicit `blocks` goes with a
-    route to the kernel."""
+    route to the kernel. The product takes `out=` (see `Matmul`)."""
     if impl == "auto":
         from tpu_matmul_bench_torch.ops.impl_select import select_impl
 
         kind = device_kind or ""
 
-        def _auto(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        def _auto(a: torch.Tensor, b: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
             choice = select_impl(a.shape[0], b.shape[1], a.shape[1], kind,
                                  a.dtype)
-            return matmul_2d(choice.impl, blocks)(a, b)
+            return matmul_2d(choice.impl, blocks)(a, b, out=out)
 
         return _auto
     if impl == "cuda":
         from tpu_matmul_bench_torch.ops.cuda_matmul import cuda_matmul
 
-        return lambda a, b: cuda_matmul(a, b, blocks=blocks)
+        return lambda a, b, out=None: cuda_matmul(a, b, blocks=blocks, out=out)
     if impl != "torch":
         raise ValueError(f"unknown matmul impl {impl!r}")
     return _library

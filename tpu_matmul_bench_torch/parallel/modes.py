@@ -5,7 +5,9 @@ Port of `tpu_matmul_bench/parallel/modes.py`: a mode builds two programs
 over the world of ranks (`parallel/mesh.py`), a compute leg (for the
 overlap modes, the serialized baseline) and a full program (compute, then
 the collective; for the overlap modes, the ring), which
-`run_mode_benchmark` times interleaved; and the corner check that compares
+`run_mode_benchmark` times interleaved, with a third program for the step
+modes of `parallel/overlap.py` (the full one without its collective); and
+the corner check that compares
 a result's top-left corner with a float64 reference. The five parallel
 modes (`independent`, `batch_parallel`, `matrix_parallel`, `data_parallel`,
 `model_parallel`) take every product from `ops/matmul.py matmul_2d`, so
@@ -58,6 +60,7 @@ from tpu_matmul_bench_torch.utils.timing import (
     latency_percentiles_ms,
     sample_extras,
     time_variants,
+    time_variants_n,
 )
 
 
@@ -77,10 +80,19 @@ class ModeSetup:
     # --validate: corner-check the mode's result against a recomputed
     # reference (None → not applicable)
     validate: Callable[[], dict] | None = None
+    # third program: the full program's streams, events and buffers with
+    # its collective left out. When present, comm = full − nocomm (the
+    # collective alone) and overhead = nocomm − compute (the machinery's
+    # own cost, reported apart as extras.overhead_time_s)
+    nocomm: Callable[..., Any] | None = None
+    # steps one program call runs (the step programs); per-step figures
+    # divide by it
+    steps_per_program: int = 1
     # whether --timing fused may capture this setup's programs in one CUDA
-    # graph (utils/timing.fuse_iterations). The ring kernels opt out: their
-    # per-rank streams and events are not captured, so they demote to the
-    # dispatch protocol
+    # graph (utils/timing.fuse_iterations), side streams included through
+    # the fork and join events of `ops/cuda_ring.py _Schedule`. The ring
+    # kernels (K2–K6) opt out, as the JAX package's Pallas rings do, so
+    # they demote to the dispatch protocol
     fusable: bool = True
 
 # --validate corner size (the reference's 10×10 spot check, widened)
@@ -247,6 +259,15 @@ def estimate_memory_gib(mode: str, config: BenchConfig, world: int,
         # A, B shards (2/d) + the full-shape partial and the psum's result
         # + its accumulator
         return gib(2.0 / d, 2, 1)
+    if mode in ("no_overlap", "overlap", "pipeline"):
+        # nbuf A/B pairs + the products + the psum's result + its
+        # accumulator. no_overlap holds one product; overlap and pipeline
+        # the filled ring of k = nbuf (an operand, never written) and the
+        # k + 1 slots the program's products go to (`parallel/overlap.py
+        # StepProgram`), where JAX's row (nbuf + 2 outputs) counts one ring
+        # updated in place
+        nbuf = {"no_overlap": 1, "overlap": 2, "pipeline": 3}[mode]
+        return gib(2 * nbuf, 2 if nbuf == 1 else 2 * nbuf + 2, 1)
     # independent and the world-1 fallback: full A, B, C per rank
     return gib(2, 1)
 
@@ -289,15 +310,30 @@ def run_mode_benchmark(setup: ModeSetup, config: BenchConfig) -> BenchmarkRecord
         timed = setup.compute
         reliable = t_compute.reliable
     else:
-        t_compute, t_full, comm_s = time_variants(
-            setup.compute, setup.full, setup.operands,
-            iterations=config.iterations, warmup=config.warmup,
-            protocol=protocol)
-        rec = _tag(setup.build_record(t_compute, t_full, comm_s), t_compute, t_full)
+        t_nocomm = None
+        if setup.nocomm is not None:
+            # the three-variant split: comm is the collective alone (full −
+            # nocomm, the same program with the collective left out), and
+            # the machinery's own cost is reported apart
+            t_compute, t_nocomm, t_full = time_variants_n(
+                (setup.compute, setup.nocomm, setup.full), setup.operands,
+                iterations=config.iterations, warmup=config.warmup,
+                protocol=protocol)
+            comm_s = max(t_full.avg_s - t_nocomm.avg_s, 0.0)
+        else:
+            t_compute, t_full, comm_s = time_variants(
+                setup.compute, setup.full, setup.operands,
+                iterations=config.iterations, warmup=config.warmup,
+                protocol=protocol)
+        timings = [t for t in (t_compute, t_nocomm, t_full) if t is not None]
+        rec = _tag(setup.build_record(t_compute, t_full, comm_s), *timings)
+        if t_nocomm is not None:
+            overhead_s = max(t_nocomm.avg_s - t_compute.avg_s, 0.0)
+            rec.extras["overhead_time_s"] = round(overhead_s / setup.steps_per_program, 9)
         # sampled on the full program: the distribution of the quantity
         # the headline avg_time_s reports
         timed = setup.full
-        reliable = t_compute.reliable and t_full.reliable
+        reliable = all(t.reliable for t in timings)
     if not reliable:
         rec.extras["timing_reliable"] = False
     if config.percentiles:

@@ -211,7 +211,7 @@ def _clone(x: Any) -> Any:
 
 def fuse_iterations(
     fn: Callable[..., Any], iterations: int,
-    chain_state: dict | None = None,
+    chain_state: dict | None = None, *, clone: bool = True,
 ) -> Callable[..., Any]:
     """A callable that runs `iterations` chained calls of `fn`.
 
@@ -221,8 +221,9 @@ def fuse_iterations(
     (`parallel/mesh.Sharded`) that element is the global array's, shard
     0's [0, ..., 0] (every copy's, when replicated), as JAX's chain writes
     into a sharded array. The chain writes into the operands, so the loop
-    runs on clones (every shard cloned); the caller's tensors are not
-    touched.
+    runs on clones (every shard cloned), kept as long as the graph that
+    reads them; the caller's tensors are not touched. `clone=False` chains
+    into the operands it is given: the caller made them for it.
 
     On the card the first call captures the whole chain in one CUDA graph
     and every call replays it: one launch from the host for `iterations`
@@ -236,6 +237,7 @@ def fuse_iterations(
         raise ValueError(f"iterations must be >= 1, got {iterations}")
     graph: torch.cuda.CUDAGraph | None = None
     result: Any = None
+    captured_ops: list[Any] = []  # the operands the graph reads and writes
 
     def run_chain(ops: list[Any]) -> Any:
         out = fn(*ops)
@@ -254,9 +256,10 @@ def fuse_iterations(
         if graph is not None:
             graph.replay()
             return result
-        ops = [_clone(a) for a in args]
+        ops = [_clone(a) for a in args] if clone else list(args)
         if not _on_card(ops):
             return run_chain(ops)
+        captured_ops[:] = ops
         # a first eager call on a side stream sets up whatever the callee
         # creates lazily (library handles, workspaces), which the capture
         # cannot; then capture the chain and run it once
@@ -339,7 +342,8 @@ def time_variants_n(
     only in the first round.
 
     With protocol="fused" each variant is wrapped by `fuse_iterations`
-    first (one CUDA graph of `iterations` chained calls per variant); each
+    first (one CUDA graph of `iterations` chained calls per variant, all
+    chaining into one set of operand clones, which they take in turn); each
     round then times one replay per variant, and the returned Timings count
     individual calls, so `avg_s` stays per call under either protocol.
     """
@@ -347,7 +351,8 @@ def time_variants_n(
     chain_states: list[dict] = [{} for _ in fns]
     if protocol == "fused":
         k = max(int(iterations), 1)
-        fns = [fuse_iterations(fn, k, chain_state=st)
+        args = [_clone(a) for a in args]
+        fns = [fuse_iterations(fn, k, chain_state=st, clone=False)
                for fn, st in zip(fns, chain_states)]
         iterations = 1
         warmup = 1  # the first fused call captures and runs a full pass
