@@ -38,7 +38,14 @@ The paths:
   with both protocols as the yardstick, with the SM clock and power draw
   sampled during each run and read right after it; then the `c1` phase,
   the same four runs at the power limit's steady clocks, where the port's
-  fused/dispatch ratio may exceed cuBLAS's by at most C1_MARGIN;
+  fused/dispatch ratio may exceed cuBLAS's by at most C1_MARGIN; each
+  kernel record must carry the kernel's cost books (`cost_analysis`,
+  flops_ratio 1.0) and each library record none;
+- the headline entry, `python -m tpu_matmul_bench_torch.bench`, in a
+  process of its own (the `headline` phase): its ladder of fused attempts
+  (`auto`, `torch`, `cuda`) as child processes, its last line `backend`
+  "ok" with the best of each impl, the kernel's within HEADLINE_MARGIN of
+  the fused run above;
 - the tile tuner, `tpu_matmul_bench_torch.benchmarks.cuda_tune.main`, over
   every tile at bf16 16384^3 in both grid orders, then with `--ksplit 2`
   at 16384^3 and at the tall-M 28672x4096x8192;
@@ -50,7 +57,11 @@ The paths:
   partial: the data moves within the card's memory, not over NVLink, and
   no hop runs), then in the fused ring mode `cuda_ring`
   and in `cuda_ring_hbm` at the fused ring's cap, the largest size whose
-  operands fit the card's L2;
+  operands fit the card's L2; after each HBM ring's overlap run, `tune
+  --ring` over it at the same size (the `tune_ring` phase): the default
+  tile on the persistent ring-step GEMM within TUNE_RING_MARGIN of the
+  overlap run, other tiles off it, on the route `cuda_matmul.step_route`
+  gives;
 - the scaling and distributed programs, `tpu_matmul_bench_torch.benchmarks
   .matmul_scaling_benchmark.main` and `.matmul_distributed_benchmark.main`,
   in their five parallel modes at bf16 16384² over 4 ranks on the card,
@@ -95,6 +106,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -206,6 +218,24 @@ RING_TURN_RUNS, RING_TURN_WARMUP, RING_TURN_PASSES = 200, 80, 3
 # C1_ITERATIONS products after C1_WARMUP (about a second of load), in
 # C1_PASSES passes of the four runs, every other pass in the mirrored order.
 C1_MARGIN, C1_ITERATIONS, C1_WARMUP, C1_PASSES = 0.02, 200, 80, 3
+# the headline entry (`python -m tpu_matmul_bench_torch.bench`, the
+# `headline` phase): its budget (BENCH_TIMEOUT_S), and how far its `cuda`
+# rung may read from the matmul phase's fused K1 TFLOPS in the same call
+HEADLINE_TIMEOUT_S, HEADLINE_MARGIN = 600, 0.10
+# `tune --ring` over the four HBM rings at bf16 SIZE² over RING_WORLD ranks
+# (the `tune_ring` phase): the default tile, the persistent ring-step GEMM's
+# only one, and tiles that take the steps off it; the default tile's ms may
+# read at most TUNE_RING_MARGIN from the overlap phase's ring ms, so each
+# ring's sweep runs right after its overlap run, at the same point of the
+# clock's fall under the power limit (C1: a ring timed after lighter work
+# reads up to 10% fast), over TUNE_RING_ITERATIONS calls: a K4 call alone
+# ranges 12.8-16.0 ms, and the overlap run reads the median of 3 rounds
+TUNE_RINGS = {"ring_ag": "cuda_ring_hbm", "ring_rs": "cuda_ring_rs_hbm",
+              "ring_ag_bidir": "cuda_ring_bidir_hbm",
+              "ring_rs_bidir": "cuda_ring_bidir_rs_hbm"}
+TUNE_RING_TILES = [(128, 256, 64), (128, 128, 64)]
+TUNE_RING_BIDIR_TILES = TUNE_RING_TILES + [(64, 128, 32)]
+TUNE_RING_ITERATIONS, TUNE_RING_MARGIN = 20, 0.10
 # `cuda_matmul.step_route`'s cases for a reduce-scatter step, held on the CPU
 # against the rule and on the card against csrc/ring_rs.cu's own check
 # (`step_check`, tmb_rs_check): (label, dtype,
@@ -586,10 +616,18 @@ def drive(impl: str, timing: str, out_dir: str, iterations: int = ITERATIONS,
         "iterations": rec.iterations, "launches": launches,
         "launches_by_route": by_route, "device_kind": rec.device_kind,
         "during": during, "after": after,
+        "cost_analysis": rec.extras.get("cost_analysis"),
     }
     problems = []
     if rec.extras.get("validation") != "ok":
         problems.append("validation is not ok")
+    # the kernel's cost books describe its launch: whole tiles at 16384³,
+    # so exactly the hand model; the library keeps none
+    books = summary["cost_analysis"]
+    if impl == "cuda" and not (books and books["flops_ratio"] == 1.0 and books["agrees"]):
+        problems.append(f"cost_analysis {books}: not flops_ratio 1.0")
+    if impl == "torch" and books is not None:
+        problems.append("the library run carries the kernel's cost_analysis")
     if peak is None or not 0 < peak <= 100:
         problems.append(f"peak_efficiency_pct {peak} outside (0, 100]")
     if not (math.isfinite(rec.avg_time_s) and rec.avg_time_s > 0):
@@ -651,10 +689,12 @@ def c1_check(main: list[dict], out_dir: str) -> dict:
 
 
 def tune(phase: str, extra: list[str], out_dir: str,
-         ksplit: int = 1) -> tuple[dict, int, int]:
+         ksplit: int = 1) -> tuple[dict, int, int, dict]:
     """One tune run through the tuner's entry point over every tile.
-    Returns {tile: sweep ms} and the GEMM and reduction launches counted
-    during it; every GEMM launch must take the wgmma route."""
+    Returns {tile: sweep ms}, the GEMM and reduction launches counted
+    during it, and the default tile's cost books; every GEMM launch must
+    take the wgmma route, and every sweep record carry books that agree
+    with the hand model (the tune shapes are whole tiles)."""
     from tpu_matmul_bench_torch.benchmarks import cuda_tune
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
     from tpu_matmul_bench_torch.utils.telemetry import is_manifest
@@ -696,6 +736,9 @@ def tune(phase: str, extra: list[str], out_dir: str,
         if r.extras.get("ksplit", 1) != ksplit:
             problems.append(f"tile {tile(r)} carries ksplit "
                             f"{r.extras.get('ksplit')}, not {ksplit}")
+        books = r.extras.get("cost_analysis")
+        if not r.extras.get("confirm_pass") and not (books and books["flops_ratio"] == 1.0):
+            problems.append(f"tile {tile(r)} cost_analysis {books}: not flops_ratio 1.0")
     if not lines or not is_manifest(lines[0]):
         problems.append("the JSONL does not start with its manifest")
     if len(lines) != 1 + len(records):
@@ -720,15 +763,193 @@ def tune(phase: str, extra: list[str], out_dir: str,
     emit(summary)
     if problems:
         fail(phase, "; ".join(problems))
-    return tiles_ms, gemm, reduce
+    books = next(r.extras.get("cost_analysis") for r in sweep
+                 if tile(r) == cm.DEFAULT_TILE)
+    return tiles_ms, gemm, reduce, books
+
+
+def headline_phase(k1_fused_tflops: float, out_dir: str) -> dict:
+    """The port's headline entry as a user runs it, `python -m
+    tpu_matmul_bench_torch.bench` in a process of its own (its attempts are
+    its children), with BENCH_TIMEOUT_S = HEADLINE_TIMEOUT_S. Every stdout
+    line must be JSON, the first the provisional 0.0; the last must read
+    `backend` "ok", 0 < `value` <= the card's bf16 peak, `by_impl` with both
+    `torch` and `cuda`, `impl` the larger of the two, and `by_impl["cuda"]`
+    within HEADLINE_MARGIN of `k1_fused_tflops`, the matmul phase's fused
+    K1 in this call. The attempts run in processes of their own, so their
+    launches cannot be counted here; their records say which product ran
+    instead: every `cuda` record carries the kernel's cost books (its
+    wrapper launches on a card tensor or raises), every other none (the
+    library's). Prints the line beside the card's name and power limit;
+    stops whatever the entry left running. Returns the last line."""
+    import torch
+
+    from tpu_matmul_bench_torch.utils.metrics import theoretical_peak_tflops
+
+    torch.cuda.empty_cache()  # the attempts need the card's memory
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BENCH_CHILD_CMD", "TMB_RANKS_PER_CARD")}
+    env.update(BENCH_TIMEOUT_S=str(HEADLINE_TIMEOUT_S),
+               BENCH_ARTIFACT_DIR=f"{out_dir}/headline")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "tpu_matmul_bench_torch.bench"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=HEADLINE_TIMEOUT_S + 60)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGTERM)  # the entry emits its best line
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)  # attempts it left running
+    seconds = time.perf_counter() - t0
+    problems = []
+    try:
+        lines = [json.loads(line) for line in out.splitlines() if line.strip()]
+    except ValueError as e:
+        lines = []
+        problems.append(f"a stdout line is not JSON: {e}")
+    last = lines[-1] if lines else {}
+    by_impl = last.get("by_impl") or {}
+    peak = theoretical_peak_tflops(torch.cuda.get_device_name(0), torch.bfloat16)
+    cuda_ratio = by_impl["cuda"] / k1_fused_tflops if "cuda" in by_impl else None
+    if not lines or lines[0].get("value") != 0.0:
+        problems.append("the first line is not the provisional 0.0")
+    if last.get("backend") != "ok":
+        problems.append(f"backend {last.get('backend')!r}, not 'ok'")
+    if not 0 < (last.get("value") or 0) <= peak:
+        problems.append(f"value {last.get('value')} outside (0, {peak}]")
+    if not {"torch", "cuda"} <= set(by_impl):
+        problems.append(f"by_impl {by_impl} lacks torch or cuda")
+    elif last.get("impl") != max(by_impl, key=by_impl.get):
+        problems.append(f"impl {last.get('impl')!r} is not the larger of {by_impl}")
+    if cuda_ratio is not None and abs(cuda_ratio - 1) > HEADLINE_MARGIN:
+        problems.append(f"by_impl cuda {by_impl['cuda']} is {cuda_ratio:.3f}x the "
+                        f"matmul phase's fused K1 {k1_fused_tflops:.2f} TFLOPS")
+    books = {}  # attempt file -> each record's flops_ratio, None without books
+    for path in sorted(glob.glob(f"{out_dir}/headline/attempt_*.jsonl")):
+        with open(path) as fh:
+            recs = [json.loads(line) for line in fh if line.strip()][1:]  # past the manifest
+        books[os.path.basename(path)] = [(r["extras"].get("cost_analysis") or {}).get(
+            "flops_ratio") for r in recs]
+    for name, ratios in books.items():
+        want = 1.0 if name.endswith("_cuda.jsonl") else None
+        if not ratios or any(r != want for r in ratios):
+            problems.append(f"{name}: records' cost_analysis flops_ratio {ratios}, not {want}")
+    emit({"phase": "headline", "nvidia_smi": card_line(), "line": last,
+          "lines": len(lines), "k1_fused_tflops": k1_fused_tflops,
+          "cuda_over_k1_fused": cuda_ratio, "attempt_books": books,
+          "seconds": seconds, "ok": not problems})
+    if problems:
+        fail("headline", "; ".join(problems))
+    return last
+
+
+def tune_ring_expected(label: str, tile: tuple[int, int, int]) -> tuple[str, str]:
+    """(step_route, transfer) that a ring's `tune --ring` record must read at
+    `tile`: `cuda_matmul.step_route` on its step's operands at bf16 SIZE²
+    over RING_WORLD ranks (rows packed, pointers made up and aligned as in
+    `route_args`; the all-gather rings' with their forwarding slot); on one
+    card an all-gather ring whose steps cannot forward hops, and a
+    reduce-scatter ring stores."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+
+    ag = label.startswith("ring_ag")
+    m, k, n = (AG_STEPS if ag else RS_STEPS)[label]
+    pointers = [(i + 1) * 2**20 for i in range(4)]
+    route = cm.step_route(torch.bfloat16, m, n, k, k, n, n, k if ag else n, *pointers,
+                          tile, forward=ag)
+    if not ag:
+        return route, "store"
+    return route, "forward" if route == "wgmma_persistent" else "hop"
+
+
+def tune_ring(label: str, overlap_ms: float, out_dir: str) -> dict:
+    """`tune --ring` through the tuner's entry point for the HBM ring
+    `label` at bf16 SIZE² over RING_WORLD ranks on the card, with
+    `--validate`: every record `validation: ok`; each tile's steps on the
+    route `tune_ring_expected` gives (the default tile on
+    `wgmma_persistent`, forwarding or storing, the others off it), and as
+    many hops as its calls that hopped make; the default tile's ms within
+    TUNE_RING_MARGIN of `overlap_ms`, the ring's in its overlap run just
+    before. Returns {tile: ms, step_route, transfer}."""
+    from tpu_matmul_bench_torch.benchmarks import cuda_tune
+    from tpu_matmul_bench_torch.ops import cuda_ring as cr
+    from tpu_matmul_bench_torch.utils.telemetry import is_manifest
+
+    mode = TUNE_RINGS[label]
+    phase = f"tune_ring[{mode}]"
+    bidir = "bidir" in mode
+    tiles = TUNE_RING_BIDIR_TILES if bidir else TUNE_RING_TILES
+    path = f"{out_dir}/tune_ring_{mode}.jsonl"
+    argv = ["--ring", mode, "--sizes", str(SIZE), "--dtype", "bfloat16",
+            "--num-devices", str(RING_WORLD), "--iterations", str(TUNE_RING_ITERATIONS),
+            "--warmup", str(OVERLAP_WARMUP), "--validate",
+            "--candidates", *[",".join(map(str, t)) for t in tiles], "--json-out", path]
+    transfers = cr.RS_TRANSFERS if "_rs_" in mode else cr.AG_TRANSFERS
+    cr.HOP_LAUNCHES = 0
+    transfers.update(dict.fromkeys(transfers, 0))
+    t0 = time.perf_counter()
+    with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
+        records = cuda_tune.main(argv)
+    seconds = time.perf_counter() - t0
+    hops, moved = cr.HOP_LAUNCHES, dict(transfers)
+    with open(path) as fh:
+        lines = [json.loads(line) for line in fh if line.strip()]
+    per_tile = {}
+    problems = []
+    got = [tuple(r.extras[f"block_{d}"] for d in "mnk") for r in records]
+    if got != tiles:
+        problems.append(f"the sweep measured {got}, not {tiles}")
+    for r, tile in zip(records, got):
+        key = "x".join(map(str, tile))
+        route, transfer = tune_ring_expected(label, tile)
+        per_tile[key] = {"ms": r.avg_time_s * 1e3, "step_route": r.extras["step_route"],
+                         "transfer": r.extras["transfer"],
+                         "peak_efficiency_pct": r.peak_efficiency_pct}
+        if r.extras.get("validation") != "ok":
+            problems.append(f"tile {key}: validation {r.extras.get('validation')}")
+        if (r.extras["step_route"], r.extras["transfer"]) != (route, transfer):
+            problems.append(f"tile {key}: steps {r.extras['step_route']}, transfer "
+                            f"{r.extras['transfer']}, not {route}, {transfer}")
+        if r.world != RING_WORLD or r.mode != f"tune_{mode}":
+            problems.append(f"tile {key}: world {r.world}, mode {r.mode}")
+        if not (r.peak_efficiency_pct and 0 < r.peak_efficiency_pct <= 100):
+            problems.append(f"tile {key}: peak_efficiency_pct {r.peak_efficiency_pct}")
+    default = per_tile.get("x".join(map(str, TUNE_RING_TILES[0])), {})
+    if default.get("step_route") != "wgmma_persistent" or default.get("transfer") not in (
+            "forward", "store"):
+        problems.append(f"the default tile ran {default}, not on wgmma_persistent "
+                        "forwarding or storing")
+    # hops only in the calls that took the hop schedule: D(D-1) a call,
+    # twice that for the bidirectional rings
+    per_call = RING_WORLD * (RING_WORLD - 1) * (2 if bidir else 1)
+    if hops != moved["hop"] * per_call:
+        problems.append(f"{hops} hops, not {per_call} for each of {moved} calls that hopped")
+    ratio = default["ms"] / overlap_ms if default else None
+    if ratio is None or abs(ratio - 1) > TUNE_RING_MARGIN:
+        problems.append(f"the default tile's ms over the overlap run's {overlap_ms:.3f} "
+                        f"is {ratio}")
+    if not lines or not is_manifest(lines[0]) or len(lines) != 1 + len(records):
+        problems.append("the JSONL does not hold its manifest and every record")
+    emit({"phase": phase, "tiles": per_tile, "hops": hops, "transfers": moved,
+          "overlap_ms": overlap_ms, "default_over_overlap": ratio, "seconds": seconds,
+          "ok": not problems})
+    if problems:
+        fail(phase, "; ".join(problems))
+    return per_tile
 
 
 def ksplit_entry(shape, max_abs_err: float, gemm: int, reduce: int,
-                 peak: float, bw: float) -> dict:
+                 kind: str) -> dict:
     """Times and bound of the split-K (S=2, default tile, dispatch) at one
     shape: the kernels, their plain version, and torch.matmul."""
     import torch
 
+    from tpu_matmul_bench_torch.obs import attribution
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
     from tpu_matmul_bench_torch.ops.matmul import random_operands
 
@@ -740,13 +961,13 @@ def ksplit_entry(shape, max_abs_err: float, gemm: int, reduce: int,
     library_ms = events_ms(lambda: torch.matmul(a, b), runs=5)
     del a, b
     torch.cuda.empty_cache()
-    ops_s = 2.0 * m * n * k / (peak * 1e12)
-    # A and B read once, 2 fp32 partials written and read back, C written
-    bytes_s = ((m * k + k * n) * 2 + 2 * 2 * m * n * 4 + m * n * 2) / (bw * 1e9)
+    # A and B read once, C written once, and 2 fp32 partials written and
+    # read back
+    bound_ms, bound_by = attribution.bound(m, n, k, torch.bfloat16, kind,
+                                           extra_bytes=2 * 2 * m * n * 4)
     return {"shape": f"{m}x{k}x{n}", "splits": 2, "kernel_ms": kernel_ms,
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(ops_s, bytes_s) * 1e3,
-            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": max_abs_err,
             "launches": gemm + reduce, "gemm_route": "wgmma",
             "launches_by_route": {"gemm:wgmma": gemm},
@@ -1819,27 +2040,20 @@ def profile_phase(cap: int, out_dir: str) -> dict:
     return result
 
 
-def ring_bound(m: int, k: int, n: int, item: int, out_item: int, peak: float,
-               bw: float) -> tuple[float, str]:
-    """The least time for the function a ring computes, Y = X·W over the
-    world: its 2mnk operations at the peak, or its bytes at the memory
-    rate, X and W read once and Y written once. The hops and staged
-    partials are the ring's own traffic, not the function's."""
-    ops_s = 2.0 * m * n * k / (peak * 1e12)
-    bytes_s = ((m * k + k * n) * item + m * n * out_item) / (bw * 1e9)
-    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
-
-
 def ring_entry(label: str, counts: dict, baseline_ms: float, card: str,
-               peak: float, bw: float, size: int = SIZE) -> tuple[dict, tuple]:
+               kind: str, size: int = SIZE) -> tuple[dict, tuple]:
     """Times and bound of one ring at bf16 size², RING_WORLD ranks on the
     card: the ring, its plain version and torch.matmul of the gathered
     operands, with the main path's launches and its baseline leg. Every
     shard of the ring's output is first held against the plain version's,
-    max|ring − plain| / max|plain| within the bf16 tolerance. Returns the
-    entry, the ring and its operands (X, W)."""
+    max|ring − plain| / max|plain| within the bf16 tolerance. The bound is
+    that of the function the ring computes, Y = X·W over the world (X and W
+    read once, Y written once: the hops and staged partials are the ring's
+    own traffic, not the function's). Returns the entry, the ring and its
+    operands (X, W)."""
     import torch
 
+    from tpu_matmul_bench_torch.obs import attribution
     from tpu_matmul_bench_torch.parallel.mesh import gather
 
     reduce_scatter, build, plain, _ = rings()[label]
@@ -1867,7 +2081,7 @@ def ring_entry(label: str, counts: dict, baseline_ms: float, card: str,
     library_ms = events_ms(lambda: torch.matmul(xg, wg), runs=5 if size == SIZE else 50)
     del xg, wg
     torch.cuda.empty_cache()
-    bound_ms, bound_by = ring_bound(size, size, size, 2, 2, peak, bw)
+    bound_ms, bound_by = attribution.bound(size, size, size, torch.bfloat16, kind)
     products, hops = counts["ring_steps"], counts["ring_hops"]
     if label == "ring_fused":
         launches = {"ring_fused": counts["fused"]}
@@ -1938,6 +2152,7 @@ def main() -> None:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         sys.exit(2)
     try:
+        from tpu_matmul_bench_torch.obs import attribution
         from tpu_matmul_bench_torch.ops import _build
         from tpu_matmul_bench_torch.ops.cuda_matmul import (
             PERSISTENT_TILES,
@@ -1949,11 +2164,6 @@ def main() -> None:
         from tpu_matmul_bench_torch.ops.matmul import random_operands
         from tpu_matmul_bench_torch.parallel.overlap import cuda_ring_max_size, l2_bytes
         from tpu_matmul_bench_torch.utils.device import apply_matmul_precision
-        from tpu_matmul_bench_torch.utils.metrics import (
-            hbm_spec_gbps,
-            matmul_flops,
-            theoretical_peak_tflops,
-        )
     except ImportError as e:
         print(f"chip_smoke: the port's package is not importable: {e}",
               file=sys.stderr)
@@ -2044,20 +2254,23 @@ def main() -> None:
         library, _ = drive("torch", "dispatch", out_dir)
         library_fused, _ = drive("torch", "fused", out_dir)
         c1 = c1_check([dispatch, fused, library, library_fused], out_dir)
-        tiles_mnk, _, _ = tune(f"tune[{SIZE}]", ["--sizes", str(SIZE)], out_dir)
-        tiles_nmk, _, _ = tune(f"tune[{SIZE},nmk]", ["--sizes", str(SIZE),
-                                                     "--grid-order", "nmk"], out_dir)
-        _, gemm_sq, reduce_sq = tune(
+        headline = headline_phase(fused["tflops"], out_dir)
+        tiles_mnk, _, _, _ = tune(f"tune[{SIZE}]", ["--sizes", str(SIZE)], out_dir)
+        tiles_nmk, _, _, _ = tune(f"tune[{SIZE},nmk]", ["--sizes", str(SIZE),
+                                                        "--grid-order", "nmk"], out_dir)
+        _, gemm_sq, reduce_sq, books_sq = tune(
             f"tune[ksplit,{SIZE}]", ["--sizes", str(SIZE), "--ksplit", "2"],
             out_dir, ksplit=2)
-        _, gemm_tall, reduce_tall = tune(
+        _, gemm_tall, reduce_tall, books_tall = tune(
             "tune[ksplit,{}x{}x{},nmk]".format(*TALL),
             ["--mkn", *map(str, TALL), "--grid-order", "nmk", "--ksplit", "2"],
             out_dir, ksplit=2)
-        overlaps = {label: drive_overlap(mode, out_dir) for label, mode in (
-            ("ring_ag", "cuda_ring_hbm"), ("ring_rs", "cuda_ring_rs_hbm"),
-            ("ring_ag_bidir", "cuda_ring_bidir_hbm"),
-            ("ring_rs_bidir", "cuda_ring_bidir_rs_hbm"))}
+        # each HBM ring's overlap run, then its tile sweep (the `tune_ring`
+        # phase) at the same point of the clock's fall
+        overlaps, tuned_rings = {}, {}
+        for label, mode in TUNE_RINGS.items():
+            overlaps[label] = drive_overlap(mode, out_dir)
+            tuned_rings[label] = tune_ring(label, overlaps[label][0]["avg_ms"], out_dir)
         overlaps["ring_fused"] = drive_overlap("cuda_ring", out_dir, size=cap)
         k2_at_cap, _ = drive_overlap("cuda_ring_hbm", out_dir, size=cap)
         scaling = scaling_phase(out_dir)
@@ -2071,27 +2284,29 @@ def main() -> None:
     del a, b
     torch.cuda.empty_cache()
 
+    # every bound from the kernels' cost books (obs/attribution.py): the
+    # product's operations at the card's peak, or its bytes (A and B read
+    # once, C written once) at its memory rate
     name = torch.cuda.get_device_name(0)
-    peak = theoretical_peak_tflops(name, torch.bfloat16)
-    bw = hbm_spec_gbps(name)
-    if not peak or not bw:
-        fail("bound", f"no peak or bandwidth row for {name!r}")
-    ops_s = matmul_flops(SIZE) / (peak * 1e12)
-    bytes_s = 3 * SIZE * SIZE * 2 / (bw * 1e9)  # read A and B, write C
+    try:
+        bound_ms, bound_by = attribution.bound(SIZE, SIZE, SIZE, torch.bfloat16, name)
+    except ValueError as e:
+        fail("bound", str(e))
 
     # 6. the split-K at both tune shapes: S=2, default tile, dispatch
     square = ksplit_entry((SIZE, SIZE, SIZE), ksplit_errors[(SIZE, SIZE, SIZE)],
-                          gemm_sq, reduce_sq, peak, bw)
-    tall = ksplit_entry(TALL, ksplit_errors[TALL], gemm_tall, reduce_tall,
-                        peak, bw)
+                          gemm_sq, reduce_sq, name)
+    tall = ksplit_entry(TALL, ksplit_errors[TALL], gemm_tall, reduce_tall, name)
+    square["cost_analysis"] = books_sq
+    tall["cost_analysis"] = books_tall
 
     # 7. the rings at bf16 16384^2 over RING_WORLD ranks on the card, the
     # fused ring at its cap, beside K2 on the same operands
     fused_summary, fused_counts = overlaps.pop("ring_fused")
-    entries = {label: ring_entry(label, counts, summary["baseline_ms"], card, peak, bw)[0]
+    entries = {label: ring_entry(label, counts, summary["baseline_ms"], card, name)[0]
                for label, (summary, counts) in overlaps.items()}
     entries["ring_fused"], (fused_ring, x, w) = ring_entry(
-        "ring_fused", fused_counts, fused_summary["baseline_ms"], card, peak, bw, size=cap)
+        "ring_fused", fused_counts, fused_summary["baseline_ms"], card, name, size=cap)
     k2 = rings()["ring_ag"][1](fused_ring.mesh)
     entries["ring_fused"].update(
         cap=cap, l2_bytes=l2, grid_blocks=fused_ring.grid_blocks, fused_route=fused_ring.route,
@@ -2111,6 +2326,8 @@ def main() -> None:
             turns_vs_collective_matmul={"mode": mode, "kernel_ms": turns["kernel_ms"],
                                         "collective_matmul_ms": turns["ms"],
                                         "library_ms": turns["library_ms"]})
+    for label, tiles in tuned_rings.items():
+        entries[label]["tune_ring"] = tiles
     for label in AG_STEPS:
         turns = ring_turns(label, card)
         entries[label].update(
@@ -2130,10 +2347,10 @@ def main() -> None:
         "max_abs_err": headline_err,
         "ms": dispatch["avg_ms"], "kernel_ms": dispatch["avg_ms"],
         "fused_ms": fused["avg_ms"], "plain_ms": plain_ms,
-        "bound_ms": max(ops_s, bytes_s) * 1e3,
-        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "cost_analysis": dispatch["cost_analysis"],
         "library_ms": library["avg_ms"], "library_fused_ms": library_fused["avg_ms"],
-        "c1": c1, "card": card,
+        "c1": c1, "card": card, "headline": headline,
         "tiles_ms": {t: {"mnk": tiles_mnk[t], "nmk": tiles_nmk[t]}
                      for t in tiles_mnk},
         # each parallel mode's products over RING_WORLD ranks (dispatch)

@@ -11,8 +11,8 @@ import sys
 
 _PROGRAMS = {
     "matmul": "tpu_matmul_bench_torch.benchmarks.matmul_benchmark",
-    # the kernel tile sweep (benchmarks/cuda_tune.py); the JAX package's
-    # tuning-database subcommands are not ported yet and fail by name
+    # the kernel tile sweep, and with --ring the HBM rings' (benchmarks/
+    # cuda_tune.py); the tuning-database subcommands fail by name (A12)
     "tune": "tpu_matmul_bench_torch.benchmarks.cuda_tune",
     # the parallel modes over a world of ranks, with a scaling efficiency
     "scaling": "tpu_matmul_bench_torch.benchmarks.matmul_scaling_benchmark",

@@ -6,16 +6,27 @@ tile, so this program measures each candidate tile on the device, checks
 it, and reports the ranking; feed the winner back via --block-m/n/k.
 `--grid-order` picks the raster of output tiles and `--ksplit` runs every
 candidate as the split-K GEMM plus its reduction (`cuda_matmul_ksplit`).
+Each record carries the kernel's own cost books for its launch
+(`extras["cost_analysis"]`, `obs/attribution.py`), split-K partials
+included.
+
+`--ring MODE` sweeps the same tiles over one of the HBM ring matmuls (K2–K5,
+`ops/cuda_ring.py`) instead: their step products take the candidate's
+tile, and only the default tile is instantiated on the persistent ring-step
+GEMM (`cuda_matmul.PERSISTENT_TILES`), so another tile takes the steps off
+it (`cuda_matmul.step_route`) and an all-gather ring then hops its chunks.
+Operands are sharded per the ring's contract over the world of
+--num-devices ranks (`parallel/mesh.py`, `TMB_RANKS_PER_CARD`); each record
+says which route its step products took and how the data moved
+(`step_route`, `transfer`), read from the launch counters.
 
 Run: python -m tpu_matmul_bench_torch tune --sizes 16384 --iterations 10 \\
         [--candidates 128,128,32 128,256,32 ...] [--mkn M K N] \\
-        [--grid-order nmk] [--ksplit 2]
+        [--grid-order nmk] [--ksplit 2] [--ring cuda_ring_hbm]
 
 Candidates are requests: each resolves to the tile that actually runs
 (`effective_blocks`), and requests that resolve alike are measured once.
-Not ported yet: `--ring` (the ring kernels come with the overlap slice),
-the XLA cost-analysis extras, and the tuning-database subcommands
-(`tune show/prune/fill/...`).
+Not ported yet: the tuning-database subcommands (`tune show/prune/fill/...`).
 """
 
 from __future__ import annotations
@@ -27,12 +38,22 @@ from tpu_matmul_bench_torch.models.workloads import (
     MatmulWorkload,
     RectMatmulWorkload,
 )
+from tpu_matmul_bench_torch.obs import attribution
+from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+from tpu_matmul_bench_torch.ops import cuda_ring as cr
 from tpu_matmul_bench_torch.ops.cuda_matmul import (
     TILES,
     cuda_matmul,
     cuda_matmul_ksplit,
     effective_blocks,
     effective_ksplit,
+)
+from tpu_matmul_bench_torch.parallel.mesh import (
+    COLS,
+    ROWS,
+    global_block,
+    make_mesh,
+    sharded_normal,
 )
 from tpu_matmul_bench_torch.parallel.modes import (
     VALIDATION_CORNER,
@@ -58,6 +79,7 @@ from tpu_matmul_bench_torch.utils.timing import (
     choose_timer,
     effective_warmup,
     protocol_extras,
+    time_jitted,
     time_variants_n,
 )
 
@@ -68,6 +90,12 @@ DEFAULT_CANDIDATES = list(TILES)
 DB_SUBCOMMANDS = ("show", "prune", "fill", "promote", "selftest", "online",
                   "artifacts")
 
+# The HBM ring matmuls `--ring` sweeps (`ops.ring_matmul_builders`); the
+# fused ring (K6) is left out, as the JAX package leaves out its resident
+# ring
+RING_MODES = ("cuda_ring_hbm", "cuda_ring_bidir_hbm", "cuda_ring_rs_hbm",
+              "cuda_ring_bidir_rs_hbm")
+
 
 def _candidate_fn(eff: tuple[int, int, int], grid_order: str = "mnk",
                   ksplit: int = 1):
@@ -77,6 +105,17 @@ def _candidate_fn(eff: tuple[int, int, int], grid_order: str = "mnk",
         return lambda a, b: cuda_matmul_ksplit(a, b, splits=ksplit, blocks=eff,
                                                grid_order=grid_order)
     return lambda a, b: cuda_matmul(a, b, blocks=eff, grid_order=grid_order)
+
+
+def _candidate_cost(eff: tuple[int, int, int], ksplit: int, a, b) -> dict:
+    """`extras["cost_analysis"]` of one candidate (`pallas_tune.py:111-125`
+    of the JAX package): the kernel's own books for the launch the
+    candidate makes on these operands (`cuda_matmul.launch_plan`), its
+    split-K partials counted in `bytes_accessed`."""
+    (m, k), n = a.shape, b.shape[1]
+    route, tile, splits = cm.launch_plan(a, b, eff, ksplit)
+    return {"cost_analysis": attribution.attribution_block(
+        route, m, n, k, tile, splits, a.dtype)}
 
 
 def _structural_extras(grid_order: str, ksplit: int) -> dict:
@@ -96,6 +135,127 @@ def _parse_candidate(text: str) -> tuple[int, int, int]:
         raise argparse.ArgumentTypeError(
             f"candidate must be 'bm,bn,bk' positive ints, got {text!r}")
     return parts
+
+
+def _ring_effective_blocks(kind: str, bidir: bool, size: int, d: int,
+                           want: tuple[int, int, int], dtype) -> tuple[int, int, int]:
+    """The tile a ring candidate's step products run
+    (`pallas_tune.py:128-154`): all-gather rings multiply [rows, k]×[k,
+    nshard] chunks, reduce-scatter rings [rows, klocal]×[klocal, n], and
+    the bidirectional forms halve the rows. The port's `effective_blocks`
+    does not read the shape, so both halves of a bidirectional ring run one
+    tile, and the tile is the dedupe key."""
+    mshard = size // d
+    rows = mshard // 2 if bidir else mshard
+    dims = (rows, size // d, size) if kind == "ag" else (rows, size, size // d)
+    return effective_blocks(*dims, *want, dtype)
+
+
+def _risen(before: dict, after: dict) -> str:
+    """The keys whose launch counts rose between two snapshots, joined by
+    "+"; "plain" where none did (on the CPU the wrappers run their plain
+    versions and launch nothing)."""
+    return "+".join(key for key in after if after[key] != before[key]) or "plain"
+
+
+def _tune_ring(ring: str, candidates, config, devices, info,
+               jw) -> list[BenchmarkRecord]:
+    """Sweep tiles over one HBM ring matmul (`pallas_tune.py:157-259`):
+    operands sharded per the ring's contract over the resolved ranks, each
+    candidate validated on the corner and timed by the dispatch protocol.
+    Beside JAX's per-candidate decision (`wres_engaged`, always False: the
+    port has no W-resident kernel) each record reads, from the launch
+    counters around the candidate's calls, the route its step products took
+    (`step_route`, `cuda_matmul.LAUNCHES_BY_ROUTE`) and how the ring moved
+    its data (`transfer`, `cuda_ring.AG_TRANSFERS` or `RS_TRANSFERS`).
+    `tflops_per_device` counts cards, as the overlap program's records do,
+    so ranks that share a card do not read as cards; with one rank a card
+    it is the JAX package's total over the world."""
+    from tpu_matmul_bench_torch.ops import ring_matmul_builders
+
+    builder, kind = ring_matmul_builders()[ring]
+    bidir = "bidir" in ring
+    mesh = make_mesh(devices)
+    d, cards = len(mesh.ranks), len(mesh.cards)
+    x_spec, w_spec = (ROWS, COLS) if kind == "ag" else (COLS, ROWS)
+    transfers = cr.AG_TRANSFERS if kind == "ag" else cr.RS_TRANSFERS
+    records: list[BenchmarkRecord] = []
+    for size in config.sizes:
+        if size % d:
+            report(f"\n[{size}] skip: size must divide the {d}-device ring")
+            continue
+        if bidir and size // d < 2:
+            report(f"\n[{size}] skip: bidirectional rings need ≥ 2 rows "
+                   f"per {d}-device chunk (have {size // d})")
+            continue
+        label = f"{ring}:{size}"
+        (a,) = sharded_normal(config.seed, (size, size), config.dtype, mesh,
+                              x_spec, count=1)
+        (b,) = sharded_normal(config.seed + 1, (size, size), config.dtype,
+                              mesh, w_spec, count=1)
+        results: list[tuple[tuple[int, int, int], float]] = []
+        seen: set[tuple[int, int, int]] = set()
+        for want in candidates:
+            # a request resolves to an instantiated tile: dedupe and report
+            # on what the step products actually run
+            eff = _ring_effective_blocks(kind, bidir, size, d, want, config.dtype)
+            if eff in seen:
+                report(f"\n[{label}] skip {want}: resolves to already-"
+                       f"measured {eff}")
+                continue
+            seen.add(eff)
+            bm, bn, bk = eff
+            note = "" if eff == tuple(want) else f" (requested {want})"
+            report(f"\n[{label}] timing bm={bm} bn={bn} bk={bk}{note} ...")
+            routes, moved = dict(cm.LAUNCHES_BY_ROUTE), dict(transfers)
+            try:
+                fn = builder(mesh, block_m=want[0], block_n=want[1],
+                             block_k=want[2], wres=config.wres_override)
+                verdict: dict = {}
+                if config.validate:  # a wrong tile fails fast
+                    c = min(VALIDATION_CORNER, size)
+                    verdict = corner_validation(
+                        global_block(fn(a, b), c, c),
+                        expected_corner(global_block(a, c, size),
+                                        global_block(b, size, c), corner=c),
+                        config.dtype)
+                    if verdict["validation"] != "ok":
+                        report(f"  VALIDATION FAILED: {verdict}")
+                        continue
+                t = time_jitted(fn, (a, b), iterations=config.iterations,
+                                warmup=config.warmup)
+            except Exception as e:  # noqa: BLE001 — a bad tile skips
+                report(f"  FAILED: {type(e).__name__}: {str(e)[:160]}")
+                continue
+            step_route = _risen(routes, cm.LAUNCHES_BY_ROUTE)
+            transfer = _risen(moved, transfers)
+            tflops = calculate_tflops(size, t.avg_s)
+            results.append((eff, tflops))
+            unit = throughput_unit(config.dtype)
+            report(f"  {tflops:.2f} {unit} total ({t.avg_s * 1e3:.3f} ms; "
+                   f"steps {step_route}, transfer {transfer})")
+            rec = BenchmarkRecord(
+                benchmark="tune", mode=f"tune_{ring}", size=size,
+                dtype=config.dtype_name, world=d,
+                iterations=t.iterations, warmup=config.warmup,
+                avg_time_s=t.avg_s, tflops_per_device=tflops / cards,
+                tflops_total=tflops, device_kind=info.device_kind,
+                extras={"block_m": bm, "block_n": bn, "block_k": bk,
+                        "ring": ring, "wres": config.wres,
+                        "wres_engaged": cr.resolve_wres(config.wres_override, d)[0],
+                        "step_route": step_route, "transfer": transfer,
+                        **verdict},
+            ).finalize()
+            records.append(rec)
+            jw.write(rec)
+        if results:
+            results.sort(key=lambda r: -r[1])
+            (bm, bn, bk), best = results[0]
+            report(f"\n[{label}] BEST: --block-m {bm} --block-n {bn} "
+                   f"--block-k {bk}  ({best:.2f} "
+                   f"{throughput_unit(config.dtype)} total)")
+        del a, b
+    return records
 
 
 def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
@@ -136,8 +296,31 @@ def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
              "single pass when K has no 128-aligned equal split). Default "
              "1 = single pass.",
     )
+    parser.add_argument(
+        "--ring", type=str, default=None, choices=list(RING_MODES),
+        help="Sweep the candidates over this HBM ring matmul instead of the "
+             "plain kernel (operands sharded over the --num-devices ranks; "
+             "TMB_RANKS_PER_CARD places several on one card)",
+    )
+    parser.add_argument(
+        "--wres", type=str, default="auto", choices=["auto", "on", "off"],
+        help="W-resident mode of the --ring kernels. The port has no "
+             "W-resident kernel: auto and off stream W from device memory; "
+             "on is an error.",
+    )
     args = parser.parse_args(argv)
+    if args.ring and (args.grid_order != "mnk" or args.ksplit != 1):
+        raise SystemExit("--grid-order/--ksplit tune the plain kernel; "
+                         "they cannot combine with --ring")
     config = config_from_args(args)
+    if args.ring and args.mkn:
+        raise SystemExit("--ring tunes the square --sizes sweep; "
+                         "it cannot combine with --mkn")
+    if args.ring and config.timing == "fused":
+        # the ring sweep keeps the reference dispatch protocol, as the JAX
+        # package's does
+        raise SystemExit("--ring tuning uses the dispatch protocol; "
+                         "drop --timing fused")
     apply_matmul_precision(config.precision)
 
     devices = resolve_devices(config.device, config.num_devices)
@@ -145,7 +328,7 @@ def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
     device = devices[0]
     report(device_banner(info))
     report(header(
-        "CUDA Matmul Tile Tuner",
+        "CUDA Matmul Tile Tuner" + (f" — ring {args.ring}" if args.ring else ""),
         {
             ("Shape" if args.mkn else "Sizes"):
                 ("x".join(map(str, args.mkn)) if args.mkn
@@ -163,15 +346,21 @@ def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
     if config.blocks is not None:
         candidates.insert(0, config.blocks)
 
+    def _manifest():
+        return telemetry.build_manifest(config) if config.json_out else None
+
+    if args.ring:
+        with telemetry.session(config.trace_out), \
+                JsonWriter(config.json_out, manifest=_manifest()) as jw:
+            return _tune_ring(args.ring, candidates, config, devices, info, jw)
+
     shapes: list[tuple[int, int, int]] = (
         [tuple(args.mkn)] if args.mkn
         else [(s, s, s) for s in config.sizes])
 
     records: list[BenchmarkRecord] = []
     with telemetry.session(config.trace_out), \
-            JsonWriter(config.json_out,
-                       manifest=(telemetry.build_manifest(config)
-                                 if config.json_out else None)) as jw:
+            JsonWriter(config.json_out, manifest=_manifest()) as jw:
         for m, k, n in shapes:
             rect = not (m == k == n)
             label = f"{m}x{k}x{n}" if rect else str(m)
@@ -225,7 +414,8 @@ def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
                 report(f"  {tflops:.2f} {unit} ({t.avg_s * 1e3:.3f} ms)")
                 extras = {"block_m": bm, "block_n": bn, "block_k": bk,
                           **_structural_extras(args.grid_order, eff_ks),
-                          **protocol_extras(config.timing, t), **verdict}
+                          **protocol_extras(config.timing, t), **verdict,
+                          **_candidate_cost(eff, eff_ks, a, b)}
                 if rect:
                     extras["shape"] = label
                 if config.precision != "default":

@@ -3,6 +3,9 @@
 Port of `tpu_matmul_bench/benchmarks/matmul_benchmark.py`: C = A·B timed
 over the size sweep (or one rectangular --mkn problem) with TFLOPS and
 peak-efficiency reporting, on the card unless --device cpu is given.
+A record of the hand-written kernel carries its cost books
+(`extras["cost_analysis"]`, `obs/attribution.py`); a record of the library
+product carries none.
 
 Run: python -m tpu_matmul_bench_torch matmul [--sizes ...]
 """
@@ -15,7 +18,9 @@ import torch
 
 from tpu_matmul_bench_torch.benchmarks.runner import run_sizes
 from tpu_matmul_bench_torch.models.workloads import MatmulWorkload, RectMatmulWorkload
-from tpu_matmul_bench_torch.ops.impl_select import auto_extras
+from tpu_matmul_bench_torch.obs import attribution
+from tpu_matmul_bench_torch.ops.cuda_matmul import launch_plan
+from tpu_matmul_bench_torch.ops.impl_select import auto_extras, select_impl
 from tpu_matmul_bench_torch.ops.matmul import make_matmul
 from tpu_matmul_bench_torch.parallel.modes import (
     VALIDATION_CORNER,
@@ -63,18 +68,39 @@ def _time(config: BenchConfig, fn, operands) -> Timing:
 
 def _extras(config: BenchConfig, t: Timing, mm, a, b, m: int, n: int,
             k: int, device_kind: str) -> dict:
-    """Record extras shared by the square and rectangular runs."""
+    """Record extras shared by the square and rectangular runs; the
+    kernel's cost books only where the kernel ran (`_cost_extras`)."""
     extras = protocol_extras(config.timing, t)
     if config.repeats > 1:
         extras["repeats"] = config.repeats  # best-of-N provenance
     extras.update(auto_extras(config.matmul_impl, m, n, k, device_kind,
                               config.dtype))
+    extras.update(_cost_extras(config, a, b, device_kind))
     extras.update(precision_extras())
     if config.percentiles:
         extras["latency_ms"] = latency_percentiles_ms(mm, (a, b), config)
     if config.samples:
         extras["samples"] = sample_extras(mm, (a, b), config)
     return extras
+
+
+def _cost_extras(config: BenchConfig, a, b, device_kind: str) -> dict:
+    """`extras["cost_analysis"]` (`matmul_benchmark.py:105-121` of the JAX
+    package): the hand-written kernel's own books for the launch it makes
+    on these operands (`cuda_matmul.launch_plan`, `obs/attribution.py`),
+    beside the hand model. Only where the kernel runs, `--matmul-impl cuda`
+    or an `auto` that resolves to it: the library product (cuBLAS) keeps no
+    books the port can read, so its records carry no block, as the JAX
+    package records none where `cost_analysis` is missing."""
+    (m, k), n = a.shape, b.shape[1]
+    impl = config.matmul_impl
+    if impl == "auto":
+        impl = select_impl(m, n, k, device_kind, a.dtype).impl
+    if impl != "cuda":
+        return {}
+    route, tile, splits = launch_plan(a, b, config.blocks)
+    return {"cost_analysis": attribution.attribution_block(
+        route, m, n, k, tile, splits, a.dtype)}
 
 
 def _validate(config: BenchConfig, mm, a, b, corner: int) -> dict:

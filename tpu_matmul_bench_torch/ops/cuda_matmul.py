@@ -356,6 +356,18 @@ def _route(a: torch.Tensor, b: torch.Tensor, k: int, splits: int = 1) -> str:
                       a.data_ptr(), b.data_ptr(), splits)
 
 
+def launch_plan(a: torch.Tensor, b: torch.Tensor,
+                blocks: tuple[int, int, int] | None = None,
+                splits: int = 1) -> tuple[str, tuple[int, int, int], int]:
+    """(route, tile, splits) of the GEMM launch that `cuda_matmul` (with
+    `splits` > 1, `cuda_matmul_ksplit`) makes for these operands: pure
+    functions of their dtype, shapes, row strides and pointers, so the
+    same on the CPU, where the wrappers run their plain versions. The cost
+    books (`obs/attribution.py`) describe this launch."""
+    s = effective_ksplit(a.shape[1], splits)
+    return _route(a, b, a.shape[1] // s, s), _resolve(a, b, blocks), s
+
+
 def _count(route: str) -> None:
     LAUNCHES_BY_ROUTE[route] += 1
 
