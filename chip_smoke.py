@@ -61,7 +61,8 @@ The paths:
   --ring` over it at the same size (the `tune_ring` phase): the default
   tile on the persistent ring-step GEMM within TUNE_RING_MARGIN of the
   overlap run, other tiles off it, on the route `cuda_matmul.step_route`
-  gives;
+  gives; the ring overlap lines and the `tune_ring` lines print the
+  fastest and slowest single call of their timed loops (ROADMAP C3);
 - the scaling and distributed programs, `tpu_matmul_bench_torch.benchmarks
   .matmul_scaling_benchmark.main` and `.matmul_distributed_benchmark.main`,
   in their five parallel modes at bf16 16384² over 4 ranks on the card,
@@ -70,7 +71,21 @@ The paths:
   product on K1's wgmma route (its two other shapes, 16384x16384x4096 and
   16384x4096x16384, held against the plain version first), as many
   launches as the mode makes, `validation: ok`, fused runs that ran fused
-  with their operands chained;
+  with their operands chained; then ROADMAP C2's check, each efficiency
+  mode's leg timed in turns with the single-device baseline's product at
+  steady clocks (`scaling_efficiency_in_turns`, at most 105%);
+- the wire formats (the `wire` phase): `wire_psum`, `wire_reduce_scatter`
+  and `wire_all_gather` called directly over 4 ranks on the card at bf16
+  16384² in int8 (the legacy tier), fp8, int8-block:128 and fp8-block:128,
+  each within its error bound of the exact collective and timed beside
+  it; then the programs under `--comm-quant` (the `comm_quant` phase):
+  `model_parallel` in the four formats, `data_parallel`, `batch_parallel`
+  and `matrix_parallel` in one each, and `model_parallel` int8-block:128
+  fused, each `validation: ok`, its K1 launches all on wgmma, its
+  `comm_quant` extra the port's own and every full-program call on the
+  wire; then the collectives program's six ops at a 16384² bf16 payload a
+  rank and `collectives selftest` (the `collectives` phase). With ranks
+  on one card every wire and collective is a copy within its memory;
 - the overlap program's seven library modes (the `overlap_modes` phase):
   `no_overlap`, `overlap` and `pipeline` (8 product+psum steps a call on
   the ranks' compute and communication streams) and the four
@@ -85,11 +100,11 @@ The paths:
   race check of `overlap`, `pipeline` and the four rings at 2048² holds
   each call to the same program run with the card synchronised after every
   launch;
-- `--profile-dir` (the `profile` phase): `batch_parallel` at 16384² and
-  the fused ring at its cap, each traced by torch.profiler, with the
-  device time per kernel, the device's busy and idle share inside the
-  timed windows and the fused ring's device time a launch read from the
-  traces.
+- `--profile-dir` (the `profile` phase): `batch_parallel` at 16384², the
+  fused ring at its cap and K4 at 16384², each traced by torch.profiler,
+  with the device time per kernel, the device's busy and idle share inside
+  the timed windows, the fused ring's device time a launch and the spread
+  of K4's step launches read from the traces.
 
 Standard output is one JSON object per line: one per phase, then the
 `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
@@ -167,6 +182,32 @@ SCALING_RUNS = [("scaling", "independent"), ("scaling", "batch_parallel"),
 SCALING_ITERATIONS, SCALING_WARMUP = 10, 2
 # rounds of the interleaved compute/full timing (utils/timing.py time_variants)
 VARIANT_ROUNDS = 3
+# ROADMAP C2: each efficiency mode's leg that its TFLOPS formula reads,
+# timed in turns with the single-device baseline's product at the power
+# limit's steady clocks (`efficiency_in_turns`): EFFICIENCY_CALLS calls of
+# the leg (RING_WORLD products each) against as many baseline products,
+# after EFFICIENCY_WARMUP calls of each, in EFFICIENCY_PASSES passes, every
+# other in the mirrored order; no card reads above EFFICIENCY_MAX_PCT
+EFFICIENCY_LEGS = {"independent": "compute", "batch_parallel": "full",
+                   "data_parallel": "compute"}
+EFFICIENCY_CALLS, EFFICIENCY_WARMUP, EFFICIENCY_PASSES = 20, 20, 3
+EFFICIENCY_MAX_PCT = 105.0
+# the wire formats at bf16 SIZE² over RING_WORLD ranks on the card (the
+# `wire` phase): each format's bound on the relative error of the whole
+# output (Frobenius norm) against the exact collective, the seeded bounds
+# of tests/test_comm_quant_block.py; WIRE_RUNS calls each, the median
+WIRE_FORMATS = {"int8": 0.02, "fp8": 0.08, "int8-block:128": 0.02, "fp8-block:128": 0.08}
+WIRE_RUNS = 10
+# the programs under --comm-quant (the `comm_quant` phase): (program, mode,
+# format), cuda dispatch with --validate, and one fused run
+COMM_QUANT_RUNS = [("distributed", "model_parallel", spec) for spec in WIRE_FORMATS] + [
+    ("distributed", "data_parallel", "int8-block:128"),
+    ("scaling", "batch_parallel", "fp8-block:128"),
+    ("scaling", "matrix_parallel", "int8-block:128")]
+COMM_QUANT_FUSED = ("distributed", "model_parallel", "int8-block:128")
+# the collectives program's six ops at a SIZE² bf16 payload a rank
+COLLECTIVE_OPS = ("psum", "all_gather", "reduce_scatter", "ppermute", "ppermute_bidir",
+                  "all_to_all")
 # K1's shape in each mode over RING_WORLD ranks, (m, k, n): held against the
 # plain version in kernel_vs_plain, on the wgmma route
 SCALING_SHAPES = {"independent": (SIZE, SIZE, SIZE), "batch_parallel": (SIZE, SIZE, SIZE),
@@ -395,6 +436,80 @@ def events_ms(fn, runs: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / runs
+
+
+@contextlib.contextmanager
+def single_calls():
+    """Each timed call's device ms in the timed loops that run inside the
+    block (`utils/timing.py time_jitted`, which the programs' timers and
+    `cuda_tune` call), by the timed program: the yielded dict maps the
+    order in which each program was first timed (0, 1, ...) to its calls'
+    ms ("ms") and the caching allocator's device allocations and retries
+    inside its windows ("device_allocs", "alloc_retries": a retry frees
+    the cache and waits for the card). A CUDA event is recorded on the
+    current stream after each call of the loop, which the loop's own
+    events already bracket, so the calls are the ones the phase makes
+    anyway and the window's time stays its own."""
+    import torch
+
+    from tpu_matmul_bench_torch.benchmarks import cuda_tune
+    from tpu_matmul_bench_torch.utils import timing
+
+    spans: dict[int, dict] = {}
+    order: dict[int, int] = {}
+    timed: list = []  # each timed program, held so that no later one takes its id
+    current: list[int | None] = [None]
+    time_jitted, timed_loop = timing.time_jitted, timing._timed_loop
+
+    def tagged(fn, args, **kw):
+        if id(fn) not in order:
+            order[id(fn)] = len(order)
+            timed.append(fn)
+        current[0] = order[id(fn)]
+        try:
+            return time_jitted(fn, args, **kw)
+        finally:
+            current[0] = None
+
+    def marked_loop(call, n, card, overhead):
+        if not card or current[0] is None:
+            return timed_loop(call, n, card, overhead)
+        marks = [torch.cuda.Event(enable_timing=True)]
+
+        def marked():
+            out = call()
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            return out
+
+        before = torch.cuda.memory_stats()
+        marks[0].record()
+        out, seconds = timed_loop(marked, n, card, overhead)
+        after = torch.cuda.memory_stats()
+        entry = spans.setdefault(current[0], {"ms": [], "device_allocs": 0,
+                                              "alloc_retries": 0})
+        entry["ms"].extend(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+        entry["device_allocs"] += after["num_device_alloc"] - before["num_device_alloc"]
+        entry["alloc_retries"] += after["num_alloc_retries"] - before["num_alloc_retries"]
+        return out, seconds
+
+    timing.time_jitted = cuda_tune.time_jitted = tagged
+    timing._timed_loop = marked_loop
+    try:
+        yield spans
+    finally:
+        timing.time_jitted = cuda_tune.time_jitted = time_jitted
+        timing._timed_loop = timed_loop
+
+
+def spread(entry: dict | None) -> dict:
+    """min, max and count of a program's single-call ms (`single_calls`),
+    and the allocator's device allocations and retries in its windows."""
+    if not entry or not entry["ms"]:
+        return {"n": 0}
+    calls = entry["ms"]
+    return {"min_ms": min(calls), "max_ms": max(calls), "n": len(calls),
+            "device_allocs": entry["device_allocs"], "alloc_retries": entry["alloc_retries"]}
 
 
 def compare(dtype_name: str, mkn, kernel, plain) -> dict:
@@ -893,7 +1008,8 @@ def tune_ring(label: str, overlap_ms: float, out_dir: str) -> dict:
     cr.HOP_LAUNCHES = 0
     transfers.update(dict.fromkeys(transfers, 0))
     t0 = time.perf_counter()
-    with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
+    with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr), \
+            single_calls() as calls:
         records = cuda_tune.main(argv)
     seconds = time.perf_counter() - t0
     hops, moved = cr.HOP_LAUNCHES, dict(transfers)
@@ -904,12 +1020,14 @@ def tune_ring(label: str, overlap_ms: float, out_dir: str) -> dict:
     got = [tuple(r.extras[f"block_{d}"] for d in "mnk") for r in records]
     if got != tiles:
         problems.append(f"the sweep measured {got}, not {tiles}")
-    for r, tile in zip(records, got):
+    # the tiles are timed in the order of the sweep, one program each
+    for i, (r, tile) in enumerate(zip(records, got)):
         key = "x".join(map(str, tile))
         route, transfer = tune_ring_expected(label, tile)
         per_tile[key] = {"ms": r.avg_time_s * 1e3, "step_route": r.extras["step_route"],
                          "transfer": r.extras["transfer"],
-                         "peak_efficiency_pct": r.peak_efficiency_pct}
+                         "peak_efficiency_pct": r.peak_efficiency_pct,
+                         "single_calls": spread(calls.get(i))}
         if r.extras.get("validation") != "ok":
             problems.append(f"tile {key}: validation {r.extras.get('validation')}")
         if (r.extras["step_route"], r.extras["transfer"]) != (route, transfer):
@@ -1491,7 +1609,8 @@ def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict
     cr.AG_TRANSFERS.update(forward=0, hop=0)
     crf.FUSED_RING_LAUNCHES = 0
     before = routes()
-    with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
+    with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr), \
+            single_calls() as calls, clock_samples() as during:
         records = matmul_overlap_benchmark.main(argv)
     counts = {"matmul": cm.LAUNCHES, "matmul_acc": cm.ACC_LAUNCHES,
               "matmul_rs": cm.RS_LAUNCHES, "matmul_ag": cm.AG_LAUNCHES,
@@ -1516,7 +1635,10 @@ def drive_overlap(mode: str, out_dir: str, size: int = SIZE) -> tuple[dict, dict
                "ranks_per_card": x.get("ranks_per_card"),
                "validation": x.get("validation"),
                "validation_max_rel_err": x.get("validation_max_rel_err"),
-               "wres_engaged": x.get("wres_engaged"), "launches": counts}
+               "wres_engaged": x.get("wres_engaged"), "launches": counts,
+               # the baseline is timed first in each round, then the ring
+               "baseline_single_calls": spread(calls.get(0)),
+               "ring_single_calls": spread(calls.get(1)), "during": during}
     problems = []
     if x.get("validation") != "ok":
         problems.append("validation is not ok")
@@ -1874,36 +1996,49 @@ def scaling_launches(mode: str, d: int, timing: str) -> int:
 
 
 def drive_scaling(program: str, mode: str, impl: str, timing: str, out_dir: str,
-                  d: int = RING_WORLD, profile_dir: str | None = None) -> dict:
+                  d: int = RING_WORLD, profile_dir: str | None = None,
+                  comm_quant: str | None = None) -> dict:
     """One run of the scaling or distributed program through its entry
     point, its ranks on the card; returns the record's summary. Every K1
     launch must take the wgmma route, as many as the mode makes
-    (`scaling_launches`); the library run launches none."""
+    (`scaling_launches`); the library run launches none. Under
+    `comm_quant` (a `--comm-quant` value) the record's `comm_quant` extra
+    must be the port's `comm_quant_record_extra` for the run, and every
+    call of the full program must have put its collective on that wire
+    (`collectives.WIRE_CALLS`)."""
     from tpu_matmul_bench_torch.benchmarks import (
         matmul_distributed_benchmark,
         matmul_scaling_benchmark,
     )
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.parallel import collectives
     from tpu_matmul_bench_torch.utils.telemetry import is_manifest
 
     entry = (matmul_scaling_benchmark if program == "scaling"
              else matmul_distributed_benchmark).main
-    tag = f"{mode},{impl},{timing}" + ("" if d == RING_WORLD else f",d={d}")
-    path = f"{out_dir}/{program}-{tag.replace(',', '-')}.jsonl"
+    tag = (f"{mode},{impl},{timing}" + ("" if d == RING_WORLD else f",d={d}")
+           + (f",{comm_quant}" if comm_quant else ""))
+    path = f"{out_dir}/{program}-{tag.replace(',', '-').replace(':', '')}.jsonl"
     argv = ["--mode", mode, "--sizes", str(SIZE), "--dtype", "bfloat16",
             "--num-devices", str(d), "--matmul-impl", impl, "--timing", timing,
             "--iterations", str(SCALING_ITERATIONS), "--warmup", str(SCALING_WARMUP),
             "--validate", "--json-out", path]
     if profile_dir:
         argv += ["--profile-dir", profile_dir]
+    if comm_quant:
+        argv += ["--comm-quant", comm_quant]
     # the baseline is measured in this run, not taken from an earlier one
     matmul_scaling_benchmark._BASELINE_CACHE.clear()
     cm.LAUNCHES = 0
+    collectives.WIRE_CALLS.clear()
     before = routes()
+    t0 = time.perf_counter()
     with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr), \
             clock_samples() as during:
         records = entry(argv)
+    seconds = time.perf_counter() - t0
     launches, by_route = cm.LAUNCHES, routes_since(before)
+    wire_calls = {f"{spec},{kind}": n for (spec, kind), n in collectives.WIRE_CALLS.items()}
     phase = f"scaling[{tag}]"
     if len(records) != 1:
         fail(phase, f"expected one record, got {len(records)} (the runner "
@@ -1929,8 +2064,13 @@ def drive_scaling(program: str, mode: str, impl: str, timing: str, out_dir: str,
                "validation_max_rel_err": x.get("validation_max_rel_err"),
                "timing": x.get("timing", "dispatch"), "chain": x.get("chain"),
                "k1_launches": launches, "expected_k1_launches": want,
-               "launches_by_route": by_route, "during": during}
+               "launches_by_route": by_route, "during": during, "seconds": seconds}
     problems = []
+    if comm_quant:
+        problems += comm_quant_problems(program, mode, comm_quant, timing, rec, wire_calls)
+        summary.update(comm_quant=x.get("comm_quant"), wire_calls=wire_calls)
+    elif wire_calls:
+        problems.append(f"no --comm-quant, yet a wire format ran: {wire_calls}")
     if x.get("validation") != "ok":
         problems.append("validation is not ok")
     if peak is None or not 0 < peak <= 100:
@@ -1961,6 +2101,287 @@ def drive_scaling(program: str, mode: str, impl: str, timing: str, out_dir: str,
     return summary
 
 
+def comm_quant_problems(program: str, mode: str, spec: str, timing: str, rec,
+                        wire_calls: dict) -> list[str]:
+    """What a --comm-quant run of the scaling or distributed program got
+    wrong: its `comm_quant` extra against the port's own
+    `comm_quant_record_extra` (payload_reduction_x 2.0 for bf16), its
+    validation tolerance against `quantized_tolerance`, and its wire calls:
+    one for each call of the full program (the validation's and the timed
+    ones, `scaling_calls`), under the format that ran."""
+    from tpu_matmul_bench_torch.parallel.collectives import (
+        comm_quant_record_extra,
+        parse_wire_format,
+    )
+    from tpu_matmul_bench_torch.parallel.modes import quantized_tolerance
+    from tpu_matmul_bench_torch.utils.config import parse_config
+
+    config = parse_config(["--sizes", str(SIZE), "--dtype", "bfloat16", "--comm-quant", spec],
+                          "t", modes=[mode], comm_quant=True)
+    want = comm_quant_record_extra(config, RING_WORLD, mode=mode, size=SIZE)
+    got = rec.extras.get("comm_quant")
+    problems = []
+    if got != want:
+        problems.append(f"extras comm_quant {got}, not {want}")
+    if (got or {}).get("payload_reduction_x") != 2.0:
+        problems.append(f"payload_reduction_x {(got or {}).get('payload_reduction_x')}, not 2.0")
+    tol = quantized_tolerance(spec, RING_WORLD)
+    if rec.extras.get("validation_tolerance") != tol:
+        problems.append(f"validation_tolerance {rec.extras.get('validation_tolerance')}, "
+                        f"not {tol}")
+    fmt = parse_wire_format(spec)
+    kind = "all_gather" if mode == "matrix_parallel" else "all_reduce"
+    full_calls = 1 + (scaling_calls(mode, RING_WORLD, timing) - 1) // 2
+    expect = {f"{'int8' if fmt.legacy else spec},{kind}": full_calls}
+    if wire_calls != expect:
+        problems.append(f"wire calls {wire_calls}, not {expect}")
+    return problems
+
+
+def efficiency_in_turns(runs: dict, card: str) -> dict:
+    """ROADMAP C2: each efficiency mode at bf16 SIZE² over RING_WORLD ranks
+    under K1, the leg its TFLOPS formula reads (EFFICIENCY_LEGS), timed in
+    turns with the single-device baseline's product (`matmul_scaling_
+    benchmark._single_device_tflops`: SIZE³ through K1 on the first rank's
+    card) at the power limit's steady clocks, the same number of products
+    in each leg; the efficiency by the record's own formula
+    (`attach_scaling_efficiency`) from each pass's two legs, the median of
+    the passes, beside the record's `scaling_efficiency_pct` from the
+    `scaling` phase, with each leg's SM clock. Fails above
+    EFFICIENCY_MAX_PCT."""
+    import torch
+
+    from tpu_matmul_bench_torch.models.workloads import MatmulWorkload
+    from tpu_matmul_bench_torch.ops.matmul import make_matmul
+    from tpu_matmul_bench_torch.parallel import modes
+    from tpu_matmul_bench_torch.utils.config import parse_config
+    from tpu_matmul_bench_torch.utils.metrics import calculate_tflops
+    from tpu_matmul_bench_torch.utils.reporting import attach_scaling_efficiency
+    from tpu_matmul_bench_torch.utils.timing import Timing
+
+    t0 = time.perf_counter()
+    builders = {**modes.SCALING_MODES, **modes.DISTRIBUTED_MODES}
+    config = parse_config(["--sizes", str(SIZE), "--dtype", "bfloat16", "--matmul-impl",
+                           "cuda"], "t", modes=list(EFFICIENCY_LEGS))
+    mesh = card_mesh(RING_WORLD)
+    kind = torch.cuda.get_device_name(0)
+    a, b = MatmulWorkload(SIZE, config.dtype, seed=config.seed).operands(mesh.devices[0])
+    mm = make_matmul("cuda", None, kind)
+    result = {}
+    for mode, leg in EFFICIENCY_LEGS.items():
+        setup = builders[mode](config, mesh, SIZE)
+        program = getattr(setup, leg)
+        products = RING_WORLD * max(4 // RING_WORLD, 1)  # a call's products, ranks × local batch
+        calls = {mode: (lambda: program(*setup.operands), EFFICIENCY_CALLS),
+                 "single": (lambda: mm(a, b), EFFICIENCY_CALLS * products)}
+        for fn, n in calls.values():
+            for _ in range(EFFICIENCY_WARMUP):
+                fn()
+        passes, clocks_by_leg = [], {name: [] for name in calls}
+        order = list(calls)
+        for p in range(EFFICIENCY_PASSES):
+            ms = {}
+            for name in order if p % 2 == 0 else order[::-1]:
+                fn, n = calls[name]
+                with clock_samples() as during:
+                    ms[name] = events_ms(fn, n)
+                clocks_by_leg[name].append(during.get("sm_mhz_mean"))
+            t_leg = Timing(total_s=ms[mode] * EFFICIENCY_CALLS / 1e3,
+                           iterations=EFFICIENCY_CALLS)
+            rec = setup.build_record(t_leg, t_leg, 0.0)
+            attach_scaling_efficiency(rec, calculate_tflops(SIZE, ms["single"] / 1e3))
+            passes.append({"leg_ms": ms[mode], "single_ms": ms["single"],
+                           "scaling_efficiency_pct": rec.scaling_efficiency_pct})
+        del setup, program, calls
+        torch.cuda.empty_cache()
+        in_turns = statistics.median(q["scaling_efficiency_pct"] for q in passes)
+        result[mode] = {"leg": leg, "products_a_call": products,
+                        "scaling_efficiency_in_turns_pct": in_turns,
+                        "scaling_efficiency_pct": runs[mode]["cuda,dispatch"][
+                            "scaling_efficiency_pct"],
+                        "sm_mhz_mean": clocks_by_leg, "passes": passes}
+    del a, b
+    torch.cuda.empty_cache()
+    over = {m: r["scaling_efficiency_in_turns_pct"] for m, r in result.items()
+            if r["scaling_efficiency_in_turns_pct"] > EFFICIENCY_MAX_PCT}
+    emit({"phase": "scaling_efficiency_in_turns", "card": card, "calls": EFFICIENCY_CALLS,
+          "warmup": EFFICIENCY_WARMUP, "modes": result,
+          "seconds": time.perf_counter() - t0, "ok": not over})
+    if over:
+        fail("scaling_efficiency_in_turns", f"above {EFFICIENCY_MAX_PCT}%: {over}")
+    return result
+
+
+def comm_quant_phase(scaling: dict, out_dir: str) -> dict:
+    """The scaling and distributed programs under --comm-quant
+    (COMM_QUANT_RUNS, cuda dispatch, --validate, and COMM_QUANT_FUSED under
+    --timing fused), each checked by `drive_scaling` and
+    `comm_quant_problems`; prints each run's comm ms beside the exact run's
+    from the `scaling` phase of this call. Ranks that share the card move
+    the payloads within its memory: the quantize and dequantize passes
+    only add time there."""
+    t0 = time.perf_counter()
+    runs = {}
+    for program, mode, spec in COMM_QUANT_RUNS:
+        runs[f"{mode},{spec},dispatch"] = drive_scaling(program, mode, "cuda", "dispatch",
+                                                        out_dir, comm_quant=spec)
+    program, mode, spec = COMM_QUANT_FUSED
+    runs[f"{mode},{spec},fused"] = drive_scaling(program, mode, "cuda", "fused", out_dir,
+                                                 comm_quant=spec)
+    table = {}
+    for label, r in runs.items():
+        mode, _, timing = label.split(",")
+        exact = scaling[r["mode"]][f"cuda,{timing}"]
+        table[label] = {"avg_ms": r["avg_ms"], "compute_ms": r["compute_ms"],
+                        "comm_ms": r["comm_ms"], "exact_comm_ms": exact["comm_ms"],
+                        "exact_avg_ms": exact["avg_ms"],
+                        "validation_max_rel_err": r["validation_max_rel_err"],
+                        "wire_bytes": r["comm_quant"].get("wire_bytes"),
+                        "baseline_bytes": r["comm_quant"].get("baseline_bytes")}
+    emit({"phase": "comm_quant", "runs": table, "wire": "the card's memory, not NVLink",
+          "seconds": time.perf_counter() - t0, "ok": True})
+    return runs
+
+
+def wire_phase(card: str) -> dict:
+    """The port's wire collectives called directly at bf16 over RING_WORLD
+    ranks on the card, on Gaussian shards: `wire_psum` (the legacy tier
+    for int8) and `wire_reduce_scatter` on a SIZE² shard a rank (as
+    model_parallel's partials), `wire_all_gather` along axis 1 on a SIZE ×
+    SIZE/RING_WORLD shard (as matrix_parallel's C shard), in each format
+    of WIRE_FORMATS; each held against the exact collective on the same
+    shards, the whole output's relative error (Frobenius norm) within the
+    format's bound, and timed (CUDA events, the median of WIRE_RUNS calls)
+    beside it. The legacy tier has no reduce_scatter half and must be
+    refused. Prints the wire calls counted during each."""
+    import torch
+
+    from tpu_matmul_bench_torch.parallel import collectives as col
+    from tpu_matmul_bench_torch.parallel.mesh import COLS, ROWS, sharded_normal
+
+    t0 = time.perf_counter()
+    mesh = card_mesh(RING_WORLD)
+    (full,) = sharded_normal(23, (RING_WORLD * SIZE, SIZE), torch.bfloat16, mesh, ROWS,
+                             count=1)
+    (cols,) = sharded_normal(29, (SIZE, SIZE), torch.bfloat16, mesh, COLS, count=1)
+    ops = {"psum": (col.psum_impl, col.psum_over(mesh), full, {}),
+           "reduce_scatter": (col.reduce_scatter_impl,
+                              col.psum_scatter_over(mesh, scatter_dimension=0), full, {}),
+           "all_gather": (col.allgather_impl, col.all_gather_over(mesh, gather_axis=1),
+                          cols, {"axis": 1})}
+
+    def median_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(WIRE_RUNS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def rel(got: list, want: list) -> float:
+        num = sum(float(torch.linalg.vector_norm(g.float() - w.float()) ** 2)
+                  for g, w in zip(got, want))
+        den = sum(float(torch.linalg.vector_norm(w.float()) ** 2) for w in want)
+        return math.sqrt(num / den)
+
+    result, problems = {}, []
+    for op, (impl, exact, shards, kw) in ops.items():
+        want = exact(shards)
+        # every rank of a psum or gather holds the same result: rank 0's
+        # is the output; a reduce_scatter's is every rank's chunk
+        want = want if op == "reduce_scatter" else want[:1]
+        row = {"exact_ms": median_ms(lambda: exact(shards))}
+        for spec, bound in WIRE_FORMATS.items():
+            fmt = col.parse_wire_format(spec)
+            if op == "reduce_scatter" and fmt.legacy:
+                try:
+                    impl(spec)
+                    problems.append(f"reduce_scatter took the legacy {spec}")
+                except ValueError as e:
+                    row[spec] = {"refused": str(e)}
+                continue
+            fn = impl(spec)
+            col.WIRE_CALLS.clear()
+            got = fn(mesh, shards, **kw)
+            got = got if op == "reduce_scatter" else got[:1]
+            err = rel(got, want)
+            del got
+            ms = median_ms(lambda: fn(mesh, shards, **kw))
+            ticks = {f"{k[0]},{k[1]}": n for k, n in col.WIRE_CALLS.items()}
+            row[spec] = {"ms": ms, "rel_err": err, "bound": bound, "wire_calls": ticks}
+            if not err < bound:
+                problems.append(f"{op} {spec}: relative error {err} >= {bound}")
+            # the check's call, the warm call and the timed ones
+            if sum(ticks.values()) != WIRE_RUNS + 2:
+                problems.append(f"{op} {spec}: wire calls {ticks}")
+            torch.cuda.empty_cache()
+        result[op] = row
+        del want
+        torch.cuda.empty_cache()
+    del full, cols
+    torch.cuda.empty_cache()
+    emit({"phase": "wire", "card": card, "ranks": RING_WORLD, "dtype": "bfloat16",
+          "shapes": {"psum": [SIZE, SIZE], "reduce_scatter": [SIZE, SIZE],
+                     "all_gather": [SIZE, SIZE // RING_WORLD]},
+          "wire": "the card's memory, not NVLink", "ops": result,
+          "seconds": time.perf_counter() - t0, "ok": not problems})
+    if problems:
+        fail("wire", "; ".join(problems))
+    return result
+
+
+def collectives_phase(card: str, out_dir: str) -> dict:
+    """The collectives program through its entry point over RING_WORLD
+    ranks on the card, each of its six ops at a SIZE² bf16 payload a rank
+    with --validate, then `collectives selftest`: every op `validation:
+    ok`, the selftest returns. Ranks that share the card copy within its
+    memory, so algbw and busbw are the card's memory, not NVLink."""
+    from tpu_matmul_bench_torch.benchmarks import collective_benchmark
+
+    t0 = time.perf_counter()
+    result, problems = {}, []
+    for op in COLLECTIVE_OPS:
+        path = f"{out_dir}/collectives-{op}.jsonl"
+        argv = ["--mode", op, "--sizes", str(SIZE), "--dtype", "bfloat16",
+                "--num-devices", str(RING_WORLD), "--iterations", str(SCALING_ITERATIONS),
+                "--warmup", str(SCALING_WARMUP), "--validate", "--json-out", path]
+        with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
+            records = collective_benchmark.main(argv)
+        if len(records) != 1:
+            fail(f"collectives[{op}]", f"expected one record, got {len(records)}")
+        rec = records[0]
+        result[op] = {"ms": rec.avg_time_s * 1e3, "algbw_gbps": rec.algbw_gbps,
+                      "busbw_gbps": rec.busbw_gbps, "bytes_per_device": rec.bytes_per_device,
+                      "validation": rec.extras.get("validation"),
+                      "cards": rec.extras.get("cards"),
+                      "ranks_per_card": rec.extras.get("ranks_per_card")}
+        if rec.extras.get("validation") != "ok" or rec.world != RING_WORLD:
+            problems.append(f"{op}: validation {rec.extras.get('validation')}, "
+                            f"world {rec.world}")
+    t_selftest = time.perf_counter()
+    try:
+        with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
+            collective_benchmark.main(["selftest"])
+        selftest = 0
+    except SystemExit as e:
+        selftest = e.code
+        problems.append(f"collectives selftest exited {e.code}")
+    emit({"phase": "collectives", "card": card, "ranks": RING_WORLD,
+          "payload": [SIZE, SIZE], "dtype": "bfloat16",
+          "bandwidth": "copies within one card's memory, not NVLink", "ops": result,
+          "selftest_exit": selftest, "selftest_seconds": time.perf_counter() - t_selftest,
+          "seconds": time.perf_counter() - t0, "ok": not problems})
+    if problems:
+        fail("collectives", "; ".join(problems))
+    return result
+
+
 def scaling_phase(out_dir: str) -> dict:
     """The five modes at bf16 SIZE² over RING_WORLD ranks on the card under
     K1 (dispatch, fused) and the library (dispatch), and matrix_parallel
@@ -1982,23 +2403,39 @@ def scaling_phase(out_dir: str) -> dict:
     table["matrix_parallel,d=1"] = {"cuda_ms": fallback["avg_ms"],
                                     "record_mode": fallback["mode"]}
     emit({"phase": "scaling", "modes": table, "ok": True})
+    efficiency_in_turns(runs, card_line())
     return runs
 
 
+def launch_spread(trace: str, name_part: str) -> dict:
+    """The device µs of each launch of the kernels whose name holds
+    `name_part` in a trace: count, min, median, max."""
+    from tpu_matmul_bench_torch.utils import profiling
+
+    durs = sorted(float(e["dur"]) for e in profiling.device_events(profiling.load_events(trace))
+                  if str(e.get("cat", "")).lower() == "kernel" and name_part in e["name"])
+    if not durs:
+        return {"count": 0}
+    return {"count": len(durs), "min_us": durs[0], "median_us": statistics.median(durs),
+            "max_us": durs[-1]}
+
+
 def profile_phase(cap: int, out_dir: str) -> dict:
-    """--profile-dir on the card: batch_parallel at bf16 SIZE² and the fused
-    ring at its cap, each traced by torch.profiler; prints each trace's
-    device time per kernel, the device's busy and idle share inside the
-    timed windows, and K6's device time a launch beside its event-timed
-    ms. Fails when a trace holds no device kernel event; where the profiler
-    records no CUDA activity at all, the program raises and the phase
-    reports why."""
+    """--profile-dir on the card: batch_parallel at bf16 SIZE², the fused
+    ring at its cap and K4 at SIZE² (ROADMAP C3), each traced by
+    torch.profiler; prints each trace's device time per kernel, the
+    device's busy and idle share inside the timed windows, K6's device time
+    a launch beside its event-timed ms, and the spread of K4's step
+    launches' device time beside its calls' (`single_calls`). Fails when a
+    trace holds no device kernel event; where the profiler records no CUDA
+    activity at all, the program raises and the phase reports why."""
     from tpu_matmul_bench_torch.benchmarks import matmul_overlap_benchmark
     from tpu_matmul_bench_torch.utils import profiling
 
     result = {"phase": "profile"}
     scaling_dir, k6_dir = "build/profile/scaling", "build/profile/k6"
-    for d in (scaling_dir, k6_dir):
+    k4_dir = "build/profile/k4"
+    for d in (scaling_dir, k6_dir, k4_dir):
         for old in glob.glob(f"{d}/*.json"):
             os.remove(old)
     try:
@@ -2010,6 +2447,13 @@ def profile_phase(cap: int, out_dir: str) -> dict:
                 "--profile-dir", k6_dir]
         with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
             (k6_rec,) = matmul_overlap_benchmark.main(argv)
+        argv = ["--mode", "cuda_ring_bidir_hbm", "--sizes", str(SIZE), "--dtype", "bfloat16",
+                "--num-devices", str(RING_WORLD), "--matmul-impl", "cuda",
+                "--iterations", str(OVERLAP_ITERATIONS), "--warmup", str(OVERLAP_WARMUP),
+                "--profile-dir", k4_dir]
+        with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr), \
+                single_calls() as k4_calls:
+            (k4_rec,) = matmul_overlap_benchmark.main(argv)
     except RuntimeError as e:
         if "recorded no CUDA activity" not in str(e):
             raise
@@ -2017,7 +2461,7 @@ def profile_phase(cap: int, out_dir: str) -> dict:
         emit(result)
         return result
     summaries = {}
-    for label, d in (("scaling", scaling_dir), ("k6", k6_dir)):
+    for label, d in (("scaling", scaling_dir), ("k6", k6_dir), ("k4", k4_dir)):
         (trace,) = glob.glob(f"{d}/*.json")
         summaries[label] = {"trace": trace, "bytes": os.path.getsize(trace),
                             **profiling.device_summary(trace)}
@@ -2028,11 +2472,16 @@ def profile_phase(cap: int, out_dir: str) -> dict:
         scaling_record_ms=traced["avg_ms"], scaling_k1_us_per_launch=k1["us_per_launch"],
         scaling_k1_share=k1["device_us"] / summaries["scaling"]["device_us"],
         k6_device_us_per_launch=k6["us_per_launch"], k6_launches_traced=k6["count"],
-        k6_event_ms=k6_rec.avg_time_s * 1e3, k6_baseline_event_ms=k6_rec.compute_time_s * 1e3)
+        k6_event_ms=k6_rec.avg_time_s * 1e3, k6_baseline_event_ms=k6_rec.compute_time_s * 1e3,
+        k4=summaries["k4"], k4_event_ms=k4_rec.avg_time_s * 1e3,
+        k4_single_calls=spread(k4_calls.get(1)),
+        k4_step_launches=launch_spread(summaries["k4"]["trace"], "rs_step_wgmma"))
     problems = [f"the {label} trace holds no device kernel event"
                 for label, s in summaries.items() if not s["kernel_launches"]]
     if not k6["count"]:
         problems.append("the fused ring's kernel is not in its trace")
+    if not result["k4_step_launches"]["count"]:
+        problems.append("K4's step kernel is not in its trace")
     result["ok"] = not problems
     emit(result)
     if problems:
@@ -2274,6 +2723,9 @@ def main() -> None:
         overlaps["ring_fused"] = drive_overlap("cuda_ring", out_dir, size=cap)
         k2_at_cap, _ = drive_overlap("cuda_ring_hbm", out_dir, size=cap)
         scaling = scaling_phase(out_dir)
+        comm_quant_phase(scaling, out_dir)
+        wire_phase(card)
+        collectives_phase(card, out_dir)
         overlap_modes = overlap_modes_phase(out_dir)
         cm_turns = collective_turns(card)
         profile = profile_phase(cap, out_dir)

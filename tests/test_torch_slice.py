@@ -171,6 +171,33 @@ def test_fused_chain_feeds_each_call_the_previous_output():
     assert torch.equal(a, torch.full((4, 4), 0.5))  # caller's operands intact
 
 
+@pytest.mark.parametrize("timer", ["time_jitted", "record_samples"])
+def test_timed_windows_hold_no_earlier_result(monkeypatch, timer):
+    # a window needs no more memory than the warm-up: when a timed loop
+    # starts, no result of an earlier call is alive
+    import gc
+    import weakref
+
+    results = []
+
+    def fn(x):
+        out = x + 1.0
+        results.append(weakref.ref(out))
+        return out
+
+    alive_at_start = []
+    timed_loop = timing._timed_loop
+
+    def loop(call, n, card, overhead):
+        gc.collect()
+        alive_at_start.append(sum(r() is not None for r in results))
+        return timed_loop(call, n, card, overhead)
+
+    monkeypatch.setattr(timing, "_timed_loop", loop)
+    getattr(timing, timer)(fn, (torch.ones(4, 4),), iterations=3, warmup=2)
+    assert alive_at_start and set(alive_at_start) == {0}
+
+
 def test_time_fused_counts_every_call():
     a = torch.ones(8, 8)
     t = timing.time_fused(lambda x, y: x @ y, (a, a), iterations=3)

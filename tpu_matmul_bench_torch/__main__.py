@@ -19,6 +19,9 @@ _PROGRAMS = {
     "distributed": "tpu_matmul_bench_torch.benchmarks.matmul_distributed_benchmark",
     # the ring matmuls against their baselines over a world of ranks
     "overlap": "tpu_matmul_bench_torch.benchmarks.matmul_overlap_benchmark",
+    # bandwidth per collective op over the ranks, and `collectives
+    # selftest`, the wire formats' numeric selftest
+    "collectives": "tpu_matmul_bench_torch.benchmarks.collective_benchmark",
 }
 
 

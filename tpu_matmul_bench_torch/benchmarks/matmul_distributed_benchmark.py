@@ -29,6 +29,7 @@ def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
         default_mode="data_parallel",
         extra_dtypes=("int8",),
         fused_timing=True,
+        comm_quant=True,
     )
     return run(
         config,

@@ -136,6 +136,7 @@ def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
         default_mode="independent",  # ≙ reference :360-362
         extra_dtypes=("int8",),
         fused_timing=True,
+        comm_quant=True,
     )
     return run(config)
 

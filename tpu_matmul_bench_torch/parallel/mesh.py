@@ -25,6 +25,11 @@ from typing import Any, Sequence
 import torch
 
 AXIS = "x"
+# mesh-axis link classes, slowest first (JAX `parallel/mesh.py:44`): 'dcn'
+# the network between hosts, 'ici' the interconnect within a slice. The
+# port's flat world has one axis, 'x', whose collectives stay on 'ici';
+# factorized meshes, whose axis names are link classes, wait for ROADMAP A9
+LINK_CLASSES = ("dcn", "ici")
 ROWS = (AXIS, None)  # P("x", None): dim 0 cut into D blocks
 COLS = (None, AXIS)  # P(None, "x"): dim 1 cut into D blocks
 REPLICATED = ()  # P(): every rank holds the whole array
@@ -123,6 +128,14 @@ def place_ranks(cards: Sequence[torch.device],
 
 def world_size(mesh: Mesh, axis: str = AXIS) -> int:
     return mesh.shape[axis]
+
+
+def axis_link_class(axis_name: str) -> str:
+    """The link class a mesh axis's collectives travel on (JAX
+    `parallel/mesh.py:116-121`): only an axis named 'dcn' crosses the
+    network between hosts; every other name, the flat 'x' included, stays
+    on 'ici'."""
+    return "dcn" if axis_name == "dcn" else "ici"
 
 
 def _blocks(n: int, d: int, what: str) -> int:

@@ -12,8 +12,10 @@ a result's top-left corner with a float64 reference. The five parallel
 modes (`independent`, `batch_parallel`, `matrix_parallel`, `data_parallel`,
 `model_parallel`) take every product from `ops/matmul.py matmul_2d`, so
 `--matmul-impl cuda` runs each on the hand-written GEMM (K1). Their
-collectives are `psum_over` and `all_gather_over` (`--comm-quant` is not
-ported: ROADMAP A8).
+collectives come from `parallel/collectives.py psum_impl` and
+`allgather_impl`: the exact `psum_over` and `all_gather_over`, or under
+`--comm-quant` a quantized wire format, whose runs validate against
+`quantized_tolerance` and whose records carry `extras["comm_quant"]`.
 
 TFLOPS: `tflops_total` keeps the JAX formula of each mode. The ranks that
 share a card run their products one after another, so that formula gives
@@ -25,12 +27,21 @@ the total over the cards; `tflops_per_device` is `tflops_total / cards`
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 
 from tpu_matmul_bench_torch.ops.matmul import Matmul, matmul_2d
-from tpu_matmul_bench_torch.parallel.collectives import all_gather_over, psum_over
+from tpu_matmul_bench_torch.parallel.collectives import (
+    allgather_impl,
+    check_wire_payload,
+    comm_quant_record_extra,
+    is_per_link_spec,
+    parse_link_formats,
+    parse_wire_format,
+    psum_impl,
+)
 from tpu_matmul_bench_torch.parallel.mesh import (
     COLS,
     REPLICATED,
@@ -43,6 +54,7 @@ from tpu_matmul_bench_torch.parallel.mesh import (
     stacked_item,
     world_size,
 )
+from tpu_matmul_bench_torch.parallel.quantized import uses_quantized_comm
 from tpu_matmul_bench_torch.utils.config import BenchConfig
 from tpu_matmul_bench_torch.utils.metrics import (
     as_dtype,
@@ -147,13 +159,43 @@ def corner_validation(got: torch.Tensor, expected: torch.Tensor, dtype: Any,
     }
 
 
+def quantized_tolerance(comm_quant: str | None, world: int) -> float | None:
+    """The corner-validation tolerance a quantized-wire run must meet, or
+    None for exact collectives (JAX `modes.py:163-195`).
+
+    The wire ring's worst case grows ~(per-step rounding)·world, so the
+    tolerance scales with the reduction width: int8 rounds to 1/254 of the
+    block max (2·world/254), float8_e4m3fn's 3-bit mantissa to at most 1/16
+    of each value (2·world/16, a sanity rail; the seeded accuracy bounds
+    live in the tests). A per-link spec takes the loosest per-step rounding
+    among its named formats.
+    """
+    if is_per_link_spec(comm_quant):
+        fmts = [f for f in parse_link_formats(comm_quant).values()
+                if f is not None]
+        if not fmts:
+            return None
+        per_step = max(2 / 254 if f.qtype == "int8" else 2 / 16
+                       for f in fmts)
+        return max(validation_tolerance(torch.bfloat16), world * per_step)
+    fmt = parse_wire_format(comm_quant)
+    if fmt is None:
+        return None
+    per_step = 2 / 254 if fmt.qtype == "int8" else 2 / 16
+    return max(validation_tolerance(torch.bfloat16), world * per_step)
+
+
 def make_corner_validate(program, operands, expected_fn, dtype,
-                         index: int | None = None) -> Callable[[], dict]:
+                         index: int | None = None,
+                         comm_quant: str | None = None,
+                         world: int = 1) -> Callable[[], dict]:
     """A ModeSetup.validate closure: run `program` over `operands`, take
     `[index]` of the result when the output is stacked, and corner-compare
-    the global result against `expected_fn()`. A sharded result (a list of
-    per-rank shards, `parallel/mesh.Sharded`) is read from the shards that
-    hold the corner."""
+    the global result against `expected_fn()`, within
+    `quantized_tolerance(comm_quant, world)` when a float run's collective
+    is quantized. A sharded result (a list of per-rank shards,
+    `parallel/mesh.Sharded`) is read from the shards that hold the
+    corner."""
     def validate() -> dict:
         out = program(*operands)
         if index is not None:
@@ -161,6 +203,11 @@ def make_corner_validate(program, operands, expected_fn, dtype,
         c = VALIDATION_CORNER
         got = (global_block(out, c, c) if isinstance(out, Sharded)
                else out[:c, :c])
+        tol = quantized_tolerance(comm_quant, world)
+        if tol is not None and not is_integer_dtype(dtype):
+            # integer inputs bypass the quantized wire (the exact psum)
+            # and keep their exact tolerance
+            return corner_validation(got, expected_fn(), dtype, tol=tol)
         return corner_validation(got, expected_fn(), dtype)
 
     return validate
@@ -410,11 +457,17 @@ def batch_parallel(config: BenchConfig, mesh: Mesh, size: int, batch: int = 4,
     a, b = sharded_normal(config.seed, (g, size, size), config.dtype, mesh, ROWS)
     bmm = _stacked_mm(_mm(config, mesh))
     compute = _per_rank(bmm, ROWS)
-    full = _per_rank(bmm, ROWS, psum_over(mesh))
+    check_wire_payload(config.comm_quant, "all_reduce", (local_batch, size, size), d,
+                       config.dtype)
+    full = _per_rank(bmm, ROWS, functools.partial(
+        psum_impl(config.comm_quant, varying_out=True), mesh))
 
     def build(t_compute: Timing, t_full: Timing | None, comm_s: float) -> BenchmarkRecord:
         total_s = t_full.avg_s if t_full else t_compute.avg_s
         extras = {"global_batch": g, "local_batch": local_batch}
+        if uses_quantized_comm(config):
+            extras["comm_quant"] = comm_quant_record_extra(
+                config, d, mode="batch_parallel", size=size, batch=batch)
         if g != batch:
             extras["note"] = f"global batch grown from {batch} to {g} to cover {d} devices"
         return _mode_record(
@@ -430,7 +483,8 @@ def batch_parallel(config: BenchConfig, mesh: Mesh, size: int, batch: int = 4,
                      validate=make_corner_validate(
                          full, (a, b),
                          lambda: _stacked_corner_sum(a, b, range(0, g, local_batch)),
-                         config.dtype, index=0))
+                         config.dtype, index=0, comm_quant=config.comm_quant,
+                         world=d))
 
 
 def matrix_parallel(config: BenchConfig, mesh: Mesh, size: int,
@@ -442,22 +496,43 @@ def matrix_parallel(config: BenchConfig, mesh: Mesh, size: int,
     compute+comm time."""
     d = world_size(mesh)
     if d == 1:
-        return dataclasses.replace(independent(config, mesh, size, benchmark),
-                                   mode="matrix_parallel")
+        setup = independent(config, mesh, size, benchmark)
+        if uses_quantized_comm(config):
+            # the fallback's records still carry the (flagged) comm_quant
+            # key, as every quantizable mode's do
+            inner = setup.build_record
+
+            def build_flagged(t_c: Timing, t_f: Timing | None, comm_s: float
+                              ) -> BenchmarkRecord:
+                rec = inner(t_c, t_f, comm_s)
+                rec.extras["comm_quant"] = comm_quant_record_extra(
+                    config, 1, mode="matrix_parallel", size=size)
+                return rec
+
+            return dataclasses.replace(setup, mode="matrix_parallel",
+                                       build_record=build_flagged)
+        return dataclasses.replace(setup, mode="matrix_parallel")
     (a,) = sharded_normal(config.seed, (size, size), config.dtype, mesh, REPLICATED,
                           count=1)
     (b,) = sharded_normal(config.seed + 1, (size, size), config.dtype, mesh, COLS,
                           count=1)
     mm = _mm(config, mesh)
     compute = _per_rank(mm, COLS)
-    full = _per_rank(mm, REPLICATED, all_gather_over(mesh, gather_axis=1))
+    # under --comm-quant the C-shard gather carries quantized payloads
+    ag = allgather_impl(config.comm_quant)
+    check_wire_payload(config.comm_quant, "all_gather", (size, size // d), d,
+                       config.dtype)
+    full = _per_rank(mm, REPLICATED, lambda outs: ag(mesh, outs, axis=1))
 
     def build(t_compute: Timing, t_full: Timing | None, comm_s: float) -> BenchmarkRecord:
         total_s = t_full.avg_s if t_full else t_compute.avg_s
+        extras = {"portion_per_device": f"1/{d} of B's columns"}
+        if uses_quantized_comm(config):
+            extras["comm_quant"] = comm_quant_record_extra(
+                config, d, mode="matrix_parallel", size=size)
         return _mode_record(
             config, benchmark, "matrix_parallel", size, mesh, t_full or t_compute,
-            calculate_tflops(size, total_s),
-            {"portion_per_device": f"1/{d} of B's columns"},
+            calculate_tflops(size, total_s), extras,
             avg_time_s=total_s, compute_time_s=t_compute.avg_s, comm_time_s=comm_s)
 
     c = VALIDATION_CORNER
@@ -467,7 +542,7 @@ def matrix_parallel(config: BenchConfig, mesh: Mesh, size: int,
                      validate=make_corner_validate(
                          full, (a, b),
                          lambda: expected_corner(a[0], global_block(b, size, c)),
-                         config.dtype))
+                         config.dtype, comm_quant=config.comm_quant, world=d))
 
 
 def data_parallel(config: BenchConfig, mesh: Mesh, size: int,
@@ -481,13 +556,19 @@ def data_parallel(config: BenchConfig, mesh: Mesh, size: int,
     a, b = sharded_normal(config.seed, (d, size, size), config.dtype, mesh, ROWS)
     bmm = _stacked_mm(_mm(config, mesh))
     compute = _per_rank(bmm, ROWS)
-    full = _per_rank(bmm, ROWS, psum_over(mesh))
+    check_wire_payload(config.comm_quant, "all_reduce", (1, size, size), d, config.dtype)
+    full = _per_rank(bmm, ROWS, functools.partial(
+        psum_impl(config.comm_quant, varying_out=True), mesh))
 
     def build(t_compute: Timing, t_full: Timing | None, comm_s: float) -> BenchmarkRecord:
         total_s = t_full.avg_s if t_full else t_compute.avg_s
+        extras = {}
+        if uses_quantized_comm(config):
+            extras["comm_quant"] = comm_quant_record_extra(
+                config, d, mode="data_parallel", size=size)
         return _mode_record(
             config, benchmark, "data_parallel", size, mesh, t_full or t_compute,
-            calculate_tflops(size, t_compute.avg_s) * d, {},
+            calculate_tflops(size, t_compute.avg_s) * d, extras,
             avg_time_s=total_s, compute_time_s=t_compute.avg_s, comm_time_s=comm_s)
 
     return ModeSetup("data_parallel", (a, b), compute, full, build,
@@ -495,7 +576,8 @@ def data_parallel(config: BenchConfig, mesh: Mesh, size: int,
                          "data_parallel", config, d, size),
                      validate=make_corner_validate(
                          full, (a, b), lambda: _stacked_corner_sum(a, b, range(d)),
-                         config.dtype, index=0))
+                         config.dtype, index=0, comm_quant=config.comm_quant,
+                         world=d))
 
 
 def model_parallel(config: BenchConfig, mesh: Mesh, size: int,
@@ -514,14 +596,18 @@ def model_parallel(config: BenchConfig, mesh: Mesh, size: int,
     # each rank's partial is a full-shape product: the global compute
     # output is the partials side by side (JAX's out_specs P(None, "x"))
     compute = _per_rank(mm, COLS)
-    full = _per_rank(mm, REPLICATED, psum_over(mesh))
+    check_wire_payload(config.comm_quant, "all_reduce", (size, size), d, config.dtype)
+    full = _per_rank(mm, REPLICATED, functools.partial(psum_impl(config.comm_quant), mesh))
 
     def build(t_compute: Timing, t_full: Timing | None, comm_s: float) -> BenchmarkRecord:
         total_s = t_full.avg_s if t_full else t_compute.avg_s
+        extras = {"combine": "psum (reference used all_gather on partial sums)"}
+        if uses_quantized_comm(config):
+            extras["comm_quant"] = comm_quant_record_extra(
+                config, d, mode="model_parallel", size=size)
         return _mode_record(
             config, benchmark, "model_parallel", size, mesh, t_full or t_compute,
-            calculate_tflops(size, total_s),
-            {"combine": "psum (reference used all_gather on partial sums)"},
+            calculate_tflops(size, total_s), extras,
             avg_time_s=total_s, compute_time_s=t_compute.avg_s, comm_time_s=comm_s)
 
     c = VALIDATION_CORNER
@@ -532,7 +618,7 @@ def model_parallel(config: BenchConfig, mesh: Mesh, size: int,
                          full, (a, b),
                          lambda: expected_corner(global_block(a, c, size),
                                                  global_block(b, size, c)),
-                         config.dtype))
+                         config.dtype, comm_quant=config.comm_quant, world=d))
 
 
 SCALING_MODES: dict[str, Callable[..., ModeSetup]] = {

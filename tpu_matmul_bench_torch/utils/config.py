@@ -5,12 +5,15 @@ programs consume: the reference's --sizes (default 4096 8192 16384),
 --iterations (50), --warmup (10) and --dtype (default bfloat16, plus int8),
 and the benchmark's --mode --device --num-devices --json-out --matmul-impl
 --seed --validate --precision --trace-out --samples --percentiles --repeats
---timing --block-m/n/k --wres --profile-dir. `--repeats` and `--timing` are
-offered only to programs whose timed loop reads them (`best_of`,
-`fused_timing`), `--mode`, `--wres` and `--profile-dir` only to the mode
-programs (scaling, distributed, overlap), whose shared runner reads them. The
-JAX package's flags that no program of the port consumes yet are left out
-rather than accepted and ignored.
+--timing --block-m/n/k --wres --profile-dir --comm-quant. `--repeats` and
+`--timing` are offered only to programs whose timed loop reads them
+(`best_of`, `fused_timing`), `--mode` and `--profile-dir` only to the mode
+programs (scaling, distributed, overlap, collectives), whose runners read
+them, `--wres` only to those whose modes run the ring kernels (`wres`), and
+`--comm-quant` only to those whose modes route a collective through a wire
+format (scaling, distributed: `comm_quant`). The JAX package's flags that no
+program of the port consumes yet are left out rather than accepted and
+ignored.
 """
 
 from __future__ import annotations
@@ -79,6 +82,9 @@ class BenchConfig:
     wres: str = "auto"
     # torch.profiler trace of the run (utils/profiling.py maybe_trace)
     profile_dir: str | None = None
+    # wire format of the modes' collectives (parallel/collectives.py):
+    # None/"none" exact; int8 formats and fp8 formats quantize the payload
+    comm_quant: str | None = None
 
     @property
     def wres_override(self) -> bool | None:
@@ -104,17 +110,35 @@ class BenchConfig:
         return tuple(d if v is None else v for v, d in zip(given, DEFAULT_TILE))
 
 
+def comm_quant_arg(value: str) -> str:
+    """argparse type for --comm-quant: validate against the wire-format
+    grammar, uniform (none | int8 | int8-tensor | fp8 | int8-block:<B> |
+    fp8-block:<B>) or per-link (dcn=<fmt>,ici=<fmt>), at parse time, keeping
+    the raw string as the config value (parallel/collectives.py parses it
+    again where it is used)."""
+    from tpu_matmul_bench_torch.parallel.collectives import validate_comm_quant
+
+    try:
+        validate_comm_quant(value)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+    return value
+
+
 def build_parser(description: str,
                  extra_dtypes: Sequence[str] = (),
                  modes: Sequence[str] | None = None,
                  default_mode: str | None = None,
                  fused_timing: bool = True,
-                 best_of: bool = True) -> argparse.ArgumentParser:
+                 best_of: bool = True,
+                 wres: bool = True,
+                 comm_quant: bool = False) -> argparse.ArgumentParser:
     """The shared parser. `modes` adds --mode (default `default_mode`, else
-    the first), --wres, which the mode programs' ring kernels read, and
-    --profile-dir, which their runner reads; `best_of` adds --repeats and
-    `fused_timing` adds --timing, for the programs whose timed loop reads
-    them."""
+    the first) and --profile-dir, which the mode programs' runners read,
+    and with `wres` --wres, which their ring kernels read; `comm_quant`
+    adds --comm-quant, for the programs whose modes read it; `best_of` adds
+    --repeats and `fused_timing` adds --timing, for the programs whose
+    timed loop reads them."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument(
         "--sizes", type=int, nargs="+", default=list(DEFAULT_SIZES),
@@ -126,13 +150,14 @@ def build_parser(description: str,
             "--mode", type=str, default=default, choices=list(modes),
             help=f"Benchmark mode (default: {default})",
         )
-        p.add_argument(
-            "--wres", type=str, default="auto", choices=["auto", "on", "off"],
-            help="W-resident mode of the ring kernels. The port has no "
-                 "W-resident kernel (a W shard is far larger than a block's "
-                 "shared memory): auto and off stream W from device memory "
-                 "and the record says why; on is an error.",
-        )
+        if wres:
+            p.add_argument(
+                "--wres", type=str, default="auto", choices=["auto", "on", "off"],
+                help="W-resident mode of the ring kernels. The port has no "
+                     "W-resident kernel (a W shard is far larger than a "
+                     "block's shared memory): auto and off stream W from "
+                     "device memory and the record says why; on is an error.",
+            )
         p.add_argument(
             "--profile-dir", type=str, default=None,
             help="Write a torch.profiler trace of the benchmark here (Chrome "
@@ -183,6 +208,24 @@ def build_parser(description: str,
         help="Corner-check the result against a float64 reference before "
              "the timed run, reporting the verdict in record extras",
     )
+    if comm_quant:
+        p.add_argument(
+            "--comm-quant", type=comm_quant_arg, default=None,
+            metavar="{none,int8,int8-tensor,fp8,int8-block:<B>,fp8-block:<B>}",
+            help="Wire format for the collectives (parallel/collectives.py): "
+                 "quantized payloads + fp32 scale side-channel over the ring "
+                 "— half the bf16 wire bytes at a bounded relative error. "
+                 "'int8'/'int8-tensor' select the legacy per-row control tier "
+                 "(parallel/quantized.py); 'fp8' is per-row float8_e4m3fn; "
+                 "'int8-block:<B>'/'fp8-block:<B>' quantize per B-column "
+                 "block with one fp32 scale each. Applies to every "
+                 "distributed mode's psum/all_gather leg. The per-link form "
+                 "'dcn=<fmt>,ici=<fmt>' picks a format per link class; the "
+                 "port's world is flat, so its one axis takes the ici entry "
+                 "(unnamed links stay exact). Ranks that share a card move "
+                 "the payloads within its memory: there the wire saves no "
+                 "time.",
+        )
     p.add_argument(
         "--precision", type=str, default="default",
         choices=["default", "high", "highest"],
@@ -256,6 +299,7 @@ def config_from_args(args: argparse.Namespace) -> BenchConfig:
         mode=getattr(args, "mode", None),
         wres=getattr(args, "wres", "auto"),
         profile_dir=getattr(args, "profile_dir", None),
+        comm_quant=getattr(args, "comm_quant", None),
     )
 
 
@@ -267,10 +311,12 @@ def parse_config(
     extra_dtypes: Sequence[str] = (),
     fused_timing: bool = False,
     best_of: bool = False,
+    wres: bool = True,
+    comm_quant: bool = False,
 ) -> BenchConfig:
     """Parse a mode program's argv, as the JAX package's `parse_config`."""
     parser = build_parser(description, extra_dtypes=extra_dtypes, modes=modes,
                           default_mode=default_mode, fused_timing=fused_timing,
-                          best_of=best_of)
+                          best_of=best_of, wres=wres, comm_quant=comm_quant)
     return config_from_args(parser.parse_args(argv))
 

@@ -152,16 +152,18 @@ def time_jitted(
 
     The iteration count is scaled up until the window is at least five
     times the cost of a synchronize (capped at 256×), so very short loops
-    are not read off the timer's noise.
+    are not read off the timer's noise. No result of an earlier call is
+    held while a window runs: the loop then needs no more memory than the
+    warm-up did, and the allocator does not grow inside the window.
     """
     out, overhead = _warm(lambda: fn(*args), warmup)
     card = _on_card(out)
+    del out
     factor = 1
     with telemetry.span("measure", protocol="dispatch") as meta:
         while True:
             n = iterations * factor
-            out, device_total = _timed_loop(lambda: fn(*args), n, card,
-                                            overhead)
+            device_total = _timed_loop(lambda: fn(*args), n, card, overhead)[1]
             if device_total >= 5 * overhead or factor >= 256:
                 break
             per_iter = max(device_total / n, 1e-9)
@@ -405,10 +407,11 @@ def record_samples(
     own — the distribution the whole-loop protocols average away."""
     out, overhead = _warm(lambda: fn(*args), warmup)
     card = _on_card(out)
+    del out  # as in time_jitted: no earlier result held while a call is timed
     samples: list[float] = []
     with telemetry.span("sample", iterations=iterations):
         for _ in range(iterations):
-            out, seconds = _timed_loop(lambda: fn(*args), 1, card, overhead)
+            seconds = _timed_loop(lambda: fn(*args), 1, card, overhead)[1]
             samples.append(max(seconds, 1e-9))
     return samples
 
