@@ -62,7 +62,8 @@ The paths:
   tile on the persistent ring-step GEMM within TUNE_RING_MARGIN of the
   overlap run, other tiles off it, on the route `cuda_matmul.step_route`
   gives; the ring overlap lines and the `tune_ring` lines print the
-  fastest and slowest single call of their timed loops (ROADMAP C3);
+  fastest and slowest single call of their timed loops, with the slowest
+  one's host time and allocator events beside the median one's (ROADMAP C3);
 - the scaling and distributed programs, `tpu_matmul_bench_torch.benchmarks
   .matmul_scaling_benchmark.main` and `.matmul_distributed_benchmark.main`,
   in their five parallel modes at bf16 16384² over 4 ranks on the card,
@@ -100,6 +101,22 @@ The paths:
   race check of `overlap`, `pipeline` and the four rings at 2048² holds
   each call to the same program run with the card synchronised after every
   launch;
+- the 2-D modes (the `hybrid` and `summa` phases): `hybrid --dp 2` and
+  SUMMA on its 2x2 grid at bf16 16384² over 4 ranks on the card, each
+  through the kernel under both timing protocols and through the library,
+  `validation: ok`, K1_PER_CALL launches a call, all on wgmma (their
+  product shapes held against the plain version first); hybrid again on
+  `--mesh dcn:2,ici:2` with the dcn psum on an fp8-block:128 wire (its
+  per-link `comm_quant` extra the port's own); SUMMA validate-only on the
+  1x4 and 4x1 grids (each compute leg's K1 products, on panels that are
+  views of the resident blocks, held to the library's) and on the mesh;
+- the out-of-core stream (the `stream` phase): `parallel stream` at bf16
+  32768² in 16 K-panels over one rank under a 5.5 GiB budget (out of core:
+  the in-core modes bust it), through the pickup kernel and through the
+  library (host operands made once for both), `validation: ok`; its H2D
+  copies and its products timed apart; a 10-call race check at 4096² held
+  bitwise to a serial call; the stream over 4 ranks on `--mesh
+  dcn:2,ici:2`, validate-only;
 - `--profile-dir` (the `profile` phase): `batch_parallel` at 16384², the
   fused ring at its cap and K4 at 16384², each traced by torch.profiler,
   with the device time per kernel, the device's busy and idle share inside
@@ -210,6 +227,25 @@ COLLECTIVE_OPS = ("psum", "all_gather", "reduce_scatter", "ppermute", "ppermute_
                   "all_to_all")
 # K1's shape in each mode over RING_WORLD ranks, (m, k, n): held against the
 # plain version in kernel_vs_plain, on the wgmma route
+# the 2-D modes (the `hybrid` and `summa` phases) at bf16 SIZE² over
+# RING_WORLD ranks on the card: hybrid at --dp 2 (each rank's local batch of
+# 2 products [SIZE, SIZE]·[SIZE, SIZE/2]), then on a factorized mesh with the
+# dcn psum on a wire; SUMMA on its 2x2 grid (2 steps of [SIZE/2]³ products a
+# rank), then validate-only on a 1x4 and a 4x1 grid (A panels that are
+# column views) and on the factorized mesh
+HYBRID_DP = 2
+HYBRID_MESH, HYBRID_WIRE = "dcn:2,ici:2", "dcn=fp8-block:128,ici=none"
+HYBRID_SHAPE = (SIZE, SIZE, SIZE // HYBRID_DP)  # (m, k, n) of each product
+SUMMA_SHAPE = (SIZE // 2, SIZE // 2, SIZE // 2)
+K1_PER_CALL = {"hybrid": RING_WORLD * (4 // HYBRID_DP), "summa": RING_WORLD * 2}
+SUMMA_ROWS = (1, 4)
+# the out-of-core stream (the `stream` phase): one rank, A and B (2 GiB each)
+# on the host, a 4 GiB fp32 accumulator and 2 x (256 + 256) MiB of windows
+# on the card, under a budget the in-core `independent` (6 GiB) busts
+STREAM_SIZE, STREAM_PANELS, STREAM_BUDGET_GIB, STREAM_ITERATIONS = 32768, 16, 5.5, 3
+STREAM_RACE_SIZE, STREAM_RACE_PANELS, STREAM_RACE_CALLS = 4096, 8, 10
+STREAM_MESH = "dcn:2,ici:2"
+
 SCALING_SHAPES = {"independent": (SIZE, SIZE, SIZE), "batch_parallel": (SIZE, SIZE, SIZE),
                   "data_parallel": (SIZE, SIZE, SIZE),
                   "matrix_parallel": (SIZE, SIZE, SIZE // RING_WORLD),
@@ -440,16 +476,18 @@ def events_ms(fn, runs: int) -> float:
 
 @contextlib.contextmanager
 def single_calls():
-    """Each timed call's device ms in the timed loops that run inside the
-    block (`utils/timing.py time_jitted`, which the programs' timers and
+    """Each timed call in the timed loops that run inside the block
+    (`utils/timing.py time_jitted`, which the programs' timers and
     `cuda_tune` call), by the timed program: the yielded dict maps the
     order in which each program was first timed (0, 1, ...) to its calls'
-    ms ("ms") and the caching allocator's device allocations and retries
-    inside its windows ("device_allocs", "alloc_retries": a retry frees
-    the cache and waits for the card). A CUDA event is recorded on the
-    current stream after each call of the loop, which the loop's own
-    events already bracket, so the calls are the ones the phase makes
-    anyway and the window's time stays its own."""
+    device ms ("ms"), each call's host ms (the host's time to issue it,
+    "host_ms") and the caching allocator's device allocations and retries
+    in each call ("allocs", "retries": a retry frees the cache and waits
+    for the card), and their sums over its windows ("device_allocs",
+    "alloc_retries"). A CUDA event is recorded on the current stream after
+    each call of the loop, which the loop's own events already bracket, so
+    the calls are the ones the phase makes anyway; the allocator's counters
+    are read between calls, on the host (ROADMAP C3)."""
     import torch
 
     from tpu_matmul_bench_torch.benchmarks import cuda_tune
@@ -471,26 +509,39 @@ def single_calls():
         finally:
             current[0] = None
 
+    def counters() -> tuple[int, int]:
+        # the allocator's own dict, not memory_stats()'s flattened copy of
+        # it: read twice a call, it must cost the host little
+        stats = torch.cuda.memory_stats_as_nested_dict()
+        return stats["num_device_alloc"], stats["num_alloc_retries"]
+
     def marked_loop(call, n, card, overhead):
         if not card or current[0] is None:
             return timed_loop(call, n, card, overhead)
         marks = [torch.cuda.Event(enable_timing=True)]
+        entry = spans.setdefault(current[0], {"ms": [], "host_ms": [], "allocs": [],
+                                              "retries": [], "device_allocs": 0,
+                                              "alloc_retries": 0})
 
         def marked():
+            allocs, retries = counters()
+            t0 = time.perf_counter()
             out = call()
+            entry["host_ms"].append((time.perf_counter() - t0) * 1e3)
             marks.append(torch.cuda.Event(enable_timing=True))
             marks[-1].record()
+            after = counters()
+            entry["allocs"].append(after[0] - allocs)
+            entry["retries"].append(after[1] - retries)
             return out
 
-        before = torch.cuda.memory_stats()
+        before = counters()
         marks[0].record()
         out, seconds = timed_loop(marked, n, card, overhead)
-        after = torch.cuda.memory_stats()
-        entry = spans.setdefault(current[0], {"ms": [], "device_allocs": 0,
-                                              "alloc_retries": 0})
+        after = counters()
         entry["ms"].extend(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
-        entry["device_allocs"] += after["num_device_alloc"] - before["num_device_alloc"]
-        entry["alloc_retries"] += after["num_alloc_retries"] - before["num_alloc_retries"]
+        entry["device_allocs"] += after[0] - before[0]
+        entry["alloc_retries"] += after[1] - before[1]
         return out, seconds
 
     timing.time_jitted = cuda_tune.time_jitted = tagged
@@ -503,13 +554,24 @@ def single_calls():
 
 
 def spread(entry: dict | None) -> dict:
-    """min, max and count of a program's single-call ms (`single_calls`),
-    and the allocator's device allocations and retries in its windows."""
+    """min, max and count of a program's single-call device ms
+    (`single_calls`), the allocator's device allocations and retries in its
+    windows, the range of its calls' host ms, and the slowest call's device
+    ms, host ms, allocations and retries beside the median call's."""
     if not entry or not entry["ms"]:
         return {"n": 0}
     calls = entry["ms"]
+    slow = max(range(len(calls)), key=calls.__getitem__)
+    mid = sorted(range(len(calls)), key=calls.__getitem__)[len(calls) // 2]
+
+    def call(i: int) -> dict:
+        return {"index": i, "ms": calls[i], "host_ms": entry["host_ms"][i],
+                "allocs": entry["allocs"][i], "retries": entry["retries"][i]}
+
     return {"min_ms": min(calls), "max_ms": max(calls), "n": len(calls),
-            "device_allocs": entry["device_allocs"], "alloc_retries": entry["alloc_retries"]}
+            "device_allocs": entry["device_allocs"], "alloc_retries": entry["alloc_retries"],
+            "host_min_ms": min(entry["host_ms"]), "host_max_ms": max(entry["host_ms"]),
+            "slowest": call(slow), "median": call(mid)}
 
 
 def compare(dtype_name: str, mkn, kernel, plain) -> dict:
@@ -2382,6 +2444,403 @@ def collectives_phase(card: str, out_dir: str) -> dict:
     return result
 
 
+def drive_2d(program: str, impl: str, timing: str, out_dir: str,
+             extra: tuple[str, ...] = (), comm_quant: str | None = None) -> dict:
+    """One run of the hybrid or summa program through its entry point at
+    bf16 SIZE² over RING_WORLD ranks on the card; returns the record's
+    summary. Every K1 launch must take the wgmma route, K1_PER_CALL a call
+    of either program (the validation's and the timed ones, `scaling_calls`);
+    the library run launches none. Under `comm_quant` (hybrid on HYBRID_MESH)
+    the record's `comm_quant` extra must be the port's per-link
+    `comm_quant_record_extra`, and each full-program call must have put the
+    dcn psum of each of its groups on the wire."""
+    from tpu_matmul_bench_torch.benchmarks import (
+        matmul_hybrid_benchmark,
+        matmul_summa_benchmark,
+    )
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.parallel import collectives
+
+    entry = {"hybrid": matmul_hybrid_benchmark, "summa": matmul_summa_benchmark}[program].main
+    tag = ",".join([program, impl, timing, *extra] + ([comm_quant] if comm_quant else []))
+    path = f"{out_dir}/{re.sub(r'[^A-Za-z0-9]+', '-', tag)}.jsonl"
+    argv = ["--sizes", str(SIZE), "--dtype", "bfloat16", "--num-devices", str(RING_WORLD),
+            "--matmul-impl", impl, "--timing", timing, "--iterations", str(SCALING_ITERATIONS),
+            "--warmup", str(SCALING_WARMUP), "--validate", "--json-out", path, *extra]
+    if comm_quant:
+        argv += ["--comm-quant", comm_quant]
+    cm.LAUNCHES = 0
+    collectives.WIRE_CALLS.clear()
+    before = routes()
+    t0 = time.perf_counter()
+    with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr), \
+            clock_samples() as during:
+        records = entry(argv)
+    seconds = time.perf_counter() - t0
+    launches, by_route = cm.LAUNCHES, routes_since(before)
+    wire_calls = {f"{spec},{kind}": n for (spec, kind), n in collectives.WIRE_CALLS.items()}
+    phase = f"{program}[{tag}]"
+    if len(records) != 1:
+        fail(phase, f"expected one record, got {len(records)} (the runner reports a "
+                    "failed size and returns no record for it)")
+    rec, x = records[0], records[0].extras
+    calls = scaling_calls(program, RING_WORLD, timing)
+    want = K1_PER_CALL[program] * calls if impl == "cuda" else 0
+    summary = {"phase": phase, "program": program, "mode": rec.mode, "world": rec.world,
+               "k1_shape": "x".join(map(str, HYBRID_SHAPE if program == "hybrid"
+                                        else SUMMA_SHAPE)),
+               "avg_ms": rec.avg_time_s * 1e3, "compute_ms": rec.compute_time_s * 1e3,
+               "comm_ms": rec.comm_time_s * 1e3, "tflops_total": rec.tflops_total,
+               "tflops_per_device": rec.tflops_per_device,
+               "peak_efficiency_pct": rec.peak_efficiency_pct,
+               "extras": {k: v for k, v in x.items() if k != "comm_quant"},
+               "k1_launches": launches, "expected_k1_launches": want,
+               "launches_by_route": by_route, "wire_calls": wire_calls, "during": during,
+               "seconds": seconds}
+    problems = []
+    if x.get("validation") != "ok":
+        problems.append("validation is not ok")
+    if rec.world != RING_WORLD or x.get("cards") != 1 or x.get("ranks_per_card") != RING_WORLD:
+        problems.append(f"world {rec.world} on {x.get('cards')} cards, "
+                        f"{x.get('ranks_per_card')} a card")
+    if timing == "fused" and (x.get("timing"), x.get("chain")) != ("fused", "operand"):
+        problems.append(f"fused was asked, yet timing {x.get('timing')}, chain "
+                        f"{x.get('chain')}")
+    if launches != want:
+        problems.append(f"{launches} K1 launches, not the {want} the program makes")
+    if impl == "cuda" and by_route != {"gemm:wgmma": want}:
+        problems.append(f"launches by route {by_route}: not all {want} on wgmma")
+    if impl == "torch" and by_route:
+        problems.append(f"the library run launched the port's kernels: {by_route}")
+    if comm_quant:
+        from tpu_matmul_bench_torch.parallel.collectives import comm_quant_record_extra
+        from tpu_matmul_bench_torch.utils.config import build_parser, config_from_args
+
+        config = config_from_args(build_parser("t", comm_quant=True, mesh=True).parse_args(
+            ["--sizes", str(SIZE), "--comm-quant", comm_quant, "--mesh", HYBRID_MESH]))
+        expect = comm_quant_record_extra(config, RING_WORLD, mode="hybrid", size=SIZE,
+                                         dp=2, mesh_spec=HYBRID_MESH)
+        summary["comm_quant"] = x.get("comm_quant")
+        if x.get("comm_quant") != expect:
+            problems.append(f"extras comm_quant {x.get('comm_quant')}, not {expect}")
+        if expect.get("bottleneck_link") != "dcn":
+            problems.append(f"bottleneck_link {expect.get('bottleneck_link')}, not dcn")
+        # the dcn psum runs in each of the 2 groups along dcn, every full call
+        full_calls = 1 + (calls - 1) // 2
+        if wire_calls != {"fp8-block:128,all_reduce": 2 * full_calls}:
+            problems.append(f"wire calls {wire_calls}, not {2 * full_calls} dcn psums")
+    elif wire_calls:
+        problems.append(f"no --comm-quant, yet a wire format ran: {wire_calls}")
+    summary["ok"] = not problems
+    emit(summary)
+    if problems:
+        fail(phase, "; ".join(problems))
+    return summary
+
+
+def runs_2d(program: str, out_dir: str, extra: tuple[str, ...] = ()) -> dict:
+    """The program through K1 and the library, dispatch and fused."""
+    return {f"{impl},{timing}": drive_2d(program, impl, timing, out_dir, extra)
+            for impl in ("cuda", "torch") for timing in ("dispatch", "fused")}
+
+
+def hybrid_phase(out_dir: str) -> dict:
+    """hybrid at --dp 2 under K1 and the library, dispatch and fused, then on
+    HYBRID_MESH with the dcn psum on HYBRID_WIRE; returns the runs."""
+    t0 = time.perf_counter()
+    runs = runs_2d("hybrid", out_dir, ("--dp", str(HYBRID_DP)))
+    runs["cuda,dispatch,mesh"] = drive_2d("hybrid", "cuda", "dispatch", out_dir,
+                                          ("--mesh", HYBRID_MESH), comm_quant=HYBRID_WIRE)
+    emit({"phase": "hybrid", "card": card_line(),
+          "ms": {label: r["avg_ms"] for label, r in runs.items()},
+          "seconds": time.perf_counter() - t0, "ok": True})
+    return runs
+
+
+def summa_strides(card: str) -> dict:
+    """SUMMA validate-only on the 1x4 and 4x1 grids and on HYBRID_MESH over
+    RING_WORLD ranks on the card, through K1: each full program's corner
+    `validation: ok`; on the two grids also one compute-leg call, whose
+    products take the panels as views of the resident blocks (on the 4x1
+    grid A panels are column views, their rows SIZE apart, their base moved
+    by a panel a step), held rank by rank to the library's compute leg, all
+    on wgmma."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.parallel.mesh import make_factorized_mesh
+    from tpu_matmul_bench_torch.parallel.summa import make_summa_mesh, summa_mode, summa_programs
+    from tpu_matmul_bench_torch.utils.config import build_parser, config_from_args
+    from tpu_matmul_bench_torch.utils.device import resolve_devices
+
+    config = config_from_args(build_parser("t", mesh=True).parse_args(
+        ["--sizes", str(SIZE), "--dtype", "bfloat16", "--matmul-impl", "cuda"]))
+    with ranks_per_card(RING_WORLD):
+        devices = resolve_devices("cuda", RING_WORLD)
+    grids = {f"rows={rows}": make_summa_mesh(devices, rows) for rows in SUMMA_ROWS}
+    grids[HYBRID_MESH] = make_factorized_mesh(devices, HYBRID_MESH)
+    out, problems = {}, []
+    for label, mesh in grids.items():
+        setup = summa_mode(config, mesh, SIZE)
+        entry = {"grid": "x".join(map(str, mesh.dims))}
+        if label.startswith("rows="):
+            before = routes()
+            got = setup.compute(*setup.operands)
+            entry["compute_routes"] = routes_since(before)
+            want = summa_programs(mesh, "torch")[0](*setup.operands)
+            entry["compute_max_rel_err"] = max(
+                ((g.double() - w.double()).abs().max() / w.double().abs().max()).item()
+                for g, w in zip(got, want))
+            del got, want
+            steps = math.lcm(*mesh.dims)
+            if entry["compute_routes"] != {"gemm:wgmma": RING_WORLD * steps}:
+                problems.append(f"{label}: compute routes {entry['compute_routes']}")
+            if entry["compute_max_rel_err"] > TOLERANCE["bfloat16"]:
+                problems.append(f"{label}: compute leg off the library's by "
+                                f"{entry['compute_max_rel_err']}")
+        before = cm.LAUNCHES
+        entry.update(setup.validate())
+        entry["validate_launches"] = cm.LAUNCHES - before
+        if entry.get("validation") != "ok":
+            problems.append(f"{label}: validation {entry.get('validation')}")
+        out[label] = entry
+        del setup
+        torch.cuda.empty_cache()
+    emit({"phase": "summa_strides", "card": card, "grids": out, "ok": not problems})
+    if problems:
+        fail("summa_strides", "; ".join(problems))
+    return out
+
+
+def summa_phase(out_dir: str) -> dict:
+    """SUMMA on the default 2x2 grid under K1 and the library, dispatch and
+    fused, then validate-only on the other grids (`summa_strides`)."""
+    t0 = time.perf_counter()
+    runs = runs_2d("summa", out_dir)
+    strides = summa_strides(card_line())
+    emit({"phase": "summa", "ms": {label: r["avg_ms"] for label, r in runs.items()},
+          "seconds": time.perf_counter() - t0, "ok": True})
+    runs["strides"] = strides
+    return runs
+
+
+def check_stream_pickup() -> dict:
+    """K1's pickup kernel at the stream's panel product on the card: an A
+    panel that is a column view of its window slab ([STREAM_SIZE, kp] of a
+    [STREAM_SIZE, 2·kp] slab), B's [kp, STREAM_SIZE] rows, accumulating
+    into an fp32 accin in place (out is accin), against its plain version;
+    one launch, on wgmma."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.ops.matmul import random_operands
+
+    n, kp = STREAM_SIZE, STREAM_SIZE // STREAM_PANELS
+    (slab,) = random_operands(7, (n, 2 * kp), torch.bfloat16, device="cuda", count=1)
+    (b,) = random_operands(8, (kp, n), torch.bfloat16, device="cuda", count=1)
+    a = slab[:, kp:]
+    (acc,) = random_operands(9, (n, n), torch.float32, device="cuda", count=1)
+    want = cm.matmul_acc_plain(a, b, acc, out_dtype=torch.float32)
+    before, launches = routes(), cm.ACC_LAUNCHES
+    got = cm.cuda_matmul_acc(a, b, acc, out=acc, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    launched = routes_since(before)
+    diff = (got.double() - want.double()).abs().max().item()
+    rel = diff / (want.double().abs().max().item() or 1.0)
+    result = {"phase": "kernel_vs_plain[stream_pickup]", "kernel": "matmul_acc",
+              "shape": [n, kp, n], "lda": slab.stride(0), "in_place": got.data_ptr() ==
+              acc.data_ptr(), "max_abs_err": diff, "max_rel_err": rel,
+              "tolerance": TOLERANCE["float32"], "routes": launched,
+              "launches": cm.ACC_LAUNCHES - launches}
+    result["ok"] = (rel <= TOLERANCE["float32"] and launched == {"gemm:wgmma": 1}
+                    and result["in_place"])
+    emit(result)
+    del slab, b, acc, want, got
+    torch.cuda.empty_cache()
+    if not result["ok"]:
+        fail("kernel_vs_plain[stream_pickup]", str(result))
+    return result
+
+
+def drive_stream(impl: str, out_dir: str, size: int, panels: int, iterations: int,
+                 budget_gib: float | None = None, mesh: str | None = None,
+                 ranks: int = 1) -> dict:
+    """One run of `parallel stream` through its entry point on the card;
+    returns the record's summary. Under K1 each panel product is one pickup
+    launch on wgmma (panels × ranks × calls: the validation's, the warm-up
+    and the timed ones); the library launches none."""
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.parallel import cli as parallel_cli
+
+    tag = f"{impl},{size},k{panels}" + (f",{mesh}" if mesh else "")
+    path = f"{out_dir}/stream-{re.sub(r'[^A-Za-z0-9]+', '-', tag)}.jsonl"
+    argv = ["stream", "--sizes", str(size), "--stream-k", str(panels), "--dtype", "bfloat16",
+            "--num-devices", str(ranks), "--matmul-impl", impl, "--iterations",
+            str(iterations), "--validate", "--json-out", path]
+    if budget_gib is not None:
+        argv += ["--mem-budget-gib", str(budget_gib)]
+    if mesh:
+        argv += ["--mesh", mesh]
+    cm.ACC_LAUNCHES = 0
+    before = routes()
+    t0 = time.perf_counter()
+    with ranks_per_card(ranks), contextlib.redirect_stdout(sys.stderr):
+        records = parallel_cli.main(argv)
+    seconds = time.perf_counter() - t0
+    launches, by_route = cm.ACC_LAUNCHES, routes_since(before)
+    phase = f"stream[{tag}]"
+    if len(records) != 1:
+        fail(phase, f"expected one record, got {len(records)}")
+    rec, x = records[0], records[0].extras
+    want = panels * ranks * (iterations + 2) if impl == "cuda" else 0
+    summary = {"phase": phase, "avg_ms": rec.avg_time_s * 1e3, "tflops_total": rec.tflops_total,
+               "stream_k": x.get("stream_k"), "validation": x.get("validation"),
+               "validation_max_rel_err": x.get("validation_max_rel_err"),
+               "world": rec.world, "acc_launches": launches, "expected_acc_launches": want,
+               "launches_by_route": by_route, "seconds": seconds}
+    problems = []
+    if x.get("validation") != "ok":
+        problems.append("validation is not ok")
+    if launches != want or by_route != ({"gemm:wgmma": want} if want else {}):
+        problems.append(f"{launches} pickup launches by route {by_route}, not {want} "
+                        "on wgmma")
+    if budget_gib is not None and not (x.get("stream_k") or {}).get("out_of_core"):
+        problems.append(f"not out of core under {budget_gib} GiB: {x.get('stream_k')}")
+    summary["ok"] = not problems
+    emit(summary)
+    if problems:
+        fail(phase, "; ".join(problems))
+    return summary
+
+
+def stream_parts_ms(host, runs: int = 2) -> dict:
+    """The stream's two halves apart, on one rank of the card: the H2D
+    copies of every window alone (events on a copy stream), and every
+    window's products alone on windows already on the card, through K1's
+    pickup and through the library."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops.stream_k import _consume, panel_product
+
+    plan = host.plan
+    n, width = host.b.shape[0], plan.window_k
+    bufs = [(torch.empty((n, width), dtype=host.b.dtype, device="cuda"),
+             torch.empty((width, n), dtype=host.b.dtype, device="cuda")) for _ in range(2)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    copies = []
+    with torch.cuda.stream(stream):
+        for _ in range(runs):
+            start.record()
+            for w in range(plan.num_windows):
+                a_buf, b_buf = bufs[w % 2]
+                a_buf.copy_(host.a[0, w], non_blocking=True)
+                b_buf.copy_(host.b[w * width:(w + 1) * width], non_blocking=True)
+            end.record()
+            end.synchronize()
+            copies.append(start.elapsed_time(end))
+    torch.cuda.current_stream().wait_stream(stream)
+    moved = host.a[0].numel() * host.a.element_size() + host.b.numel() * host.b.element_size()
+    acc = torch.zeros((n, n), dtype=torch.float32, device="cuda")
+    products = {}
+    for impl in ("cuda", "torch"):
+        product = panel_product(impl)
+
+        def windows():
+            for w in range(plan.num_windows):
+                _consume(product, *bufs[w % 2], acc, plan)
+
+        products[impl] = events_ms(windows, runs)
+    del bufs, acc
+    torch.cuda.empty_cache()
+    copy_ms = min(copies)
+    return {"copies_ms": copy_ms, "copied_bytes": moved,
+            "h2d_gbps": moved / (copy_ms * 1e-3) / 1e9,
+            "products_ms": products["cuda"], "library_products_ms": products["torch"]}
+
+
+def stream_races(card: str) -> dict:
+    """STREAM_RACE_CALLS stream calls at STREAM_RACE_SIZE over one rank, each
+    held bitwise to a serial call (every copy and product on the current
+    stream, the card synchronised after each), which is held to the plain
+    product of the whole operands (fp32)."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.ops.stream_k import StreamPlan, stage_host, stream_matmul
+    from tpu_matmul_bench_torch.parallel.stream_k import host_operands
+    from tpu_matmul_bench_torch.utils.config import build_parser, config_from_args
+
+    config = config_from_args(build_parser("t").parse_args(["--dtype", "bfloat16"]))
+    a, b = host_operands(config, STREAM_RACE_SIZE)
+    plan = StreamPlan(size=STREAM_RACE_SIZE, panels=STREAM_RACE_PANELS, window=2, world=1)
+    host = stage_host(a, b, plan, pin=True)
+    mesh = card_mesh(1)
+    serial = stream_matmul(host, mesh, "cuda", serial=True)[0]
+    plain = cm.matmul_plain(a.cuda(), b.cuda(), out_dtype=torch.float32)
+    rel = ((serial.double() - plain.double()).abs().max()
+           / plain.double().abs().max()).item()
+    mismatched = [i for i in range(STREAM_RACE_CALLS)
+                  if not torch.equal(stream_matmul(host, mesh, "cuda")[0], serial)]
+    result = {"phase": "races[stream]", "card": card, "size": STREAM_RACE_SIZE,
+              "panels": STREAM_RACE_PANELS, "calls": STREAM_RACE_CALLS,
+              "mismatched_calls": mismatched, "serial_vs_plain_max_rel_err": rel,
+              "tolerance": TOLERANCE["float32"]}
+    result["ok"] = not mismatched and rel <= TOLERANCE["float32"]
+    emit(result)
+    if not result["ok"]:
+        fail("races[stream]", str(result))
+    return result
+
+
+def stream_phase(card: str, out_dir: str) -> dict:
+    """`parallel stream` at STREAM_SIZE over one rank under STREAM_BUDGET_GIB
+    (out of core), through K1's pickup and through the library, the host
+    operands made once for both (the library run reuses the K1 run's); the
+    copies and the products timed apart (`stream_parts_ms`); the race check
+    (`stream_races`); then the stream over RING_WORLD ranks on HYBRID_MESH,
+    validate-only, at STREAM_RACE_SIZE."""
+    from tpu_matmul_bench_torch.parallel import stream_k
+
+    t0 = time.perf_counter()
+    made, staged = {}, []
+    host_operands, stage_host = stream_k.host_operands, stream_k.stage_host
+
+    def cached(config, size):
+        key = (config.seed, size, config.dtype_name)
+        if key not in made:
+            made.clear()
+            made[key] = host_operands(config, size)
+        return made[key]
+
+    def kept(*args, **kw):
+        staged[:] = [stage_host(*args, **kw)]
+        return staged[0]
+
+    stream_k.host_operands, stream_k.stage_host = cached, kept
+    try:
+        runs = {impl: drive_stream(impl, out_dir, STREAM_SIZE, STREAM_PANELS,
+                                   STREAM_ITERATIONS, budget_gib=STREAM_BUDGET_GIB)
+                for impl in ("cuda", "torch")}
+        made.clear()
+        parts = stream_parts_ms(staged[0])
+    finally:
+        stream_k.host_operands, stream_k.stage_host = host_operands, stage_host
+        made.clear()
+        staged.clear()
+    races = stream_races(card)
+    runs["mesh"] = drive_stream("cuda", out_dir, STREAM_RACE_SIZE, STREAM_RACE_PANELS, 1,
+                                mesh=STREAM_MESH, ranks=RING_WORLD)
+    result = {"phase": "stream", "card": card, "size": STREAM_SIZE, "panels": STREAM_PANELS,
+              "stream_ms": runs["cuda"]["avg_ms"], "library_stream_ms": runs["torch"]["avg_ms"],
+              **parts, "races": races["mismatched_calls"],
+              "seconds": time.perf_counter() - t0, "ok": True}
+    emit(result)
+    runs["parts"] = parts
+    return runs
+
+
 def scaling_phase(out_dir: str) -> dict:
     """The five modes at bf16 SIZE² over RING_WORLD ranks on the card under
     K1 (dispatch, fused) and the library (dispatch), and matrix_parallel
@@ -2667,8 +3126,9 @@ def main() -> None:
     # K1's two other shapes in the scaling modes (matrix and model parallel)
     cases += [("bfloat16", mkn) for mkn in dict.fromkeys(SCALING_SHAPES.values())
               if mkn != (SIZE, SIZE, SIZE)]
-    # and its four in the collective-matmul rings
+    # and its four in the collective-matmul rings, and hybrid's and SUMMA's
     cases += [("bfloat16", mkn) for mkn in CM_SHAPES]
+    cases += [("bfloat16", HYBRID_SHAPE), ("bfloat16", SUMMA_SHAPE)]
     headline_err = None
     for dtype_name, mkn in cases:
         result = check_kernel(dtype_name, mkn)
@@ -2683,6 +3143,7 @@ def main() -> None:
     check_wgmma()
     ksplit_errors = check_ksplit()
     check_matmul_acc()
+    stream_pickup = check_stream_pickup()
     rs_errors = check_rs_step()
     ag_errors = check_ag_step()
     check_rings()
@@ -2726,6 +3187,9 @@ def main() -> None:
         comm_quant_phase(scaling, out_dir)
         wire_phase(card)
         collectives_phase(card, out_dir)
+        hybrid = hybrid_phase(out_dir)
+        summa = summa_phase(out_dir)
+        stream = stream_phase(card, out_dir)
         overlap_modes = overlap_modes_phase(out_dir)
         cm_turns = collective_turns(card)
         profile = profile_phase(cap, out_dir)
@@ -2818,6 +3282,33 @@ def main() -> None:
                                  "mode_ms": r["cuda,dispatch"]["avg_ms"],
                                  "library_mode_ms": r["torch,dispatch"]["avg_ms"]}
                           for mode, r in overlap_modes.items()},
+        # the 2-D modes over RING_WORLD ranks (a call's ms; launches of the
+        # dispatch run), and the out-of-core stream's panel products on the
+        # pickup kernel (cuda_matmul_acc, tmb_matmul_acc) over one rank
+        "hybrid": {"shape": "x".join(map(str, HYBRID_SHAPE)),
+                   "launches": hybrid["cuda,dispatch"]["k1_launches"],
+                   "launches_a_call": K1_PER_CALL["hybrid"],
+                   "mode_ms": hybrid["cuda,dispatch"]["avg_ms"],
+                   "fused_ms": hybrid["cuda,fused"]["avg_ms"],
+                   "library_mode_ms": hybrid["torch,dispatch"]["avg_ms"],
+                   "library_fused_ms": hybrid["torch,fused"]["avg_ms"],
+                   "mesh_wire_ms": hybrid["cuda,dispatch,mesh"]["avg_ms"]},
+        "summa": {"shape": "x".join(map(str, SUMMA_SHAPE)),
+                  "launches": summa["cuda,dispatch"]["k1_launches"],
+                  "launches_a_call": K1_PER_CALL["summa"],
+                  "mode_ms": summa["cuda,dispatch"]["avg_ms"],
+                  "fused_ms": summa["cuda,fused"]["avg_ms"],
+                  "library_mode_ms": summa["torch,dispatch"]["avg_ms"],
+                  "library_fused_ms": summa["torch,fused"]["avg_ms"]},
+        "stream": {"kernel": "cuda_matmul_acc (tmb_matmul_acc)",
+                   "shape": [STREAM_SIZE, STREAM_SIZE // STREAM_PANELS, STREAM_SIZE],
+                   "launches": stream["cuda"]["acc_launches"],
+                   "max_abs_err": stream_pickup["max_abs_err"],
+                   "stream_ms": stream["cuda"]["avg_ms"],
+                   "library_stream_ms": stream["torch"]["avg_ms"],
+                   "products_bound_ms": attribution.bound(
+                       STREAM_SIZE, STREAM_SIZE, STREAM_SIZE, torch.bfloat16, name)[0],
+                   **stream["parts"]},
     }, {
         "name": "matmul_ksplit", "route": "cuda",
         "source": "tpu_matmul_bench_torch/csrc/matmul.cu",

@@ -15,6 +15,7 @@ refusal of a payload a format cannot cut.
 """
 
 import functools
+import itertools
 import json
 
 import jax
@@ -272,9 +273,25 @@ def test_fused_timing_runs_the_wire(ranks8):
 
 
 def test_factorized_mesh_waits_for_a9():
-    with pytest.raises(NotImplementedError, match="A9"):
-        collectives.comm_quant_record_extra(_config("int8"), 8, mode="model_parallel",
-                                            size=64, mesh_spec="dcn:2,ici:4")
+    # A9 is in: on a factorized mesh the record's extra is JAX's per-link
+    # one (the 2-D modes), or JAX's label alone where no two-level model
+    # covers the mode
+    from tpu_matmul_bench.parallel.collectives import (
+        comm_quant_record_extra as jax_comm_quant_record_extra,
+    )
+
+    for spec, mesh_spec in itertools.product(
+            ("int8", "int8-block:32", "dcn=fp8-block:32,ici=none"),
+            ("dcn:2,ici:4", "dcn:4,ici:2")):
+        for mode, kw in (("hybrid", {"dp": int(mesh_spec[4])}), ("summa", {}),
+                         ("model_parallel", {})):
+            got = collectives.comm_quant_record_extra(
+                _config(spec, size=256), 8, mode=mode, size=256, mesh_spec=mesh_spec, **kw)
+            want = jax_comm_quant_record_extra(
+                _jax_config(spec, size=256), 8, mode=mode, size=256, mesh_spec=mesh_spec,
+                **kw)
+            assert got == want, (mesh_spec, mode)
+            assert ("per_link" in got) == (mode != "model_parallel")
 
 
 # ------------------------------------------- the build-time refusal, the CLI

@@ -7,7 +7,10 @@ dtypes: the same collective shapes, inventories, wire inventories and byte
 summaries, exactly, or the same ValueError where a block does not divide a
 payload. Also the payload-reduction floor of `tests/test_comm_quant_block.py`
 (≥ 2× over bf16 on every distributed mode at D = 8), held by the port alone,
-and the module's own imports (numpy only).
+and the module's own imports (numpy only). The hierarchical half
+(`mode_axis_collectives`, `hier_mode_steps`, `hier_expected_collectives`,
+`hier_wire_bytes_summary`) on both transposed factorizations and the
+one-axis ones, every format and two per-link specs: equal, exactly.
 """
 
 import ast
@@ -100,3 +103,40 @@ def test_the_module_imports_numpy_only():
     top = [a.name for node in tree.body if isinstance(node, ast.Import) for a in node.names]
     top += [node.module for node in tree.body if isinstance(node, ast.ImportFrom)]
     assert set(top) <= {"__future__", "dataclasses", "math", "typing", "numpy"}, top
+
+
+HIER_MESHES = ["dcn:2,ici:4", "dcn:4,ici:2", "ici:8", "dcn:8"]
+HIER_SPECS = [None, "int8", "fp8", "int8-block:32", "fp8-block:32", "int8-block:128",
+              "dcn=fp8-block:32,ici=none", "dcn=none,ici=int8-block:32"]
+
+
+@pytest.mark.parametrize("mesh", HIER_MESHES)
+@pytest.mark.parametrize("mode", ["hybrid", "summa", "batch_parallel", "model_parallel"])
+def test_hier_inventory_matches_jax(mode, mesh):
+    for size in (64, 512):
+        for batch in (4, 8):
+            assert _outcome(cm.mode_axis_collectives, mode, mesh, size, batch=batch) == \
+                _outcome(jcm.mode_axis_collectives, mode, mesh, size, batch=batch)
+    assert _outcome(cm.hier_mode_steps, mode, mesh) == _outcome(jcm.hier_mode_steps, mode, mesh)
+    assert cm.LINK_WIRE_SECONDS == jcm.LINK_WIRE_SECONDS
+
+
+@pytest.mark.parametrize("spec", HIER_SPECS)
+@pytest.mark.parametrize("mesh", HIER_MESHES)
+@pytest.mark.parametrize("mode", ["hybrid", "summa"])
+def test_hier_wire_model_matches_jax(mode, mesh, spec):
+    for size in (64, 512):
+        for dtype, jdtype in DTYPES.items():
+            args = (mode, mesh, size)
+            assert _outcome(cm.hier_expected_collectives, *args, dtype, spec) == \
+                _outcome(jcm.hier_expected_collectives, *args, jdtype, spec)
+            assert _outcome(cm.hier_wire_bytes_summary, *args, dtype, spec) == \
+                _outcome(jcm.hier_wire_bytes_summary, *args, jdtype, spec)
+
+
+def test_per_link_reduction_is_charged_to_its_link_only():
+    s = cm.hier_wire_bytes_summary("hybrid", "dcn:2,ici:4", 512, "bfloat16",
+                                   "dcn=fp8-block:32,ici=none")
+    assert s["bottleneck_link"] == "dcn" and s["mesh"] == "dcn:2,ici:4"
+    assert s["per_link"]["dcn"]["payload_reduction_x"] == 2.0
+    assert s["per_link"]["ici"]["payload_reduction_x"] == 1.0

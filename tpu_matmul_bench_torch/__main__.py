@@ -22,6 +22,11 @@ _PROGRAMS = {
     # bandwidth per collective op over the ranks, and `collectives
     # selftest`, the wire formats' numeric selftest
     "collectives": "tpu_matmul_bench_torch.benchmarks.collective_benchmark",
+    # the 2-D modes over a (dp, tp), (i, j) or --mesh dcn:R,ici:C mesh
+    "hybrid": "tpu_matmul_bench_torch.benchmarks.matmul_hybrid_benchmark",
+    "summa": "tpu_matmul_bench_torch.benchmarks.matmul_summa_benchmark",
+    # `parallel stream`, the out-of-core K-streaming benchmark
+    "parallel": "tpu_matmul_bench_torch.parallel.cli",
 }
 
 

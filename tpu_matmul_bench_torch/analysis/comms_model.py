@@ -1,8 +1,9 @@
 """Analytic comms model: the collectives each parallel mode must make, and
 their bytes on a quantized wire.
 
-Port of the flat-world half of `tpu_matmul_bench/analysis/comms_model.py`
-(`:55-297`). It is derived from the mode definitions, not from a trace.
+Port of `tpu_matmul_bench/analysis/comms_model.py` `:55-541`: the flat
+world's model and the hierarchical one of the factorized meshes. It is
+derived from the mode definitions, not from a trace.
 Payload bytes are each rank's operand bytes of the collective for a square
 [size, size] problem in `dtype`:
 
@@ -12,8 +13,17 @@ Payload bytes are each rank's operand bytes of the collective for a square
 - matrix_parallel: one all_gather of the rank's [n, n/d] output columns
   (none at d = 1, where the mode falls back to independent).
 - model_parallel: one all_reduce of the full [n, n] partial product.
-- hybrid and summa: their 2-D meshes' collectives (the modes themselves
-  wait for ROADMAP A9).
+- hybrid: one all_gather of [lb, n, n/tp] over 'tp', one all_reduce of
+  [n, n] over 'dp'.
+- summa: a step's two masked-psum broadcasts, the A panel [n/r, n/s] over
+  the columns and the B panel [n/s, n/c] over the rows, for each of the
+  s = lcm(r, c) steps.
+
+**Hierarchical term.** On a factorized `--mesh dcn:R,ici:C` each
+collective runs over one named axis, and the axis name is its link class
+(`mode_axis_collectives`, `hier_expected_collectives`).
+`hier_wire_bytes_summary` prices each link apart and names the slowest
+(`LINK_WIRE_SECONDS`, a ranking factor, not a measurement).
 
 **Wire-format term.** Under `--comm-quant` every float collective is
 rewritten on the wire: an all_reduce becomes the quantized ring (D−1 hops
@@ -245,3 +255,164 @@ def wire_bytes_summary(mode: str, world: int, size: int, dtype: Any, comm_quant,
         out["payload_reduction_x"] = round(baseline / payload_b, 4)
         out["wire_reduction_x"] = round(baseline / (payload_b + scale_b), 4)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical (DCN×ICI) pricing (JAX `:285-518`): a factorized mesh's axis
+# names are its link classes, so the axis a collective runs over is the wire
+# it travels on. Relative wire-seconds per byte by link class: ICI is the
+# unit and DCN a round planning factor of 8, not a measured constant; a
+# two-axis program is priced slowest-link-dominates.
+# ---------------------------------------------------------------------------
+
+LINK_WIRE_SECONDS = {"ici": 1.0, "dcn": 8.0}
+
+
+def mode_axis_collectives(
+        mode: str, mesh_spec: str, size: int, batch: int = 4,
+) -> list[tuple[str, str, int, tuple[int, ...]]]:
+    """The float collectives of one mode's full program on a factorized
+    mesh as ``(kind, axis_name, axis_size, per_rank_operand_shape)``.
+
+    On a one-axis factorization the flat model applies with the axis's
+    name attached. On a two-axis ``dcn:R,ici:C`` mesh hybrid puts data
+    parallelism on the outer (dcn) axis and tensor parallelism on the
+    inner (ici); SUMMA puts grid rows on dcn and columns on ici, so its
+    A-panel broadcast (over the columns) rides ici and its B-panel
+    broadcast (over the rows) dcn.
+    """
+    from tpu_matmul_bench_torch.parallel.mesh import parse_mesh_spec
+
+    axes = parse_mesh_spec(mesh_spec)
+    n = size
+    if len(axes) == 1:
+        name, d = axes[0]
+        return [(kind, name, axis, shape)
+                for kind, axis, shape in mode_collective_shapes(
+                    mode, d, size, batch=batch)]
+    (dp_ax, d0), (tp_ax, d1) = axes
+    if mode == "hybrid":
+        lb = max(batch // d0, 1)
+        return [("all_gather", tp_ax, d1, (lb, n, n // d1)),
+                ("all_reduce", dp_ax, d0, (n, n))]
+    if mode == "summa":
+        r, c = d0, d1
+        s = math.lcm(r, c)
+        return [("all_reduce", tp_ax, c, (n // r, n // s)),  # A panel over 'j'
+                ("all_reduce", dp_ax, r, (n // s, n // c))]  # B panel over 'i'
+    raise ValueError(
+        f"no two-level comms model for mode {mode!r} (hybrid and summa map "
+        "onto a dcn×ici factorization; the 1-D modes take a one-axis mesh)")
+
+
+def hier_mode_steps(mode: str, mesh_spec: str) -> int:
+    """`mode_steps` on a factorized mesh: summa's step count is the lcm of
+    the grid sides, which on a two-axis mesh are the axis sizes."""
+    from tpu_matmul_bench_torch.parallel.mesh import parse_mesh_spec
+
+    axes = parse_mesh_spec(mesh_spec)
+    if mode != "summa":
+        return 1
+    if len(axes) == 1:
+        return mode_steps(mode, axes[0][1])
+    return math.lcm(axes[0][1], axes[1][1])
+
+
+def hier_expected_collectives(
+        mode: str, mesh_spec: str, size: int, dtype: Any, comm_quant=None,
+        batch: int = 4) -> list[tuple[str, str, int]]:
+    """The per-axis collective inventory of the full program's one step on
+    a factorized mesh as ``(kind, axis_name, payload_bytes)``. `comm_quant`
+    may be uniform or per-link; each axis's collectives go on the wire of
+    the format its link class resolves to (`link_format_spec`, the door the
+    modes route through)."""
+    from tpu_matmul_bench_torch.parallel.collectives import (
+        link_format_spec,
+        parse_wire_format,
+    )
+
+    item = matmul_out_itemsize(dtype)
+    integer = _dtype_info(dtype)[1]
+    out: list[tuple[str, str, int]] = []
+    for kind, name, axis, shape in mode_axis_collectives(
+            mode, mesh_spec, size, batch=batch):
+        fmt = None if integer else parse_wire_format(
+            link_format_spec(comm_quant, name))
+        if fmt is None:
+            # an exact collective runs even over a size-1 axis; only the
+            # wire tier returns its input there
+            out.append((kind, name, int(np.prod(shape)) * item))
+        else:
+            for k, _, payload, _ in _one_wire_entries(
+                    kind, axis, shape, fmt, where=f"{mode}/{name}"):
+                out.append((k, name, payload))
+    return out
+
+
+def hier_wire_bytes_summary(mode: str, mesh_spec: str, size: int, dtype: Any,
+                            comm_quant, batch: int = 4) -> dict:
+    """Static per-link-class wire-byte prices of one (mode, mesh, size,
+    format) cell: `wire_bytes_summary` split by link class, plus the
+    slowest-link-dominates attribution. Each link present gets its own
+    {baseline, payload, scale, total, reduction} block; `bottleneck_link`
+    is the link with the largest bytes × `LINK_WIRE_SECONDS` product and
+    `comm_seconds_rel` that product, a ranking, not a latency."""
+    from tpu_matmul_bench_torch.parallel.collectives import (
+        link_format_spec,
+        parse_wire_format,
+    )
+    from tpu_matmul_bench_torch.parallel.mesh import axis_link_class, canonical_mesh_spec
+
+    steps = hier_mode_steps(mode, mesh_spec)
+    item = matmul_out_itemsize(dtype)
+    integer = _dtype_info(dtype)[1]
+    per_link: dict[str, dict] = {}
+
+    def link_bucket(link: str, fmt_spec) -> dict:
+        return per_link.setdefault(link, {
+            "wire_format": fmt_spec, "baseline_bytes": 0.0,
+            "wire_payload_bytes": 0.0, "wire_scale_bytes": 0.0,
+        })
+
+    for kind, name, axis, shape in mode_axis_collectives(
+            mode, mesh_spec, size, batch=batch):
+        link = axis_link_class(name)
+        sub = link_format_spec(comm_quant, name)
+        fmt = None if integer else parse_wire_format(sub)
+        bucket = link_bucket(link, sub if not integer else None)
+        base = int(np.prod(shape)) * item * RING_WIRE_FACTOR[kind](axis)
+        bucket["baseline_bytes"] += steps * base
+        if fmt is None:
+            bucket["wire_payload_bytes"] += steps * base
+        else:
+            for k, _, payload, role in _one_wire_entries(
+                    kind, axis, shape, fmt, where=f"{mode}/{name}"):
+                key = ("wire_payload_bytes" if role == "payload"
+                       else "wire_scale_bytes")
+                bucket[key] += steps * payload * RING_WIRE_FACTOR[k](axis)
+
+    bottleneck, bottleneck_secs = None, -1.0
+    for link, bucket in per_link.items():
+        payload_b = bucket["wire_payload_bytes"]
+        scale_b = bucket["wire_scale_bytes"]
+        baseline = bucket["baseline_bytes"]
+        for key in ("baseline_bytes", "wire_payload_bytes", "wire_scale_bytes"):
+            bucket[key] = int(round(bucket[key]))
+        bucket["wire_bytes"] = int(round(payload_b + scale_b))
+        if payload_b:
+            bucket["payload_reduction_x"] = round(baseline / payload_b, 4)
+            bucket["wire_reduction_x"] = round(baseline / (payload_b + scale_b), 4)
+        secs = (payload_b + scale_b) * LINK_WIRE_SECONDS[link]
+        bucket["wire_seconds_rel"] = round(secs, 1)
+        if secs > bottleneck_secs:
+            bottleneck, bottleneck_secs = link, secs
+
+    return {
+        "wire_format": comm_quant,
+        "mesh": canonical_mesh_spec(mesh_spec),
+        "per_link": per_link,
+        "baseline_bytes": sum(b["baseline_bytes"] for b in per_link.values()),
+        "wire_bytes": sum(b["wire_bytes"] for b in per_link.values()),
+        "bottleneck_link": bottleneck,
+        "comm_seconds_rel": round(bottleneck_secs, 1),
+    }

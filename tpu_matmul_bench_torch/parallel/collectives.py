@@ -5,8 +5,10 @@ Port of `tpu_matmul_bench/parallel/collectives.py`. The ranks live in one
 process, so each collective is plain tensor copies and sums between the
 ranks' tensors, in the role XLA's collectives play in the JAX package.
 Every function takes and returns per-rank tensors in rank order; results
-lie on each rank's device. Ranks that are processes on several cards (NCCL
-process groups) are later work. Two halves:
+lie on each rank's device. A collective over one axis of a 2-D mesh runs
+over each of that axis's groups, on its 1-D sub-mesh (`over_axis`). Ranks
+that are processes on several cards (NCCL process groups) are later work.
+Two halves:
 
 1. **Wire formats** (`--comm-quant`, JAX `:71-538`): `WireFormat` and its
    grammar, `wire_psum`, `wire_reduce_scatter` and `wire_all_gather`, the
@@ -164,6 +166,22 @@ def all_to_all_over(mesh: Mesh, *, split_axis: int = 0, concat_axis: int = 0
                            for s in shards], dim=concat_axis)
                 for r in mesh.ranks]
     return fn
+
+
+def over_axis(mesh: Mesh, axis: str, shards: Shards,
+              collective: Callable[[Mesh, list[torch.Tensor]], list[torch.Tensor]]
+              ) -> list[torch.Tensor]:
+    """`collective(sub_mesh, group_shards)` over each group of `axis` (the
+    ranks that share every other coordinate; JAX's collective over one mesh
+    axis), the results put back in rank order. On a 1-D mesh this is one
+    call over the whole world."""
+    _check(mesh, shards)
+    out: list[torch.Tensor | None] = [None] * mesh.size
+    for group in mesh.axis_groups(axis):
+        sub = mesh.sub_mesh(axis, group[0])
+        for r, res in zip(group, collective(sub, [shards[r] for r in group])):
+            out[r] = res
+    return out
 
 
 def verify_collectives(mesh: Mesh, *, verbose: bool = True) -> bool:
@@ -325,7 +343,8 @@ def parse_link_formats(spec: str) -> dict[str, WireFormat | None]:
 def link_format_spec(spec: str | None, axis_name: str) -> str | None:
     """The uniform wire-format spec one axis's collectives run under: the
     axis's link-class entry of a per-link spec, or the spec itself when
-    uniform. On the port's flat world the one axis 'x' is 'ici'."""
+    uniform. Only an axis named 'dcn' takes the dcn entry; every other axis
+    (the flat world's 'x' included) the ici entry."""
     if not is_per_link_spec(spec):
         return spec
     fmt = parse_link_formats(spec)[axis_link_class(axis_name)]
@@ -638,16 +657,12 @@ def comm_quant_record_extra(config, world: int, *, mode: str, size: int,
                             mesh_spec: str | None = None) -> dict:
     """The record's `extras["comm_quant"]` value (JAX `:494-538`): the
     inertness-aware format label, plus the static wire-byte model of this
-    (mode, world, size) cell (`analysis/comms_model.py
-    wire_bytes_summary`) when the wire is live. The per-link breakdown of a
-    factorized mesh (`mesh_spec`) waits for ROADMAP A9 and raises rather
-    than price a mesh the port cannot build."""
+    (mode, world, size) cell when the wire is live: on a factorized mesh
+    (`mesh_spec`) the per-link breakdown of `analysis/comms_model.py
+    hier_wire_bytes_summary`, so a per-link spec shows its reduction
+    charged only to the link it quantizes; else `wire_bytes_summary`."""
     from tpu_matmul_bench_torch.parallel.quantized import comm_quant_extra
 
-    if mesh_spec is not None:
-        raise NotImplementedError(
-            f"comm_quant_record_extra on the factorized mesh {mesh_spec!r}: "
-            "the port's meshes are flat (factorized meshes wait for ROADMAP A9)")
     tp = (world // dp) if dp else None
     extra: dict = {
         "spec": config.comm_quant,
@@ -660,15 +675,24 @@ def comm_quant_record_extra(config, world: int, *, mode: str, size: int,
         quantized = parse_wire_format(config.comm_quant) is not None
     inert = not quantized or world <= 1 or is_integer_dtype(config.dtype)
     if not inert:
-        from tpu_matmul_bench_torch.analysis.comms_model import wire_bytes_summary
+        from tpu_matmul_bench_torch.analysis.comms_model import (
+            hier_wire_bytes_summary,
+            wire_bytes_summary,
+        )
 
         try:
-            # a per-link spec on the flat world: its one axis is 'ici'
-            uniform = link_format_spec(config.comm_quant, "x")
-            if uniform is not None:
-                extra.update(wire_bytes_summary(
-                    mode, world, size, config.dtype_name, uniform,
-                    batch=batch, dp=dp, rows=rows))
+            if mesh_spec is not None:
+                extra.update(hier_wire_bytes_summary(
+                    mode, mesh_spec, size, config.dtype_name, config.comm_quant,
+                    batch=batch))
+            else:
+                # a per-link spec on a mesh without link classes: every
+                # axis is on 'ici'
+                uniform = link_format_spec(config.comm_quant, "x")
+                if uniform is not None:
+                    extra.update(wire_bytes_summary(
+                        mode, world, size, config.dtype_name, uniform,
+                        batch=batch, dp=dp, rows=rows))
         except ValueError:
             pass  # modes the analytic model doesn't cover stay label-only
     return extra

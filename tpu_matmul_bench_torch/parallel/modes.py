@@ -261,7 +261,7 @@ def _gib(size: int, dtype: Any, count: float) -> float:
 
 
 def estimate_memory_gib(mode: str, config: BenchConfig, world: int,
-                        size: int, batch: int = 4) -> float:
+                        size: int, batch: int = 4, dp: int | None = None) -> float:
     """Per-rank footprint of a mode's operands, buffers and outputs, in
     GiB: the single source for ModeSetup.memory_gib_per_device and the
     pre-flight guard (pure: it never touches the allocator). The rows of
@@ -277,6 +277,18 @@ def estimate_memory_gib(mode: str, config: BenchConfig, world: int,
         return (_gib(size, config.dtype, in_count) + _gib(size, out_dtype, out_count)
                 + _gib(size, matmul_acc_dtype(out_dtype), acc_count))
 
+    if mode == "hybrid":
+        # X's shard (lb) + W's column shard (1/tp); the products (lb/tp),
+        # the gathered columns (lb), the batch sum and the psum's result
+        # (2) + its accumulator
+        tp = d // (dp or 1)
+        lb = max(batch // (dp or 1), 1)
+        return gib(lb + 1.0 / tp, lb / tp + lb + 2, 1)
+    if mode == "summa":
+        # A and B blocks (2/d) + a step's masked contributions and its
+        # broadcast panels (two pairs, each panel at most 1/d) + the C
+        # block and a step's product (2/d) + the broadcast's accumulator
+        return gib(6.0 / d, 2.0 / d, 1.0 / d)
     if mode in ("cuda_ring_hbm", "cuda_ring_bidir_hbm"):
         # sharded operands (2/d) + the 2-slot receive buffer (2/d, operand
         # dtype) + full-size C + one temp (the baseline's gathered X)

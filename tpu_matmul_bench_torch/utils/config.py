@@ -5,15 +5,19 @@ programs consume: the reference's --sizes (default 4096 8192 16384),
 --iterations (50), --warmup (10) and --dtype (default bfloat16, plus int8),
 and the benchmark's --mode --device --num-devices --json-out --matmul-impl
 --seed --validate --precision --trace-out --samples --percentiles --repeats
---timing --block-m/n/k --wres --profile-dir --comm-quant. `--repeats` and
-`--timing` are offered only to programs whose timed loop reads them
-(`best_of`, `fused_timing`), `--mode` and `--profile-dir` only to the mode
-programs (scaling, distributed, overlap, collectives), whose runners read
-them, `--wres` only to those whose modes run the ring kernels (`wres`), and
-`--comm-quant` only to those whose modes route a collective through a wire
-format (scaling, distributed: `comm_quant`). The JAX package's flags that no
-program of the port consumes yet are left out rather than accepted and
-ignored.
+--timing --block-m/n/k --wres --profile-dir --comm-quant --mesh
+--stream-k --mem-budget-gib. `--repeats` and `--timing` are offered only to
+programs whose timed loop reads them (`best_of`, `fused_timing`), `--mode`
+and `--profile-dir` only to the mode programs (scaling, distributed,
+overlap, collectives; `--profile-dir` also to hybrid and summa: `profile`),
+whose runners read them, `--wres` only to those whose modes run the ring
+kernels (`wres`), `--comm-quant` only to those whose modes route a
+collective through a wire format (scaling, distributed, hybrid, summa:
+`comm_quant`), `--mesh` only to the programs that build a factorized mesh
+(hybrid, summa, parallel stream: `mesh`), and `--stream-k` and
+`--mem-budget-gib` only to `parallel stream` (`stream`). The JAX package's
+flags that no program of the port consumes yet are left out rather than
+accepted and ignored.
 """
 
 from __future__ import annotations
@@ -85,6 +89,13 @@ class BenchConfig:
     # wire format of the modes' collectives (parallel/collectives.py):
     # None/"none" exact; int8 formats and fp8 formats quantize the payload
     comm_quant: str | None = None
+    # factorized mesh ("dcn:R,ici:C"); None = the program's own mesh
+    mesh: str | None = None
+    # out-of-core K-streaming: panels per matmul (None = the default)
+    stream_k: int | None = None
+    # memory budget a rank's device may spend on the streaming window (None
+    # = the device's own memory, analysis/memory_model.py)
+    mem_budget_gib: float | None = None
 
     @property
     def wres_override(self) -> bool | None:
@@ -125,6 +136,19 @@ def comm_quant_arg(value: str) -> str:
     return value
 
 
+def mesh_arg(value: str) -> str:
+    """argparse type for --mesh: validate the dcn:R,ici:C factorization
+    grammar at parse time, keeping the raw string (parallel/mesh.py builds
+    the mesh where it is used)."""
+    from tpu_matmul_bench_torch.parallel.mesh import parse_mesh_spec
+
+    try:
+        parse_mesh_spec(value)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+    return value
+
+
 def build_parser(description: str,
                  extra_dtypes: Sequence[str] = (),
                  modes: Sequence[str] | None = None,
@@ -132,13 +156,18 @@ def build_parser(description: str,
                  fused_timing: bool = True,
                  best_of: bool = True,
                  wres: bool = True,
-                 comm_quant: bool = False) -> argparse.ArgumentParser:
+                 comm_quant: bool = False,
+                 mesh: bool = False,
+                 stream: bool = False,
+                 profile: bool = False) -> argparse.ArgumentParser:
     """The shared parser. `modes` adds --mode (default `default_mode`, else
     the first) and --profile-dir, which the mode programs' runners read,
-    and with `wres` --wres, which their ring kernels read; `comm_quant`
-    adds --comm-quant, for the programs whose modes read it; `best_of` adds
-    --repeats and `fused_timing` adds --timing, for the programs whose
-    timed loop reads them."""
+    and with `wres` --wres, which their ring kernels read; `profile` adds
+    --profile-dir without --mode; `comm_quant` adds --comm-quant, for the
+    programs whose modes read it; `mesh` adds --mesh and `stream`
+    --stream-k and --mem-budget-gib, for the programs that read them;
+    `best_of` adds --repeats and `fused_timing` adds --timing, for the
+    programs whose timed loop reads them."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument(
         "--sizes", type=int, nargs="+", default=list(DEFAULT_SIZES),
@@ -158,6 +187,7 @@ def build_parser(description: str,
                      "block's shared memory): auto and off stream W from "
                      "device memory and the record says why; on is an error.",
             )
+    if modes or profile:
         p.add_argument(
             "--profile-dir", type=str, default=None,
             help="Write a torch.profiler trace of the benchmark here (Chrome "
@@ -220,11 +250,40 @@ def build_parser(description: str,
                  "'int8-block:<B>'/'fp8-block:<B>' quantize per B-column "
                  "block with one fp32 scale each. Applies to every "
                  "distributed mode's psum/all_gather leg. The per-link form "
-                 "'dcn=<fmt>,ici=<fmt>' picks a format per link class; the "
-                 "port's world is flat, so its one axis takes the ici entry "
+                 "'dcn=<fmt>,ici=<fmt>' picks a format per link class: each "
+                 "axis of a --mesh factorized mesh takes its link's entry, "
+                 "every other axis (the flat world's included) the ici entry "
                  "(unnamed links stay exact). Ranks that share a card move "
                  "the payloads within its memory: there the wire saves no "
                  "time.",
+        )
+    if mesh:
+        p.add_argument(
+            "--mesh", type=mesh_arg, default=None, metavar="dcn:R[,ici:C]",
+            help="Factorized mesh of the ranks (parallel/mesh.py): its axis "
+                 "names are link classes, 'dcn' the network between hosts, "
+                 "'ici' the interconnect within a host. The 2-D modes "
+                 "(hybrid, summa) put their outer parallelism on dcn and "
+                 "the inner on ici; a per-link --comm-quant picks a format "
+                 "for each. Ranks that share a card copy through its "
+                 "memory, so there dcn and ici are labels. Default: the "
+                 "program's own mesh.",
+        )
+    if stream:
+        p.add_argument(
+            "--stream-k", type=int, default=None, metavar="PANELS",
+            help="Out-of-core K-streaming (ops/stream_k.py): split K into "
+                 "PANELS host-resident panels consumed through a bounded "
+                 "double-buffered device window (default: 8).",
+        )
+        p.add_argument(
+            "--mem-budget-gib", type=float, default=None, metavar="GIB",
+            help="Memory budget of one device that the streaming gate "
+                 "(analysis/memory_model.py, MEM-003) certifies the resident "
+                 "window against, the window of every rank on the device "
+                 "counted (default: the device's own memory, the card's "
+                 "total memory or the CPU's physical memory). Nothing is "
+                 "allocated unless the window fits.",
         )
     p.add_argument(
         "--precision", type=str, default="default",
@@ -300,6 +359,9 @@ def config_from_args(args: argparse.Namespace) -> BenchConfig:
         wres=getattr(args, "wres", "auto"),
         profile_dir=getattr(args, "profile_dir", None),
         comm_quant=getattr(args, "comm_quant", None),
+        mesh=getattr(args, "mesh", None),
+        stream_k=getattr(args, "stream_k", None),
+        mem_budget_gib=getattr(args, "mem_budget_gib", None),
     )
 
 

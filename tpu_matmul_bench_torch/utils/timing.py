@@ -185,11 +185,11 @@ def _chainable(x: Any) -> bool:
 
 def _chain_targets(op: Any) -> list[torch.Tensor]:
     """The tensors that hold element [0, ..., 0] of operand `op`: the
-    tensor itself; shard 0 of a sharded operand, where its global
-    [0, ..., 0] lies whatever dim is cut; every copy of a replicated one."""
+    tensor itself; every copy of the block of a sharded operand that holds
+    its global [0, ..., 0] (shard 0 alone when every rank holds a block of
+    its own; every shard when replicated)."""
     if isinstance(op, Sharded):
-        targets = list(op) if op.dim is None else [op[0]]
-        return [t for t in targets if _chainable(t)]
+        return [t for t in op.origin_shards() if _chainable(t)]
     return [op] if _chainable(op) else []
 
 
@@ -207,7 +207,7 @@ def _clone(x: Any) -> Any:
     """A copy of an operand the chain may write into: a tensor, or every
     shard of a sharded operand."""
     if isinstance(x, Sharded):
-        return Sharded([s.clone() for s in x], x.spec)
+        return x.like([s.clone() for s in x])
     return x.clone() if isinstance(x, torch.Tensor) else x
 
 
@@ -220,9 +220,9 @@ def fuse_iterations(
     Between calls, a bounded scalar from the previous output is written into
     element [0, ..., 0] of each operand, so every call depends on the one
     before and none can be skipped or merged. For a sharded operand
-    (`parallel/mesh.Sharded`) that element is the global array's, shard
-    0's [0, ..., 0] (every copy's, when replicated), as JAX's chain writes
-    into a sharded array. The chain writes into the operands, so the loop
+    (`parallel/mesh.Sharded`) that element is the global array's, in
+    every copy of the block that holds it (`Sharded.origin_shards`), as
+    JAX's chain writes into a sharded array. The chain writes into the operands, so the loop
     runs on clones (every shard cloned), kept as long as the graph that
     reads them; the caller's tensors are not touched. `clone=False` chains
     into the operands it is given: the caller made them for it.
