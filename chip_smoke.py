@@ -121,7 +121,22 @@ The paths:
   fused ring at its cap and K4 at 16384², each traced by torch.profiler,
   with the device time per kernel, the device's busy and idle share inside
   the timed windows, the fused ring's device time a launch and the spread
-  of K4's step launches read from the traces.
+  of K4's step launches read from the traces;
+- the comparison, curve, memory-rate, doctor and train programs at bf16
+  16384² over 4 ranks on the card: `curve`
+  (batch_parallel over 1, 2 and 4 ranks under K1: a record and a table row
+  a count, each `validation: ok` with the scaling phase's launch count, no
+  efficiency above 105%); `membw` (its five ops at 8192² and 16384², far
+  above the L2, none above the datasheet's rate); `doctor` as a process
+  (exit 0); `compare` (the whole table in process, every row there and
+  validated, K1 launched by none of them since `auto` stays on cuBLAS,
+  each HBM ring's steps launched; two rows in child processes under
+  `--isolate`; K6 and K2 at K6's cap); `train bench` in four runs (dp at
+  zero 0 and 1, dp on an fp8-block:128 gradient wire, hybrid on `--mesh
+  dcn:2,ici:2` with the dcn sync on the wire), each record valid, its five
+  phases summing to its wall time, validated against the dense fp32
+  reference, its synced gradient held to the dense one; and `train
+  selftest` over 8 ranks on the card.
 
 Standard output is one JSON object per line: one per phase, then the
 `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
@@ -134,6 +149,7 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import io
 import json
 import math
 import os
@@ -245,6 +261,31 @@ SUMMA_ROWS = (1, 4)
 STREAM_SIZE, STREAM_PANELS, STREAM_BUDGET_GIB, STREAM_ITERATIONS = 32768, 16, 5.5, 3
 STREAM_RACE_SIZE, STREAM_RACE_PANELS, STREAM_RACE_CALLS = 4096, 8, 10
 STREAM_MESH = "dcn:2,ici:2"
+# the comparison, curve, memory-rate, doctor and train programs at bf16
+# SIZE² over RING_WORLD ranks on the card: the
+# scaling curve of batch_parallel over 1, 2 and 4 ranks under K1 (the
+# scaling phase's iterations, so each row's K1 launches are
+# `scaling_launches` less the baseline the first multi-rank row measured);
+# membw's five ops at two sizes far above the card's L2; the doctor as a
+# process; the compare table (its rows' K1 launches 0: `auto` stays on
+# cuBLAS, ROADMAP B3), its isolated rows and K6's cap; and the train step
+CURVE_MODE, CURVE_COUNTS = "batch_parallel", (1, 2, 4)
+MEMBW_SIZES, MEMBW_ITERATIONS, MEMBW_WARMUP = (8192, SIZE), 20, 3
+COMPARE_ITERATIONS, COMPARE_WARMUP = 3, 1
+COMPARE_ISOLATED = ("single", "batch_parallel")
+COMPARE_AT_CAP = ("cuda_ring", "cuda_ring_hbm")
+# the step modes' programs give no corner verdict ("n/a ..."), in JAX too
+COMPARE_NO_VERDICT = ("no_overlap", "overlap", "pipeline")
+# the HBM rings' step launches by row: the all-gather rings forward
+# (cuda_matmul.AG_LAUNCHES), the reduce-scatter rings store (RS_LAUNCHES)
+COMPARE_RING_STEPS = {"cuda_ring_hbm": "ag", "cuda_ring_bidir_hbm": "ag",
+                      "cuda_ring_rs_hbm": "rs", "cuda_ring_bidir_rs_hbm": "rs"}
+TRAIN_BATCH, TRAIN_ITERATIONS, TRAIN_WARMUP = 8, 2, 1
+TRAIN_RUNS = [("--mode", "dp", "--zero", "0"),
+              ("--mode", "dp", "--zero", "1"),
+              ("--mode", "dp", "--zero", "1", "--grad-quant", "fp8-block:128", "--steps", "4"),
+              ("--mode", "hybrid", "--mesh", "dcn:2,ici:2", "--zero", "1",
+               "--grad-quant", "dcn=fp8-block:128,ici=none")]
 
 SCALING_SHAPES = {"independent": (SIZE, SIZE, SIZE), "batch_parallel": (SIZE, SIZE, SIZE),
                   "data_parallel": (SIZE, SIZE, SIZE),
@@ -3009,6 +3050,372 @@ def ring_entry(label: str, counts: dict, baseline_ms: float, card: str,
             "library_ms": library_ms, "baseline_ms": baseline_ms}, (fn, x, w)
 
 
+def curve_phase(out_dir: str) -> dict:
+    """`curve --mode batch_parallel --sizes SIZE --device-counts 1,2,4
+    --matmul-impl cuda --validate` through its entry point: one record and
+    one table row a count, each `validation: ok` with every K1 launch of its
+    scaling run on wgmma, as many as the scaling phase's count for that
+    rank count (the single-device baseline measured once, at the first
+    multi-rank count, and cached for the next), no efficiency above
+    EFFICIENCY_MAX_PCT."""
+    from tpu_matmul_bench_torch.benchmarks import matmul_scaling_benchmark, scaling_curve
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+
+    md, path = f"{out_dir}/curve.md", f"{out_dir}/curve.jsonl"
+    argv = ["--mode", CURVE_MODE, "--sizes", str(SIZE), "--dtype", "bfloat16",
+            "--device-counts", ",".join(map(str, CURVE_COUNTS)), "--matmul-impl", "cuda",
+            "--iterations", str(SCALING_ITERATIONS), "--warmup", str(SCALING_WARMUP),
+            "--validate", "--markdown-out", md, "--json-out", path]
+    per_count: dict[int, int] = {}
+    real = matmul_scaling_benchmark.run
+
+    def counted(config, **kw):
+        before = cm.LAUNCHES
+        records = real(config, **kw)
+        per_count[config.num_devices] = cm.LAUNCHES - before
+        return records
+
+    matmul_scaling_benchmark._BASELINE_CACHE.clear()
+    cm.LAUNCHES = 0
+    before = routes()
+    t0 = time.perf_counter()
+    matmul_scaling_benchmark.run = counted
+    try:
+        with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
+            records = scaling_curve.main(argv)
+    finally:
+        matmul_scaling_benchmark.run = real
+    seconds = time.perf_counter() - t0
+    launches, by_route = cm.LAUNCHES, routes_since(before)
+    with open(md) as fh:
+        table = fh.read()
+    rows = [line for line in table.splitlines() if re.match(r"\| \d+ \|", line)]
+    baseline = 1 + SCALING_WARMUP + SCALING_ITERATIONS
+    want = {}
+    for n in CURVE_COUNTS:
+        want[n] = scaling_launches(CURVE_MODE, n, "dispatch")
+        if n > 1 and n != min(c for c in CURVE_COUNTS if c > 1):
+            want[n] -= baseline  # the baseline came from the cache
+    by_count = {r.world: {"avg_ms": r.avg_time_s * 1e3, "tflops_total": r.tflops_total,
+                          "tflops_per_card": r.tflops_per_device,
+                          "scaling_efficiency_pct": r.scaling_efficiency_pct,
+                          "validation": r.extras.get("validation"),
+                          "k1_launches": per_count.get(r.world),
+                          "expected_k1_launches": want[r.world]} for r in records}
+    problems = []
+    if [r.world for r in records] != list(CURVE_COUNTS) or len(rows) != len(CURVE_COUNTS):
+        problems.append(f"records for {[r.world for r in records]}, table rows {rows}")
+    for n, row in by_count.items():
+        if row["validation"] != "ok":
+            problems.append(f"{n} ranks: validation {row['validation']}")
+        if row["k1_launches"] != row["expected_k1_launches"]:
+            problems.append(f"{n} ranks: {row['k1_launches']} K1 launches, not "
+                            f"{row['expected_k1_launches']}")
+        eff = row["scaling_efficiency_pct"]
+        if (eff is None) != (n == 1) or (eff is not None and eff > EFFICIENCY_MAX_PCT):
+            problems.append(f"{n} ranks: scaling_efficiency_pct {eff}")
+    if by_route != {"gemm:wgmma": launches} or launches != sum(per_count.values()):
+        problems.append(f"launches by route {by_route}, {launches} in all: not all on wgmma")
+    summary = {"phase": "curve", "mode": CURVE_MODE, "counts": by_count, "table": table,
+               "k1_launches": launches, "launches_by_route": by_route,
+               "seconds": seconds, "ok": not problems}
+    emit(summary)
+    if problems:
+        fail("curve", "; ".join(problems))
+    return summary
+
+
+def membw_phase(card: str, out_dir: str) -> dict:
+    """membw's five ops at bf16 MEMBW_SIZES through its entry point: each
+    array far above the card's L2 (read from the device), every reading at
+    most the datasheet's rate (`pct_of_spec_hbm_bw` ≤ 100: more means the
+    byte model or L2 residency is wrong), the triad's GB/s printed."""
+    import torch
+
+    from tpu_matmul_bench_torch.benchmarks import membw_benchmark
+    from tpu_matmul_bench_torch.parallel.overlap import l2_bytes
+
+    l2 = l2_bytes(torch.device("cuda", 0))
+    argv = ["--sizes", *map(str, MEMBW_SIZES), "--dtype", "bfloat16",
+            "--iterations", str(MEMBW_ITERATIONS), "--warmup", str(MEMBW_WARMUP),
+            "--json-out", f"{out_dir}/membw.jsonl"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        records = membw_benchmark.main(argv)
+    seconds = time.perf_counter() - t0
+    gbps = {f"{r.mode},{r.size}": r.algbw_gbps for r in records}
+    pct = {f"{r.mode},{r.size}": r.extras.get("pct_of_spec_hbm_bw") for r in records}
+    problems = []
+    if len(records) != len(membw_benchmark.STREAM_OPS) * len(MEMBW_SIZES):
+        problems.append(f"{len(records)} records")
+    small = [s for s in MEMBW_SIZES if s * s * 2 < 2 * l2]
+    if small:
+        problems.append(f"sizes {small}: an array is not twice the L2 ({l2} B)")
+    high = {k: v for k, v in pct.items() if v is None or v > 100}
+    if high:
+        problems.append(f"readings above the datasheet (or none): {high}")
+    summary = {"phase": "membw", "card": card, "l2_bytes": l2, "gbps": gbps,
+               "pct_of_spec_hbm_bw": pct,
+               "triad_gbps": {s: gbps[f"triad,{s}"] for s in MEMBW_SIZES if f"triad,{s}" in gbps},
+               "seconds": seconds, "ok": not problems}
+    emit(summary)
+    if problems:
+        fail("membw", "; ".join(problems))
+    return summary
+
+
+def doctor_phase() -> dict:
+    """`python -m tpu_matmul_bench_torch doctor --json-out -` as a process
+    of its own (its hard-exit path): exit code 0, its JSON line printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_matmul_bench_torch", "doctor", "--json-out", "-"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=300)
+    seconds = time.perf_counter() - t0
+    print(proc.stdout + proc.stderr, file=sys.stderr)
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    report = lines[-1] if lines else None
+    ok = proc.returncode == 0 and bool(report) and report.get("healthy") is True
+    emit({"phase": "doctor", "rc": proc.returncode, "report": report,
+          "seconds": seconds, "ok": ok})
+    if not ok:
+        fail("doctor", f"rc {proc.returncode}, report {report}")
+    return report
+
+
+def _compare_run(argv: list[str], label: str, want: set, out_dir: str) -> tuple[dict, dict]:
+    """One `compare` through its entry point, its ranks on the card, with
+    the launches each in-process row made; fails unless every row of
+    `want` is there and validates (the step modes give no verdict), and
+    no row launched K1 (`auto` stays on cuBLAS)."""
+    from tpu_matmul_bench_torch.benchmarks import compare_benchmarks
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.ops import cuda_ring_fused as crf
+
+    def counters() -> dict:
+        return {"k1": cm.LAUNCHES, "ag": cm.AG_LAUNCHES, "rs": cm.RS_LAUNCHES,
+                "fused": crf.FUSED_RING_LAUNCHES}
+
+    by_row: dict[str, dict] = {}  # by the record's mode (the matmul rows: "single")
+    k1_rows: list[tuple[str, int]] = []
+    real = compare_benchmarks._run
+
+    def counted(main, argv_):
+        before = counters()
+        records = real(main, argv_)
+        delta = {k: v - before[k] for k, v in counters().items()}
+        for rec in records:
+            by_row[rec.mode] = delta
+            k1_rows.append((f"{rec.mode},{rec.dtype}", delta["k1"]))
+        return records
+
+    path = f"{out_dir}/compare-{label}.jsonl"
+    cm.LAUNCHES = cm.AG_LAUNCHES = cm.RS_LAUNCHES = crf.FUSED_RING_LAUNCHES = 0
+    t0 = time.perf_counter()
+    compare_benchmarks._run = counted
+    try:
+        with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
+            results = compare_benchmarks.main([*argv, "--dtype", "bfloat16", "--validate",
+                                               "--iterations", str(COMPARE_ITERATIONS),
+                                               "--warmup", str(COMPARE_WARMUP),
+                                               "--json-out", path,
+                                               "--markdown-out", f"{path}.md"])
+    finally:
+        compare_benchmarks._run = real
+    seconds = time.perf_counter() - t0
+    rows = {k: {"avg_ms": r.avg_time_s * 1e3, "tflops_total": r.tflops_total,
+                "compute_ms": None if r.compute_time_s is None else r.compute_time_s * 1e3,
+                "comm_ms": None if r.comm_time_s is None else r.comm_time_s * 1e3,
+                "scaling_efficiency_pct": r.scaling_efficiency_pct,
+                "validation": r.extras.get("validation"), "world": r.world,
+                "launches": by_row.get(r.mode)} for k, r in results.items()}
+    problems = []
+    if set(results) != want:
+        problems.append(f"rows {sorted(set(results))}, not {sorted(want)} (a missing row "
+                        "failed, in-process or in its child)")
+    for k, row in rows.items():
+        verdict = row["validation"] or ""
+        if verdict != "ok" and not (k in COMPARE_NO_VERDICT and verdict.startswith("n/a")):
+            problems.append(f"{k}: validation {verdict!r}")
+    k1 = [(k, n) for k, n in k1_rows if n]
+    if k1:
+        problems.append(f"rows launched K1 under --matmul-impl auto: {k1}")
+    with open(f"{path}.md") as fh:
+        table = fh.read()
+    summary = {"phase": f"compare[{label}]", "rows": rows, "table": table,
+               "seconds": seconds}
+    return summary, problems
+
+
+def compare_phase(cap: int, out_dir: str) -> dict:
+    """`compare` at bf16 SIZE² over RING_WORLD ranks: the whole table in
+    process (every row but the fused ring, which its L2 cap skips; each
+    HBM ring row's step launches above 0), then COMPARE_ISOLATED in child
+    processes (`--isolate`), then COMPARE_AT_CAP at K6's cap (K6 and K2
+    launched); returns the three summaries."""
+    from tpu_matmul_bench_torch.benchmarks.compare_benchmarks import ROW_KEYS
+
+    out = {}
+    full, problems = _compare_run(["--size", str(SIZE)], "table",
+                                  set(ROW_KEYS) - {"cuda_ring"}, out_dir)
+    for mode, counter in COMPARE_RING_STEPS.items():
+        launches = full["rows"].get(mode, {}).get("launches") or {}
+        if launches.get(counter, 0) <= 0:
+            problems.append(f"{mode}: no {counter} step launched: {launches}")
+    out["table"] = full
+    isolated, more = _compare_run(["--size", str(SIZE), "--isolate",
+                                   "--only", ",".join(COMPARE_ISOLATED)], "isolate",
+                                  set(COMPARE_ISOLATED), out_dir)
+    problems += more
+    out["isolate"] = isolated
+    at_cap, more = _compare_run(["--size", str(cap), "--only", ",".join(COMPARE_AT_CAP)],
+                                f"cap{cap}", set(COMPARE_AT_CAP), out_dir)
+    problems += more
+    launches = {k: (v.get("launches") or {}) for k, v in at_cap["rows"].items()}
+    if launches.get("cuda_ring", {}).get("fused", 0) <= 0 or \
+            launches.get("cuda_ring_hbm", {}).get("ag", 0) <= 0:
+        problems.append(f"at the cap K6 or K2 did not launch: {launches}")
+    out["cap"] = at_cap
+    for summary in out.values():
+        summary["ok"] = not problems
+        emit(summary)
+    if problems:
+        fail("compare", "; ".join(problems))
+    return out
+
+
+def train_grad_error(extra: tuple[str, ...]) -> dict:
+    """The synced gradient of one step of a TRAIN_RUNS cell (its
+    `grad_comm` prefix's fp32 output) against the dense fp32 dW/denom of the
+    same operands, ‖g − dW‖/‖dW‖: within the bf16 tolerance on the exact
+    wire, within WIRE_FORMATS' bound on a wire. At bf16 SIZE the step's
+    update (lr · dW, about 6e-7 of |w|) is below the weight's rounding, so
+    the record's own validation holds an unchanged weight; the gradient is
+    what shows the step is right."""
+    import torch
+
+    from tpu_matmul_bench_torch.parallel.collectives import link_format_spec
+    from tpu_matmul_bench_torch.parallel.mesh import gather, make_factorized_mesh
+    from tpu_matmul_bench_torch.parallel.modes import validation_tolerance
+    from tpu_matmul_bench_torch.train.step import make_train_setup
+    from tpu_matmul_bench_torch.utils.device import resolve_devices
+
+    opts = dict(zip(extra[::2], extra[1::2]))
+    with ranks_per_card(RING_WORLD):
+        devices = resolve_devices("cuda", RING_WORLD)
+    mesh = (make_factorized_mesh(devices, opts["--mesh"]) if "--mesh" in opts
+            else card_mesh(RING_WORLD))
+    setup = make_train_setup(mesh, opts["--mode"], SIZE, torch.bfloat16, batch=TRAIN_BATCH,
+                             zero=opts["--zero"] == "1",
+                             grad_quant=opts.get("--grad-quant"))
+    x, w = setup.operands
+    g = gather(setup.prefixes["grad_comm"](x, w))
+    xg, wf = gather(x), gather(w).float()
+    dw = torch.zeros_like(wf)
+    with torch.no_grad():
+        for b in range(xg.shape[0]):
+            xf = xg[b].float()
+            dw += xf.T @ (xf @ wf)
+    dw /= setup.global_batch * SIZE * SIZE
+    err = float(torch.linalg.norm(g - dw) / torch.linalg.norm(dw))
+    fmt = link_format_spec(setup.grad_quant, setup.dp_axis)
+    tol = WIRE_FORMATS[fmt] if fmt else validation_tolerance(torch.bfloat16)
+    del setup, x, w, g, xg, wf, dw
+    torch.cuda.empty_cache()
+    return {"rel_err": err, "tolerance": tol, "wire": fmt}
+
+
+def train_phase(card: str, out_dir: str) -> dict:
+    """`train bench` at bf16 SIZE, batch TRAIN_BATCH, over RING_WORLD ranks
+    in the TRAIN_RUNS (the cache freed between runs, each run's peak memory
+    beside the estimate), then `train selftest` over 8 ranks on the card.
+    Each record passes `validate_train_record`, its five phases sum to its
+    wall time, it validates against the dense fp32 reference
+    (`train_tolerance`: the dtype's for the exact wire), no K1 ran, and the
+    cell's synced gradient holds to the dense one (`train_grad_error`)."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.train import cli
+    from tpu_matmul_bench_torch.train.harness import validate_train_record
+
+    runs, problems = {}, []
+    t0 = time.perf_counter()
+    for extra in TRAIN_RUNS:
+        label = " ".join(extra)
+        path = f"{out_dir}/train-{re.sub(r'[^A-Za-z0-9]+', '-', label)}.jsonl"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cm.LAUNCHES = 0
+        t1 = time.perf_counter()
+        with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
+            records = cli.main(["bench", "--sizes", str(SIZE), "--dtype", "bfloat16",
+                                "--batch", str(TRAIN_BATCH), "--num-devices", str(RING_WORLD),
+                                "--iterations", str(TRAIN_ITERATIONS),
+                                "--warmup", str(TRAIN_WARMUP), "--validate",
+                                "--json-out", path, *extra])
+        rec = records[0]
+        t = rec.extras["train"]
+        dp, tp = t["dp"], t["tp"]
+        # a rank's x shard and forward batch, its w shard and dW, and the
+        # fp32 update's temporaries (step.make_train_setup's estimate)
+        est = RING_WORLD * SIZE * SIZE * (2 * (2 * t["local_batch"] + 2 / tp) + 4 * 2 / tp)
+        runs[label] = {"avg_ms": rec.avg_time_s * 1e3,
+                       "phases_ms": {k.removesuffix("_s"): v * 1e3
+                                     for k, v in t["phases"].items()},
+                       "wall_ms": t["wall_s"] * 1e3, "phase_sum_ms": t["phase_sum_s"] * 1e3,
+                       "compute_ms": rec.compute_time_s * 1e3, "comm_ms": rec.comm_time_s * 1e3,
+                       "tflops_total": rec.tflops_total, "dp": dp, "tp": tp,
+                       "update_drift": t["update_drift"], "wire": t.get("wire"),
+                       "validation": rec.extras.get("validation"),
+                       "validation_max_rel_err": rec.extras.get("validation_max_rel_err"),
+                       "validation_tolerance": rec.extras.get("validation_tolerance"),
+                       "estimated_gib": est / 2**30,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "k1_launches": cm.LAUNCHES, "seconds": time.perf_counter() - t1}
+        for p in validate_train_record(rec):
+            problems.append(f"{label}: {p}")
+        if abs(t["phase_sum_s"] - t["wall_s"]) > 1e-6 * len(t["phases"]):
+            problems.append(f"{label}: phases sum {t['phase_sum_s']} != wall {t['wall_s']}")
+        if rec.extras.get("validation") != "ok":
+            problems.append(f"{label}: validation {rec.extras.get('validation')} "
+                            f"({rec.extras.get('validation_max_rel_err')})")
+        if cm.LAUNCHES:
+            problems.append(f"{label}: {cm.LAUNCHES} K1 launches in the train step")
+        if ("--grad-quant" in extra) != bool(t["update_drift"]):
+            problems.append(f"{label}: drift series {t['update_drift']}")
+        del records, rec
+        torch.cuda.empty_cache()
+        grad = runs[label]["grad_vs_dense"] = train_grad_error(extra)
+        if not grad["rel_err"] <= grad["tolerance"]:
+            problems.append(f"{label}: the synced gradient is {grad['rel_err']} from the "
+                            f"dense one (tolerance {grad['tolerance']})")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    selftest = io.StringIO()
+    try:
+        with ranks_per_card(8), contextlib.redirect_stdout(selftest):
+            cli.main(["selftest"])
+        selftest_rc = 0
+    except SystemExit as e:
+        selftest_rc = e.code
+    print(selftest.getvalue(), file=sys.stderr)
+    if selftest_rc:
+        problems.append(f"train selftest exited {selftest_rc}: "
+                        f"{selftest.getvalue().strip().splitlines()[-3:]}")
+    summary = {"phase": "train", "card": card, "size": SIZE, "batch": TRAIN_BATCH,
+               "ranks": RING_WORLD, "runs": runs,
+               "selftest": {"rc": selftest_rc,
+                            "lines": selftest.getvalue().strip().splitlines()[-6:],
+                            "seconds": time.perf_counter() - t1},
+               "seconds": time.perf_counter() - t0, "ok": not problems}
+    emit(summary)
+    if problems:
+        fail("train", "; ".join(problems))
+    return summary
+
+
 def residency_probe(cap: int, l2: int, runs: int = 20) -> dict:
     """K6 and K2 through their wrappers at half the fused ring's cap, at
     the cap and at twice it, bf16 over RING_WORLD ranks on the card: ms and
@@ -3193,6 +3600,14 @@ def main() -> None:
         overlap_modes = overlap_modes_phase(out_dir)
         cm_turns = collective_turns(card)
         profile = profile_phase(cap, out_dir)
+        # the curve, membw, doctor, compare and train programs
+        t0 = time.perf_counter()
+        curve = curve_phase(out_dir)
+        membw_phase(card, out_dir)
+        doctor_phase()
+        compared = compare_phase(cap, out_dir)
+        train_phase(card, out_dir)
+        emit({"phase": "programs", "seconds": time.perf_counter() - t0, "ok": True})
 
     # 5. the plain version's time at the headline shape
     a, b = random_operands(0, (SIZE, SIZE), torch.bfloat16, device="cuda")
@@ -3244,6 +3659,11 @@ def main() -> None:
                                         "library_ms": turns["library_ms"]})
     for label, tiles in tuned_rings.items():
         entries[label]["tune_ring"] = tiles
+    # each ring's row of the compare table (K6's at its cap): its ms, its
+    # baseline (the library product, compute_ms) and its step launches
+    for label, mode in TUNE_RINGS.items():
+        entries[label]["compare"] = compared["table"]["rows"][mode]
+    entries["ring_fused"]["compare"] = compared["cap"]["rows"]["cuda_ring"]
     for label in AG_STEPS:
         turns = ring_turns(label, card)
         entries[label].update(
@@ -3300,6 +3720,8 @@ def main() -> None:
                   "fused_ms": summa["cuda,fused"]["avg_ms"],
                   "library_mode_ms": summa["torch,dispatch"]["avg_ms"],
                   "library_fused_ms": summa["torch,fused"]["avg_ms"]},
+        # the scaling curve's rows (batch_parallel over 1, 2, 4 ranks)
+        "curve": curve["counts"],
         "stream": {"kernel": "cuda_matmul_acc (tmb_matmul_acc)",
                    "shape": [STREAM_SIZE, STREAM_SIZE // STREAM_PANELS, STREAM_SIZE],
                    "launches": stream["cuda"]["acc_launches"],

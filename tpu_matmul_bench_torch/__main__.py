@@ -27,11 +27,25 @@ _PROGRAMS = {
     "summa": "tpu_matmul_bench_torch.benchmarks.matmul_summa_benchmark",
     # `parallel stream`, the out-of-core K-streaming benchmark
     "parallel": "tpu_matmul_bench_torch.parallel.cli",
+    # one mode swept over rank counts: the README-style scaling table
+    "curve": "tpu_matmul_bench_torch.benchmarks.scaling_curve",
+    # STREAM-style device-memory bandwidth (GB/s against the datasheet)
+    "membw": "tpu_matmul_bench_torch.benchmarks.membw_benchmark",
+    # the staged device-health probe: exit 0 healthy, 3 degraded, 1 failed
+    "doctor": "tpu_matmul_bench_torch.benchmarks.doctor",
+    # the comparison driver: every row program, one table
+    "compare": "tpu_matmul_bench_torch.benchmarks.compare_benchmarks",
+    # the training-step workload: one optimizer step (local fwd/bwd,
+    # gradient sync via --grad-quant, ZeRO-style sharded update via
+    # --zero) with per-phase timing (`train bench`), and `train selftest`
+    "train": "tpu_matmul_bench_torch.train.cli",
 }
 
 
-def main(argv: list[str] | None = None):
-    """Dispatch to a program's main(); returns its records list."""
+def main(argv: list[str] | None = None, _cli: bool = False):
+    """Dispatch to a program's main(); returns its records list. `_cli`
+    marks a real process entry, where `doctor` takes its hard-exit path;
+    in-process callers (tests) get normal return and SystemExit."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help") or argv[0] not in _PROGRAMS:
         is_help = bool(argv) and argv[0] in ("-h", "--help")
@@ -40,8 +54,11 @@ def main(argv: list[str] | None = None):
               f"Per-program flags: add --help after the program name.",
               file=sys.stdout if is_help else sys.stderr)
         raise SystemExit(0 if is_help else 2)
-    return importlib.import_module(_PROGRAMS[argv[0]]).main(argv[1:])
+    module = importlib.import_module(_PROGRAMS[argv[0]])
+    if argv[0] == "doctor" and _cli:
+        module.cli_main(argv[1:])
+    return module.main(argv[1:])
 
 
 if __name__ == "__main__":
-    main()
+    main(_cli=True)

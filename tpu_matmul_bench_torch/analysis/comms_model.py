@@ -1,8 +1,9 @@
 """Analytic comms model: the collectives each parallel mode must make, and
 their bytes on a quantized wire.
 
-Port of `tpu_matmul_bench/analysis/comms_model.py` `:55-541`: the flat
-world's model and the hierarchical one of the factorized meshes. It is
+Port of `tpu_matmul_bench/analysis/comms_model.py` `:55-685`: the flat
+world's model, the hierarchical one of the factorized meshes, and the
+train step's gradient collectives (`train_axis_collectives`). It is
 derived from the mode definitions, not from a trace.
 Payload bytes are each rank's operand bytes of the collective for a square
 [size, size] problem in `dtype`:
@@ -349,6 +350,28 @@ def hier_expected_collectives(
     return out
 
 
+def _price_links(per_link: dict[str, dict]) -> tuple[str | None, float]:
+    """Round each link's byte sums, add its reductions and relative
+    wire-seconds (`LINK_WIRE_SECONDS`), in place; returns the slowest link
+    and its wire-seconds (slowest-link-dominates)."""
+    bottleneck, bottleneck_secs = None, -1.0
+    for link, bucket in per_link.items():
+        payload_b = bucket["wire_payload_bytes"]
+        scale_b = bucket["wire_scale_bytes"]
+        baseline = bucket["baseline_bytes"]
+        for key in ("baseline_bytes", "wire_payload_bytes", "wire_scale_bytes"):
+            bucket[key] = int(round(bucket[key]))
+        bucket["wire_bytes"] = int(round(payload_b + scale_b))
+        if payload_b:
+            bucket["payload_reduction_x"] = round(baseline / payload_b, 4)
+            bucket["wire_reduction_x"] = round(baseline / (payload_b + scale_b), 4)
+        secs = (payload_b + scale_b) * LINK_WIRE_SECONDS[link]
+        bucket["wire_seconds_rel"] = round(secs, 1)
+        if secs > bottleneck_secs:
+            bottleneck, bottleneck_secs = link, secs
+    return bottleneck, bottleneck_secs
+
+
 def hier_wire_bytes_summary(mode: str, mesh_spec: str, size: int, dtype: Any,
                             comm_quant, batch: int = 4) -> dict:
     """Static per-link-class wire-byte prices of one (mode, mesh, size,
@@ -391,25 +414,153 @@ def hier_wire_bytes_summary(mode: str, mesh_spec: str, size: int, dtype: Any,
                        else "wire_scale_bytes")
                 bucket[key] += steps * payload * RING_WIRE_FACTOR[k](axis)
 
-    bottleneck, bottleneck_secs = None, -1.0
-    for link, bucket in per_link.items():
-        payload_b = bucket["wire_payload_bytes"]
-        scale_b = bucket["wire_scale_bytes"]
-        baseline = bucket["baseline_bytes"]
-        for key in ("baseline_bytes", "wire_payload_bytes", "wire_scale_bytes"):
-            bucket[key] = int(round(bucket[key]))
-        bucket["wire_bytes"] = int(round(payload_b + scale_b))
-        if payload_b:
-            bucket["payload_reduction_x"] = round(baseline / payload_b, 4)
-            bucket["wire_reduction_x"] = round(baseline / (payload_b + scale_b), 4)
-        secs = (payload_b + scale_b) * LINK_WIRE_SECONDS[link]
-        bucket["wire_seconds_rel"] = round(secs, 1)
-        if secs > bottleneck_secs:
-            bottleneck, bottleneck_secs = link, secs
-
+    bottleneck, bottleneck_secs = _price_links(per_link)
     return {
         "wire_format": comm_quant,
         "mesh": canonical_mesh_spec(mesh_spec),
+        "per_link": per_link,
+        "baseline_bytes": sum(b["baseline_bytes"] for b in per_link.values()),
+        "wire_bytes": sum(b["wire_bytes"] for b in per_link.values()),
+        "bottleneck_link": bottleneck,
+        "comm_seconds_rel": round(bottleneck_secs, 1),
+    }
+
+
+# ---------------------------------------------------------------------------
+# The train step's gradient collectives (JAX `:522-685`): one optimizer
+# step's closed-form inventory, by mode × mesh × --zero. The step's forward
+# and backward are collective-free (`train/step.py` differentiates the LOCAL
+# forward), so the full step's collectives are the gradient sync and, under
+# ZeRO, the all_gather of the updated shards:
+#
+# - zero=0 (replicated update): one all_reduce of dW [n, n/C] over the data
+#   axis;
+# - zero=1 (ZeRO): one reduce_scatter of dW [n, n/C] over the data axis,
+#   the update of the owned [n/R, n/C] rows, then one all_gather of them.
+#
+# `--grad-quant` puts only the gradient collectives (role "grad") on the
+# wire; the weight all_gather (role "weight") carries updated parameters
+# and stays exact.
+# ---------------------------------------------------------------------------
+
+TRAIN_MODES = ("dp", "hybrid")
+
+
+def train_axis_collectives(
+        mode: str, mesh_spec: str | None, world: int, size: int,
+        batch: int = 8, zero: bool = False,
+) -> list[tuple[str, str, int, tuple[int, ...], str]]:
+    """The float collectives of one train step's full program as ``(kind,
+    axis_name, axis_size, per_rank_operand_shape, role)``, role ∈ {"grad",
+    "weight"}: the train counterpart of `mode_axis_collectives`.
+    ``mesh_spec=None`` is the flat 'x' mesh over `world` ranks."""
+    from tpu_matmul_bench_torch.parallel.mesh import parse_mesh_spec
+
+    n = size
+    if mesh_spec is None:
+        axes: tuple[tuple[str, int], ...] = (("x", world),)
+    else:
+        axes = parse_mesh_spec(mesh_spec)
+    if mode == "dp":
+        if len(axes) != 1:
+            raise ValueError(
+                f"train mode 'dp' takes a one-axis mesh, got {mesh_spec!r}")
+        (dp_ax, r), wcols = axes[0], n
+    elif mode == "hybrid":
+        if len(axes) != 2:
+            raise ValueError(
+                f"train mode 'hybrid' needs a two-axis mesh (--mesh "
+                f"dcn:R,ici:C), got {mesh_spec!r}")
+        (dp_ax, r), (_, c) = axes
+        if n % c:
+            raise ValueError(f"size {n} must divide the {c}-wide tensor axis")
+        wcols = n // c
+    else:
+        raise ValueError(
+            f"no train comms model for mode {mode!r} (expected one of "
+            f"{TRAIN_MODES})")
+    if n % r:
+        raise ValueError(f"size {n} must divide the {r}-wide data axis "
+                         "(ZeRO shards weight rows over it)")
+    if not zero:
+        return [("all_reduce", dp_ax, r, (n, wcols), "grad")]
+    return [("reduce_scatter", dp_ax, r, (n, wcols), "grad"),
+            ("all_gather", dp_ax, r, (n // r, wcols), "weight")]
+
+
+def train_expected_collectives(
+        mode: str, mesh_spec: str | None, world: int, size: int, dtype: Any,
+        grad_quant=None, batch: int = 8, zero: bool = False,
+) -> list[tuple[str, str, int]]:
+    """The per-axis collective inventory of the full train step as ``(kind,
+    axis_name, payload_bytes)``. Only role "grad" entries go on the wire
+    under `grad_quant`, resolved per link class through `link_format_spec`,
+    the door the step routes through."""
+    from tpu_matmul_bench_torch.parallel.collectives import (
+        link_format_spec,
+        parse_wire_format,
+    )
+
+    item, integer = _dtype_info(dtype)
+    out: list[tuple[str, str, int]] = []
+    for kind, name, axis, shape, role in train_axis_collectives(
+            mode, mesh_spec, world, size, batch=batch, zero=zero):
+        fmt = None
+        if role == "grad" and not integer:
+            fmt = parse_wire_format(link_format_spec(grad_quant, name))
+        if fmt is None:
+            # an exact collective runs even over a size-1 axis; only the
+            # wire tier returns its input there
+            out.append((kind, name, int(np.prod(shape)) * item))
+        else:
+            for k, _, payload, _ in _one_wire_entries(
+                    kind, axis, shape, fmt, where=f"train/{mode}/{name}"):
+                out.append((k, name, payload))
+    return out
+
+
+def train_wire_bytes_summary(
+        mode: str, mesh_spec: str | None, world: int, size: int, dtype: Any,
+        grad_quant, batch: int = 8, zero: bool = False) -> dict:
+    """Static per-link-class wire-byte prices of one train-step cell:
+    `hier_wire_bytes_summary` over the gradient-collective model, the exact
+    weight all_gather priced at its full payload on its link."""
+    from tpu_matmul_bench_torch.parallel.collectives import (
+        link_format_spec,
+        parse_wire_format,
+    )
+    from tpu_matmul_bench_torch.parallel.mesh import axis_link_class, canonical_mesh_spec
+
+    item, integer = _dtype_info(dtype)
+    per_link: dict[str, dict] = {}
+
+    def link_bucket(link: str, fmt_spec) -> dict:
+        return per_link.setdefault(link, {
+            "wire_format": fmt_spec, "baseline_bytes": 0.0,
+            "wire_payload_bytes": 0.0, "wire_scale_bytes": 0.0,
+        })
+
+    for kind, name, axis, shape, role in train_axis_collectives(
+            mode, mesh_spec, world, size, batch=batch, zero=zero):
+        link = axis_link_class(name)
+        sub = link_format_spec(grad_quant, name) if role == "grad" else None
+        fmt = None if integer else parse_wire_format(sub)
+        bucket = link_bucket(link, sub if not integer else None)
+        base = int(np.prod(shape)) * item * RING_WIRE_FACTOR[kind](axis)
+        bucket["baseline_bytes"] += base
+        if fmt is None:
+            bucket["wire_payload_bytes"] += base
+        else:
+            for k, _, payload, rl in _one_wire_entries(
+                    kind, axis, shape, fmt, where=f"train/{mode}/{name}"):
+                key = "wire_payload_bytes" if rl == "payload" else "wire_scale_bytes"
+                bucket[key] += payload * RING_WIRE_FACTOR[k](axis)
+
+    bottleneck, bottleneck_secs = _price_links(per_link)
+    return {
+        "wire_format": grad_quant,
+        "mesh": canonical_mesh_spec(mesh_spec) if mesh_spec else None,
+        "zero": int(zero),
         "per_link": per_link,
         "baseline_bytes": sum(b["baseline_bytes"] for b in per_link.values()),
         "wire_bytes": sum(b["wire_bytes"] for b in per_link.values()),

@@ -152,10 +152,14 @@ def hbm_spec_gbps(device_kind: str) -> float | None:
     return None
 
 
-# Measured sustained bandwidth, consulted before the datasheet. The v5e rows
-# are the JAX package's measured STREAM result on that TPU; no H100 row is
-# measured yet.
+# Measured sustained bandwidth, consulted before the datasheet. The H100
+# row is `membw`'s triad at bf16 16384² (3 arrays of 512 MiB, far above the
+# 50 MiB L2) on an NVIDIA H100 80GB HBM3 with a 700 W power limit: 3087
+# GB/s, 92% of the datasheet's 3350; keyed by that card's name, so the
+# PCIe part keeps its datasheet row. The v5e rows are the JAX package's
+# measured STREAM result on that TPU.
 _MEASURED_HBM_GBPS: dict[str, float] = {
+    "h100 80gb hbm3": 3087.0,
     "v5 lite": 665.0,
     "v5e": 665.0,
 }

@@ -106,6 +106,15 @@ class BenchmarkRecord:
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), sort_keys=True)
 
+    @classmethod
+    def from_json(cls, line: str) -> "BenchmarkRecord":
+        """Rebuild a record from a `to_json` line (another process's JSONL
+        records); unknown keys, such as the compare driver's
+        `comparison_key`, are ignored."""
+        d = json.loads(line)
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
 
 def attach_scaling_efficiency(
     rec: BenchmarkRecord, single_device_tflops: float | None
@@ -123,8 +132,28 @@ def attach_scaling_efficiency(
     return rec
 
 
+_FORCE_REPORTING: bool | None = None
+
+
+def force_reporting_process(value: bool | None) -> None:
+    """Override the reporting-process gate (JAX `utils/reporting.py:131`):
+    a driver that spawns the programs as children (compare --isolate) is
+    the one reporting process whatever else it may hold. None clears it."""
+    global _FORCE_REPORTING
+    _FORCE_REPORTING = value
+
+
+def reporting_process_override() -> bool | None:
+    """The current `force_reporting_process` value, for callers that save
+    and restore it around a scoped use."""
+    return _FORCE_REPORTING
+
+
 def is_reporting_process() -> bool:
-    """Rank 0 of a process group, or the only process."""
+    """Rank 0 of a process group, or the only process, unless overridden
+    (`force_reporting_process`)."""
+    if _FORCE_REPORTING is not None:
+        return _FORCE_REPORTING
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank() == 0
