@@ -45,7 +45,17 @@ The paths:
   process of its own (the `headline` phase): its ladder of fused attempts
   (`auto`, `torch`, `cuda`) as child processes, its last line `backend`
   "ok" with the best of each impl, the kernel's within HEADLINE_MARGIN of
-  the fused run above;
+  the fused run above (`auto` takes whichever impl the tuning DB routes
+  bf16 16384³ to; each record's books say which ran);
+- the tuning database (the `tune_db` phase): `tune prune` at 16384³, `tune
+  promote` of the 16384³ sweep's ledger into a DB of its own, and `auto`
+  through a measured `cuda` cell carrying the sweep's winning tile,
+  installed as the process's DB: `source` "db" at that tile, one K1 launch
+  a call on wgmma, bitwise `cuda_matmul` at the tile and within bf16's
+  tolerance of the plain version; an `auto` lookup's host µs (memoised and
+  cold fingerprint); `auto` against `cuda_matmul` in turns; `tune selftest`
+  on the committed DB; `matmul` at int8 16384³ under `auto` through the
+  committed DB's `cuda` cell (K1 on wmma, as many launches as predicted);
 - the tile tuner, `tpu_matmul_bench_torch.benchmarks.cuda_tune.main`, over
   every tile at bf16 16384^3 in both grid orders, then with `--ksplit 2`
   at 16384^3 and at the tall-M 28672x4096x8192;
@@ -129,7 +139,8 @@ The paths:
   efficiency above 105%); `membw` (its five ops at 8192² and 16384², far
   above the L2, none above the datasheet's rate); `doctor` as a process
   (exit 0); `compare` (the whole table in process, every row there and
-  validated, K1 launched by none of them since `auto` stays on cuBLAS,
+  validated, each in-process row's K1 launches the count `resolve_route`
+  predicts on the committed DB from the products it routed under `auto`,
   each HBM ring's steps launched; two rows in child processes under
   `--isolate`; K6 and K2 at K6's cap); `train bench` in four runs (dp at
   zero 0 and 1, dp on an fp8-block:128 gradient wire, hybrid on `--mesh
@@ -192,6 +203,8 @@ KSPLIT_CASES = (
     + [("bfloat16", TALL, 2), ("bfloat16", (SIZE, SIZE, SIZE), 2),
        ("bfloat16", (256, 512, 256), 3)])
 TUNE_ITERATIONS, TUNE_WARMUP, CONFIRM_TOP = 10, 2, 3
+# the tune_db phase's turns of `auto` through a DB cell and `cuda_matmul`
+TUNE_DB_PASSES, TUNE_DB_RUNS = 3, 10
 # the pickup kernel (C = A.B + accin) against its plain version
 ACC_SHAPES = [(129, 64, 257), (1000, 1000, 1000)]
 # the rings: rank counts, and (m, k, n) cases; at 4*136 rows over 4 ranks
@@ -267,8 +280,9 @@ STREAM_MESH = "dcn:2,ici:2"
 # scaling phase's iterations, so each row's K1 launches are
 # `scaling_launches` less the baseline the first multi-rank row measured);
 # membw's five ops at two sizes far above the card's L2; the doctor as a
-# process; the compare table (its rows' K1 launches 0: `auto` stays on
-# cuBLAS, ROADMAP B3), its isolated rows and K6's cap; and the train step
+# process; the compare table (its rows' K1 launches as `resolve_route`
+# predicts them on the committed DB), its isolated rows and K6's cap; and
+# the train step
 CURVE_MODE, CURVE_COUNTS = "batch_parallel", (1, 2, 4)
 MEMBW_SIZES, MEMBW_ITERATIONS, MEMBW_WARMUP = (8192, SIZE), 20, 3
 COMPARE_ITERATIONS, COMPARE_WARMUP = 3, 1
@@ -639,6 +653,30 @@ def compare(dtype_name: str, mkn, kernel, plain) -> dict:
             "ok": ok_shape and finite and rel <= TOLERANCE[dtype_name]}
 
 
+@contextlib.contextmanager
+def auto_routes(routed: list[str]):
+    """While the block runs, appends to `routed`, for each product
+    `matmul_2d`'s `auto` routes, the impl `resolve_route` gives it on the
+    default (committed) DB: its "cuda" entries are the K1 launches the DB
+    predicts (a product replayed in a CUDA graph is neither routed nor
+    launched from the host). The products are told from a record's extras,
+    which route too, by their caller, `_auto`."""
+    from tpu_matmul_bench_torch.ops import impl_select
+
+    real = impl_select.select_impl
+
+    def recording(m, n, k, kind, dtype, **kw):
+        if sys._getframe(1).f_code.co_name == "_auto":
+            routed.append(impl_select.resolve_route(m, n, k, kind, dtype)[0].impl)
+        return real(m, n, k, kind, dtype, **kw)
+
+    impl_select.select_impl = recording
+    try:
+        yield
+    finally:
+        impl_select.select_impl = real
+
+
 def routes() -> dict:
     """A snapshot of the launches by route: the GEMM's ("gemm:wgmma", ...)
     and the fused ring's ("fused:wgmma", ...)."""
@@ -906,6 +944,11 @@ def c1_check(main: list[dict], out_dir: str) -> dict:
                                    "library_fused_over_dispatch", "excess", "main_path")}
 
 
+def tune_ledger(phase: str, out_dir: str) -> str:
+    """Where the tune phase `phase` writes its JSONL."""
+    return f"{out_dir}/{re.sub(r'[^a-z0-9]+', '_', phase)}.jsonl"
+
+
 def tune(phase: str, extra: list[str], out_dir: str,
          ksplit: int = 1) -> tuple[dict, int, int, dict]:
     """One tune run through the tuner's entry point over every tile.
@@ -917,7 +960,7 @@ def tune(phase: str, extra: list[str], out_dir: str,
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
     from tpu_matmul_bench_torch.utils.telemetry import is_manifest
 
-    path = f"{out_dir}/{re.sub(r'[^a-z0-9]+', '_', phase)}.jsonl"
+    path = tune_ledger(phase, out_dir)
     argv = ["--dtype", "bfloat16",
             "--candidates", *[",".join(map(str, t)) for t in cm.TILES],
             "--iterations", str(TUNE_ITERATIONS), "--warmup", str(TUNE_WARMUP),
@@ -996,9 +1039,10 @@ def headline_phase(k1_fused_tflops: float, out_dir: str) -> dict:
     within HEADLINE_MARGIN of `k1_fused_tflops`, the matmul phase's fused
     K1 in this call. The attempts run in processes of their own, so their
     launches cannot be counted here; their records say which product ran
-    instead: every `cuda` record carries the kernel's cost books (its
-    wrapper launches on a card tensor or raises), every other none (the
-    library's). Prints the line beside the card's name and power limit;
+    instead: every record that ran `cuda` (an `auto` record's
+    `matmul_impl_resolved`) carries the kernel's cost books (its wrapper
+    launches on a card tensor or raises), every other none (the library's).
+    Prints the line beside the card's name and power limit;
     stops whatever the entry left running. Returns the last line."""
     import torch
 
@@ -1046,15 +1090,20 @@ def headline_phase(k1_fused_tflops: float, out_dir: str) -> dict:
         problems.append(f"by_impl cuda {by_impl['cuda']} is {cuda_ratio:.3f}x the "
                         f"matmul phase's fused K1 {k1_fused_tflops:.2f} TFLOPS")
     books = {}  # attempt file -> each record's flops_ratio, None without books
+    resolved = {}  # attempt file -> the impl each record ran
     for path in sorted(glob.glob(f"{out_dir}/headline/attempt_*.jsonl")):
         with open(path) as fh:
             recs = [json.loads(line) for line in fh if line.strip()][1:]  # past the manifest
         books[os.path.basename(path)] = [(r["extras"].get("cost_analysis") or {}).get(
             "flops_ratio") for r in recs]
+        # the impl each record ran: `auto` names what it resolved to
+        resolved[os.path.basename(path)] = [r["extras"].get(
+            "matmul_impl_resolved", "cuda" if path.endswith("_cuda.jsonl") else "torch")
+            for r in recs]
     for name, ratios in books.items():
-        want = 1.0 if name.endswith("_cuda.jsonl") else None
-        if not ratios or any(r != want for r in ratios):
-            problems.append(f"{name}: records' cost_analysis flops_ratio {ratios}, not {want}")
+        wants = [1.0 if impl == "cuda" else None for impl in resolved[name]]
+        if not ratios or ratios != wants:
+            problems.append(f"{name}: records' cost_analysis flops_ratio {ratios}, not {wants}")
     emit({"phase": "headline", "nvidia_smi": card_line(), "line": last,
           "lines": len(lines), "k1_fused_tflops": k1_fused_tflops,
           "cuda_over_k1_fused": cuda_ratio, "attempt_books": books,
@@ -1062,6 +1111,143 @@ def headline_phase(k1_fused_tflops: float, out_dir: str) -> dict:
     if problems:
         fail("headline", "; ".join(problems))
     return last
+
+
+def tune_db_phase(ledger: str, out_dir: str) -> dict:
+    """The tuning database on the card (the `tune_db` phase): `tune prune
+    --size SIZE` (the kept tiles and the trial reduction); `tune promote` of
+    the bf16 SIZE³ sweep's ledger `ledger` into a DB of its own (the
+    promoted cell, or the skip and its margin); then a measured `cuda` cell
+    for bf16 SIZE³ carrying the sweep's winning tile, installed as the
+    process's default DB, through which `matmul_2d("auto")` must resolve
+    `source: "db"` at that tile, launch K1 once a call on the wgmma route,
+    return bitwise what `cuda_matmul(blocks=tile)` returns and agree with
+    the plain version within TOLERANCE. Prints an `auto` lookup's host µs
+    with a memoised and a cold fingerprint, and `auto` through the cell
+    against `cuda_matmul` in turns. The committed DB is reinstalled, and
+    `tune selftest` must pass on it; then the `matmul` program at int8 SIZE³
+    under `auto` must resolve to the committed DB's `cuda` cell and launch
+    K1 on its wmma route as often as `auto_routes` predicts, validated.
+    Returns the phase's line."""
+    import torch
+
+    from tpu_matmul_bench_torch.benchmarks import matmul_benchmark
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.ops.impl_select import resolve_route, select_impl
+    from tpu_matmul_bench_torch.ops.matmul import matmul_2d, random_operands
+    from tpu_matmul_bench_torch.tune import cli as tune_cli
+    from tpu_matmul_bench_torch.tune import db as tdb
+    from tpu_matmul_bench_torch.tune import promote as tpromote
+    from tpu_matmul_bench_torch.tune import prune as tprune
+
+    def cli(argv: list[str]) -> tuple[int, str]:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            try:
+                rc = tune_cli.main(argv) or 0
+            except SystemExit as e:
+                rc = e.code
+        return rc, out.getvalue()
+
+    name = torch.cuda.get_device_name(0)
+    problems = []
+    report = tprune.prune(SIZE, SIZE, SIZE, "bfloat16")
+    rc, pruned = cli(["prune", "--size", str(SIZE)])
+    if rc != 0 or cm.DEFAULT_TILE not in report.kept:
+        problems.append(f"prune rc {rc}, kept {report.kept} without {cm.DEFAULT_TILE}")
+    db_path = f"{out_dir}/tune_db.jsonl"
+    promote_rc, promoted = cli(["promote", ledger, "--db", db_path, "--device-kind", name])
+    store = tdb.TuningDB.load(db_path)
+    (group,) = tpromote.load_tune_records([ledger]).values()
+    best = tpromote._rank(group)[0][0]
+    tile = tuple(best["extras"][f"block_{d}"] for d in "mnk")
+    if promote_rc not in (0, 1) or (promote_rc == 0) != (len(store) == 1):
+        problems.append(f"promote rc {promote_rc} with {len(store)} cells")
+    store.put(tdb.Cell(m=SIZE, k=SIZE, n=SIZE, dtype="bfloat16",
+                       device_kind=tdb.kind_token(name), impl="cuda",
+                       provenance_kind="measured", artifact=ledger, blocks=tile,
+                       detail="the tune phase's sweep winner", tflops=best["tflops_total"]))
+    a, b = random_operands(7, (SIZE, SIZE), torch.bfloat16, device="cuda")
+    auto = matmul_2d("auto")  # no kind named: the operands' card's name
+    tdb.install_default_db(store)
+    try:
+        choice, cell = resolve_route(SIZE, SIZE, SIZE, name, torch.bfloat16)
+        if (choice.source, choice.impl, choice.blocks) != ("db", "cuda", tile):
+            problems.append(f"auto resolved {choice}, not the cell at {tile}")
+        auto(a, b)  # warm
+        torch.cuda.synchronize()
+        before, launches = routes(), cm.LAUNCHES
+        outs = [auto(a, b) for _ in range(3)]
+        by_route, k1 = routes_since(before), cm.LAUNCHES - launches
+        if (k1, by_route) != (3, {"gemm:wgmma": 3}):
+            problems.append(f"3 auto calls launched {k1} K1 by route {by_route}")
+        direct = cm.cuda_matmul(a, b, blocks=tile)
+        if not all(torch.equal(o, direct) for o in outs):
+            problems.append("auto through the cell is not bitwise cuda_matmul at its tile")
+        want = cm.matmul_plain(a, b).double()
+        max_abs = (outs[0].double() - want).abs().max().item()
+        max_rel = max_abs / (want.abs().max().item() or 1.0)
+        if not (torch.isfinite(outs[0]).all().item() and max_rel <= TOLERANCE["bfloat16"]):
+            problems.append(f"auto vs plain: max rel err {max_rel} > {TOLERANCE['bfloat16']}")
+        del outs, direct, want
+        lookups = 20000
+        t0 = time.perf_counter()
+        for _ in range(lookups):
+            select_impl(SIZE, SIZE, SIZE, name, torch.bfloat16)
+        memo_us = (time.perf_counter() - t0) / lookups * 1e6
+        t0 = time.perf_counter()
+        for _ in range(lookups):
+            tdb.problem_fingerprint.cache_clear()
+            select_impl(SIZE, SIZE, SIZE, name, torch.bfloat16)
+        cold_us = (time.perf_counter() - t0) / lookups * 1e6
+        turns = {"auto": [], "cuda": []}
+        for _ in range(TUNE_DB_PASSES):
+            for label in ("auto", "cuda", "cuda", "auto"):
+                fn = (lambda: auto(a, b)) if label == "auto" else \
+                    (lambda: cm.cuda_matmul(a, b, blocks=tile))
+                turns[label].append(events_ms(fn, runs=TUNE_DB_RUNS))
+    finally:
+        tdb.install_default_db(None)  # the committed store again
+    del a, b
+    torch.cuda.empty_cache()
+    rc, selftest = cli(["selftest"])
+    if rc != 0:
+        problems.append(f"tune selftest rc {rc}: {selftest[-400:]}")
+    # the committed store's own kernel cells: int8 at SIZE³ under `auto`
+    routed: list[str] = []
+    before, launches = routes(), cm.LAUNCHES
+    with auto_routes(routed), contextlib.redirect_stdout(sys.stderr):
+        (rec,) = matmul_benchmark.main(["--sizes", str(SIZE), "--dtype", "int8",
+                                        "--iterations", str(TUNE_DB_RUNS), "--warmup", "1",
+                                        "--validate"])
+    int8 = {"resolved": rec.extras.get("matmul_impl_resolved"),
+            "source": rec.extras.get("impl_source"), "launches": cm.LAUNCHES - launches,
+            "predicted": routed.count("cuda"), "launches_by_route": routes_since(before),
+            "ms": rec.avg_time_s * 1e3, "tops": rec.tflops_total,
+            "validation": rec.extras.get("validation"),
+            "flops_ratio": (rec.extras.get("cost_analysis") or {}).get("flops_ratio")}
+    if (int8["resolved"], int8["source"], int8["validation"], int8["flops_ratio"]) != \
+            ("cuda", "db", "ok", 1.0) or not 0 < int8["launches"] == int8["predicted"] \
+            or int8["launches_by_route"] != {"gemm:wmma": int8["launches"]}:
+        problems.append(f"int8 {SIZE}³ under auto on the committed DB: {int8}")
+    result = {"phase": "tune_db", "nvidia_smi": card_line(),
+              "prune": {"kept": report.kept, "trials_before": report.trials_before,
+                        "trials_after": report.trials_after,
+                        "reduction_pct": report.reduction_pct, "lines": pruned.splitlines()},
+              "promote": {"rc": promote_rc, "lines": promoted.splitlines()},
+              "cell": {"tile": tile, "fingerprint": cell and cell.fingerprint,
+                       "source": choice.source, "provenance": choice.provenance},
+              "launches": k1, "launches_by_route": by_route,
+              "max_abs_err": max_abs, "max_rel_err": max_rel,
+              "lookup_us": {"memoised": memo_us, "cold": cold_us},
+              "auto_ms": statistics.median(turns["auto"]),
+              "cuda_ms": statistics.median(turns["cuda"]), "turns_ms": turns,
+              "selftest": selftest.strip().splitlines()[-1:], "int8_auto": int8,
+              "ok": not problems}
+    emit(result)
+    if problems:
+        fail("tune_db", "; ".join(problems))
+    return result
 
 
 def tune_ring_expected(label: str, tile: tuple[int, int, int]) -> tuple[str, str]:
@@ -3188,17 +3374,24 @@ def _compare_run(argv: list[str], label: str, want: set, out_dir: str) -> tuple[
     """One `compare` through its entry point, its ranks on the card, with
     the launches each in-process row made; fails unless every row of
     `want` is there and validates (the step modes give no verdict), and
-    no row launched K1 (`auto` stays on cuBLAS)."""
+    every in-process row launched as many K1 as `resolve_route` on the
+    committed DB predicts from the products the row routed under `auto`:
+    each product whose (shape, dtype) the DB or table sends to `cuda` is
+    one launch (a product replayed in a CUDA graph is neither routed nor
+    launched from the host)."""
     from tpu_matmul_bench_torch.benchmarks import compare_benchmarks
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
     from tpu_matmul_bench_torch.ops import cuda_ring_fused as crf
 
+    routed: list[str] = []  # each `auto` product's predicted impl (auto_routes)
+
     def counters() -> dict:
         return {"k1": cm.LAUNCHES, "ag": cm.AG_LAUNCHES, "rs": cm.RS_LAUNCHES,
-                "fused": crf.FUSED_RING_LAUNCHES}
+                "fused": crf.FUSED_RING_LAUNCHES, "routed": len(routed),
+                "predicted_k1": routed.count("cuda")}
 
     by_row: dict[str, dict] = {}  # by the record's mode (the matmul rows: "single")
-    k1_rows: list[tuple[str, int]] = []
+    k1_rows: list[tuple[str, int, int]] = []
     real = compare_benchmarks._run
 
     def counted(main, argv_):
@@ -3207,7 +3400,7 @@ def _compare_run(argv: list[str], label: str, want: set, out_dir: str) -> tuple[
         delta = {k: v - before[k] for k, v in counters().items()}
         for rec in records:
             by_row[rec.mode] = delta
-            k1_rows.append((f"{rec.mode},{rec.dtype}", delta["k1"]))
+            k1_rows.append((f"{rec.mode},{rec.dtype}", delta["k1"], delta["predicted_k1"]))
         return records
 
     path = f"{out_dir}/compare-{label}.jsonl"
@@ -3215,7 +3408,8 @@ def _compare_run(argv: list[str], label: str, want: set, out_dir: str) -> tuple[
     t0 = time.perf_counter()
     compare_benchmarks._run = counted
     try:
-        with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr):
+        with ranks_per_card(RING_WORLD), contextlib.redirect_stdout(sys.stderr), \
+                auto_routes(routed):
             results = compare_benchmarks.main([*argv, "--dtype", "bfloat16", "--validate",
                                                "--iterations", str(COMPARE_ITERATIONS),
                                                "--warmup", str(COMPARE_WARMUP),
@@ -3238,13 +3432,14 @@ def _compare_run(argv: list[str], label: str, want: set, out_dir: str) -> tuple[
         verdict = row["validation"] or ""
         if verdict != "ok" and not (k in COMPARE_NO_VERDICT and verdict.startswith("n/a")):
             problems.append(f"{k}: validation {verdict!r}")
-    k1 = [(k, n) for k, n in k1_rows if n]
-    if k1:
-        problems.append(f"rows launched K1 under --matmul-impl auto: {k1}")
+    off = [(k, n, p) for k, n, p in k1_rows if n != p]
+    if off:
+        problems.append(f"rows' K1 launches (row, launched, predicted) off the "
+                        f"committed DB's routes: {off}")
     with open(f"{path}.md") as fh:
         table = fh.read()
     summary = {"phase": f"compare[{label}]", "rows": rows, "table": table,
-               "seconds": seconds}
+               "k1_launched_predicted": k1_rows, "seconds": seconds}
     return summary, problems
 
 
@@ -3582,6 +3777,7 @@ def main() -> None:
             "tune[ksplit,{}x{}x{},nmk]".format(*TALL),
             ["--mkn", *map(str, TALL), "--grid-order", "nmk", "--ksplit", "2"],
             out_dir, ksplit=2)
+        tune_db = tune_db_phase(tune_ledger(f"tune[{SIZE}]", out_dir), out_dir)
         # each HBM ring's overlap run, then its tile sweep (the `tune_ring`
         # phase) at the same point of the clock's fall
         overlaps, tuned_rings = {}, {}
@@ -3722,6 +3918,10 @@ def main() -> None:
                   "library_fused_ms": summa["torch,fused"]["avg_ms"]},
         # the scaling curve's rows (batch_parallel over 1, 2, 4 ranks)
         "curve": curve["counts"],
+        # `auto` through a measured `cuda` DB cell at bf16 SIZE³ (tune_db)
+        "tune_db": {k: tune_db[k] for k in ("launches", "launches_by_route", "cell",
+                                            "max_abs_err", "auto_ms", "cuda_ms",
+                                            "lookup_us", "int8_auto")},
         "stream": {"kernel": "cuda_matmul_acc (tmb_matmul_acc)",
                    "shape": [STREAM_SIZE, STREAM_SIZE // STREAM_PANELS, STREAM_SIZE],
                    "launches": stream["cuda"]["acc_launches"],

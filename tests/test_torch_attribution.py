@@ -173,7 +173,7 @@ def test_bench_single_record_carries_cost_analysis():
 @pytest.mark.parametrize("impl", ["torch", "auto"])
 def test_library_records_carry_no_books(impl):
     # the library product keeps no books the port can read, and `auto`
-    # resolves to it while impl_select.py has no rows
+    # resolves to it on the CPU, an unrouted device kind
     rec = _bench_single(_config("--matmul-impl", impl), 64, "cpu", torch.device("cpu"))
     assert "cost_analysis" not in rec.extras
 

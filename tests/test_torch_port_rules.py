@@ -28,9 +28,14 @@ from tpu_matmul_bench.parallel import modes as jax_modes
 from tpu_matmul_bench.utils import metrics as jax_metrics
 from tpu_matmul_bench.utils import timing as jax_timing
 from tpu_matmul_bench_torch.ops import cuda_matmul as cm
-from tpu_matmul_bench_torch.ops.impl_select import auto_extras, select_impl
+from tpu_matmul_bench_torch.ops.impl_select import (
+    auto_extras,
+    resolve_route,
+    select_impl,
+)
 from tpu_matmul_bench_torch.ops.matmul import operands_from_numpy
 from tpu_matmul_bench_torch.parallel import modes
+from tpu_matmul_bench_torch.tune.db import TuningDB, kind_token
 from tpu_matmul_bench_torch.utils import metrics, timing
 from tpu_matmul_bench_torch.utils.device import resolve_devices
 from tpu_matmul_bench_torch.utils.reporting import BenchmarkRecord
@@ -100,13 +105,30 @@ def test_cpu_call_launches_no_kernel():
 
 @pytest.mark.parametrize("name", ["NVIDIA H100 80GB HBM3", "NVIDIA H100 PCIe",
                                   "NVIDIA H100 NVL"])
-def test_select_impl_routes_an_h100_to_the_library(name):
-    choice = select_impl(16384, 16384, 16384, name, torch.bfloat16)
+def test_select_impl_routes_an_h100_to_the_library(name, tmp_path):
+    # the table tier alone, behind an empty database: the SXM H100's row
+    # cites the head-to-head; the PCIe and NVL parts stay unrouted
+    empty = TuningDB(path=str(tmp_path / "empty.jsonl"))
+    choice = select_impl(16384, 16384, 16384, name, torch.bfloat16, db=empty)
     assert choice.impl == "torch" and choice.source == "table"
-    assert "unrouted" in choice.provenance
+    if kind_token(name) == "h100":
+        assert "measurements/torch/h2h/bfloat16.ndjson" in choice.provenance
+    else:
+        assert "unrouted" in choice.provenance
     extras = auto_extras("auto", 16384, 16384, 16384, name, torch.bfloat16)
     assert extras["matmul_impl_resolved"] == "torch"
     assert auto_extras("cuda", 1, 1, 1, name, torch.bfloat16) == {}
+
+
+def test_select_impl_reads_the_committed_db_for_an_h100():
+    choice, cell = resolve_route(16384, 16384, 16384, "NVIDIA H100 80GB HBM3",
+                                 torch.bfloat16)
+    assert choice.source == "db" and cell.device_kind == "h100"
+    assert choice.impl == cell.impl and choice.blocks == cell.blocks
+    assert cell.fingerprint in choice.provenance
+    extras = auto_extras("auto", 16384, 16384, 16384, "NVIDIA H100 80GB HBM3",
+                         torch.bfloat16)
+    assert extras["impl_source"] == "db" and extras["matmul_impl_resolved"] == cell.impl
 
 
 @pytest.mark.parametrize("name, row", [

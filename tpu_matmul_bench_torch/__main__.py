@@ -11,9 +11,10 @@ import sys
 
 _PROGRAMS = {
     "matmul": "tpu_matmul_bench_torch.benchmarks.matmul_benchmark",
-    # the kernel tile sweep, and with --ring the HBM rings' (benchmarks/
-    # cuda_tune.py); the tuning-database subcommands fail by name (A12)
-    "tune": "tpu_matmul_bench_torch.benchmarks.cuda_tune",
+    # the tuning database's front end, `tune {show,prune,promote,selftest}`
+    # (tune/cli.py); flag-style invocations fall through to the kernel tile
+    # sweep, and with --ring the HBM rings' (benchmarks/cuda_tune.py)
+    "tune": "tpu_matmul_bench_torch.tune.cli",
     # the parallel modes over a world of ranks, with a scaling efficiency
     "scaling": "tpu_matmul_bench_torch.benchmarks.matmul_scaling_benchmark",
     "distributed": "tpu_matmul_bench_torch.benchmarks.matmul_distributed_benchmark",

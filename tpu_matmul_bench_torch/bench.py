@@ -16,9 +16,11 @@ launch rate cannot cap the number.
 
 `impl` names the implementation that set the value: the library product
 (`torch`, cuBLAS) or the hand-written kernel (`cuda`, csrc/matmul.cu). The
-port's `auto` resolves to the library product, since `ops/impl_select.py`
-has no measured rows, so the ladder also times the kernel in a rung of its
-own and `by_impl` holds the best TFLOPS of each.
+port's `auto` resolves by the tuning database and the H100 head-to-head
+table (`ops/impl_select.py`), which send bf16 16384² to the library product
+on the H100, so the ladder also times the kernel in a rung of its own and
+`by_impl` holds the best TFLOPS of each (an `auto` record counts under the
+impl it resolved to).
 
 The parent process never imports torch and never touches the card: each
 attempt is the port's matmul program in a child process writing

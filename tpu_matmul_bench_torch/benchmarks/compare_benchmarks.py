@@ -11,8 +11,11 @@ library overlap modes, the fused ring `cuda_ring` (K6) and the four HBM
 rings (K2–K5), the dtype sweep and the strict-fp32 row. The rows keep the
 JAX package's keys, the five `pallas_ring*` keys becoming the port's mode
 names (`RING_ROW_KEYS`). The programs default to `--matmul-impl auto`,
-which stays on cuBLAS (`ops/impl_select.py`), so the table's product rows
-are the library's and its ring rows the hand-written rings.
+which routes each product by the tuning database and the H100 table
+(`ops/impl_select.py`: on the H100, bf16, f16 and fp32 products go to
+cuBLAS, int8 products from 2048 up to the hand-written kernel), so the
+table's product rows are the routed impl's and its ring rows the
+hand-written rings.
 
 Run: python -m tpu_matmul_bench_torch compare \
         [--size 16384] [--num-devices N] [--dtype bfloat16] [--isolate]

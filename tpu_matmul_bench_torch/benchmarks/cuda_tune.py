@@ -26,7 +26,9 @@ Run: python -m tpu_matmul_bench_torch tune --sizes 16384 --iterations 10 \\
 
 Candidates are requests: each resolves to the tile that actually runs
 (`effective_blocks`), and requests that resolve alike are measured once.
-Not ported yet: the tuning-database subcommands (`tune show/prune/fill/...`).
+The tuning database's subcommands (`tune show/prune/promote/selftest`) are
+`tune/cli.py`, which hands every flag-style invocation to this program;
+`tune promote` turns this program's ledgers into database cells.
 """
 
 from __future__ import annotations
@@ -85,10 +87,6 @@ from tpu_matmul_bench_torch.utils.timing import (
 
 # Every instantiated tile, smallest first.
 DEFAULT_CANDIDATES = list(TILES)
-
-# The JAX package's tuning-database subcommands (tpu_matmul_bench/tune/cli.py).
-DB_SUBCOMMANDS = ("show", "prune", "fill", "promote", "selftest", "online",
-                  "artifacts")
 
 # The HBM ring matmuls `--ring` sweeps (`ops.ring_matmul_builders`); the
 # fused ring (K6) is left out, as the JAX package leaves out its resident
@@ -259,11 +257,6 @@ def _tune_ring(ring: str, candidates, config, devices, info,
 
 
 def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
-    if argv and argv[0] in DB_SUBCOMMANDS:
-        raise SystemExit(
-            f"tune {argv[0]}: the tuning-database front end is not ported "
-            "yet; this program is the measurement sweep (flags only, see "
-            "--help)")
     parser = build_parser(__doc__ or "kernel tile tuner",
                           extra_dtypes=("int8",))
     parser.add_argument(

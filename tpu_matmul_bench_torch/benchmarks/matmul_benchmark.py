@@ -93,12 +93,13 @@ def _cost_extras(config: BenchConfig, a, b, device_kind: str) -> dict:
     books the port can read, so its records carry no block, as the JAX
     package records none where `cost_analysis` is missing."""
     (m, k), n = a.shape, b.shape[1]
-    impl = config.matmul_impl
-    if impl == "auto":
-        impl = select_impl(m, n, k, device_kind, a.dtype).impl
+    impl, blocks = config.matmul_impl, config.blocks
+    if impl == "auto":  # as matmul_2d: an explicit tile wins, else the cell's
+        choice = select_impl(m, n, k, device_kind, a.dtype)
+        impl, blocks = choice.impl, blocks if blocks is not None else choice.blocks
     if impl != "cuda":
         return {}
-    route, tile, splits = launch_plan(a, b, config.blocks)
+    route, tile, splits = launch_plan(a, b, blocks)
     return {"cost_analysis": attribution.attribution_block(
         route, m, n, k, tile, splits, a.dtype)}
 

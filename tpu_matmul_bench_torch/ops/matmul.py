@@ -46,18 +46,21 @@ def matmul_2d(impl: str = "torch", blocks: tuple[int, int, int] | None = None,
     (config.blocks): the `cuda` impl runs at it, the library product
     ignores it. `impl="auto"` routes each call's (dtype, shape) to the
     implementation `ops/impl_select.py` names for `device_kind`, the name
-    of the device the operands live on; an explicit `blocks` goes with a
-    route to the kernel. The product takes `out=` (see `Matmul`)."""
+    of the device the operands live on, or, when the caller names none, of
+    the first operand's device (the card's name, or "cpu"). An explicit
+    `blocks` wins; otherwise a route through a tuning-DB cell runs the
+    cell's tile. The product takes `out=` (see `Matmul`)."""
     if impl == "auto":
         from tpu_matmul_bench_torch.ops.impl_select import select_impl
-
-        kind = device_kind or ""
+        from tpu_matmul_bench_torch.utils.device import device_kind_of
 
         def _auto(a: torch.Tensor, b: torch.Tensor,
                   out: torch.Tensor | None = None) -> torch.Tensor:
+            kind = device_kind if device_kind is not None else device_kind_of(a.device)
             choice = select_impl(a.shape[0], b.shape[1], a.shape[1], kind,
                                  a.dtype)
-            return matmul_2d(choice.impl, blocks)(a, b, out=out)
+            picked = blocks if blocks is not None else choice.blocks
+            return matmul_2d(choice.impl, picked)(a, b, out=out)
 
         return _auto
     if impl == "cuda":

@@ -422,5 +422,6 @@ def ring_perm_rev(n: int) -> list[tuple[int, int]]:
 
 def mesh_device_kind(mesh: Mesh) -> str:
     """The ranks' device kind: the card's name, or 'cpu'."""
-    first = mesh.devices[0]
-    return torch.cuda.get_device_name(first) if first.type == "cuda" else "cpu"
+    from tpu_matmul_bench_torch.utils.device import device_kind_of
+
+    return device_kind_of(mesh.devices[0])

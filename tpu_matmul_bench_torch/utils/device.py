@@ -74,6 +74,11 @@ def resolve_devices(device: str = "cuda",
     return place_ranks(cards, num_devices)
 
 
+def device_kind_of(device: torch.device) -> str:
+    """The kind routing keys on: the card's name, or 'cpu'."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
 def collect_device_info(devices: Sequence[torch.device]) -> DeviceInfo:
     from tpu_matmul_bench_torch.parallel.mesh import make_mesh
 
