@@ -147,7 +147,20 @@ The paths:
   dcn:2,ici:2` with the dcn sync on the wire), each record valid, its five
   phases summing to its wall time, validated against the dense fp32
   reference, its synced gradient held to the dense one; and `train
-  selftest` over 8 ranks on the card.
+  selftest` over 8 ranks on the card;
+- the serving path (the `serve` phase), `serve.cli.main` in process: bf16
+  requests of a 4096-wide layer (SERVE_MIX) at 500 QPS open loop under
+  `cuda` and under `torch` (the same seeded request stream), closed loop at
+  8 clients, `ab` (fixed window against continuous batching), `--explore
+  0.05` under `auto`, and int8 under `auto` on three squares, every run
+  prewarmed and each load window traced by torch.profiler: each record
+  valid, no failed and no cold request, the window's K1 kernels equal to
+  the requests of its buckets that run K1 (by bucket), the explorer within
+  its budget with its K1 kernels equal to its explored requests, int8's
+  buckets on the tier and impl `resolve_route` gives; each bucket's
+  executable (a CUDA graph of one product) held to the plain version once
+  and its replays timed and traced; then `serve selftest`, `serve trace
+  selftest`, `tune online selftest` and `serve explain --slowest 3`.
 
 Standard output is one JSON object per line: one per phase, then the
 `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
@@ -300,6 +313,21 @@ TRAIN_RUNS = [("--mode", "dp", "--zero", "0"),
               ("--mode", "dp", "--zero", "1", "--grad-quant", "fp8-block:128", "--steps", "4"),
               ("--mode", "hybrid", "--mesh", "dcn:2,ici:2", "--zero", "1",
                "--grad-quant", "dcn=fp8-block:128,ici=none")]
+# the serving path (the `serve` phase): bf16 requests of a 4096-wide
+# transformer layer on DEFAULT_GRID points (nothing padded): token batches of
+# 1024 and 2048 through a projection and an up-projection, and an 8192³
+# square; open loop at SERVE_QPS for SERVE_DURATION s, closed loop at
+# SERVE_CONCURRENCY clients, the explorer at SERVE_EXPLORE, and int8 under
+# `auto` over three squares the committed DB routes two ways. Each load window
+# is traced by torch.profiler; each bucket's executable is replayed
+# SERVE_REPLAYS times alone, timed and traced
+SERVE_MIX = "1024x4096x4096:1,2048x4096x16384:1,8192:0.25"
+SERVE_QPS, SERVE_DURATION, SERVE_CONCURRENCY, SERVE_EXPLORE = 500, 4, 8, 0.05
+SERVE_INT8_MIX, SERVE_INT8_QPS = "1024:1,2048:1,4096:1", 200
+SERVE_REPLAYS = 20
+# K1's kernels in a trace (the wgmma, wmma and SIMT routes), not cuBLAS's
+# (whose names hold "xmma_gemm")
+K1_KERNEL = re.compile(r"(?<![A-Za-z0-9_])(wgmma_gemm|wmma_gemm|simt_gemm_f32)\b")
 
 SCALING_SHAPES = {"independent": (SIZE, SIZE, SIZE), "batch_parallel": (SIZE, SIZE, SIZE),
                   "data_parallel": (SIZE, SIZE, SIZE),
@@ -3611,6 +3639,384 @@ def train_phase(card: str, out_dir: str) -> dict:
     return summary
 
 
+def trace_kernels(path: str) -> list[tuple[str, tuple | None, float]]:
+    """(name, grid or None, device µs) of each kernel in a torch.profiler
+    trace."""
+    from tpu_matmul_bench_torch.utils import profiling
+
+    out = []
+    for e in profiling.device_events(profiling.load_events(path)):
+        if str(e.get("cat", "")).lower() == "kernel":
+            grid = (e.get("args") or {}).get("grid")
+            out.append((e["name"], tuple(grid) if grid else None, float(e["dur"])))
+    return out
+
+
+@contextlib.contextmanager
+def profiled_loads(paths: list[str], stem: str):
+    """Each serve load window run inside the block (`serve/service.py
+    _run_load`: the producer and the worker, after the prewarm and before
+    the record is made) traced by torch.profiler, the card's activity only,
+    after a warm-up step that is traced and dropped (a kernel launched
+    right after the profiler's start can be missed: one request's of 1953
+    was on an H100); each trace's path is appended to `paths`."""
+    import torch
+
+    from tpu_matmul_bench_torch.serve import service
+
+    real = service._run_load
+
+    def traced(*args, **kw):
+        path = f"{stem}-{len(paths)}.json"
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1),
+                on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+            prof.step()
+            out = real(*args, **kw)
+            prof.step()
+        paths.append(path)
+        return out
+
+    service._run_load = traced
+    try:
+        yield paths
+    finally:
+        service._run_load = real
+
+
+def runs_k1(label: str, kind: str) -> bool:
+    """Whether a serve bucket's requests run K1: its impl is `cuda`, or
+    `auto` and `resolve_route` routes its problem to `cuda` on the committed
+    DB."""
+    from tpu_matmul_bench_torch.ops.impl_select import resolve_route
+
+    dims, dtype, impl = label.split("/")
+    if impl != "auto":
+        return impl == "cuda"
+    m, k, n = (int(v) for v in dims.split("x"))
+    return resolve_route(m, n, k, kind, dtype)[0].impl == "cuda"
+
+
+def serve_buckets(impl: str, dtype_name: str, mix: str) -> dict:
+    """Each bucket of `mix` under `impl`, its executable built through the
+    serve cache over its pooled operands (`serve/service.py _make_cache`, a
+    CUDA graph of one product): its product once against the plain version
+    (TOLERANCE: bf16 1e-2, int8 exact), its cold and warm ms, its replay's ms
+    between CUDA events over SERVE_REPLAYS replays, and the device µs a
+    replay of its kernels in a torch.profiler trace of SERVE_REPLAYS replays
+    (K1's, with their (name, grid), and all of them)."""
+    import torch
+
+    from tpu_matmul_bench_torch.obs import attribution
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.serve import service
+    from tpu_matmul_bench_torch.serve.cache import ExecKey
+    from tpu_matmul_bench_torch.serve.queue import ShapeGrid
+
+    kind = torch.cuda.get_device_name(0)
+    config = service.ServeConfig(mix=mix, dtype_name=dtype_name, matmul_impl=impl,
+                                 device="cuda")
+    pool = service._OperandPool(config.seed, torch.device("cuda", 0))
+    cache = service._make_cache(config, kind, pool)
+    grid, rows = ShapeGrid(), {}
+    os.makedirs("build/profile/serve", exist_ok=True)
+    for e in config.mix_entries:
+        key = ExecKey(*grid.bucket(e.m, e.k, e.n), dtype=dtype_name, impl=impl)
+        entry = cache.get(key)
+        a, b = pool.get(key)
+        got = entry.compiled(a, b)
+        want = cm.matmul_plain(a, b)
+        torch.cuda.synchronize()
+        diff = (got.double() - want.double()).abs().max().item()
+        rel = diff / (want.double().abs().max().item() or 1.0)
+        finite = bool(torch.isfinite(got.double()).all().item())
+        del want
+        replay_ms = events_ms(lambda: entry.compiled(a, b), SERVE_REPLAYS)
+        path = f"build/profile/serve/replays-{key.label.replace('/', '-')}.json"
+        # a warm-up step first, traced and dropped: a profiler started again
+        # in a process that had traced before recorded 7 of the 20 replays
+        # that followed its start at once
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1),
+                on_trace_ready=lambda p, path=path: p.export_chrome_trace(path)) as prof:
+            for _ in range(2):
+                for _ in range(SERVE_REPLAYS):
+                    entry.compiled(a, b)
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = trace_kernels(path)
+        k1 = [k for k in kernels if K1_KERNEL.search(k[0])]
+        rows[f"{key.m}x{key.k}x{key.n}/{dtype_name}"] = {
+            "impl": impl, "max_abs_err": diff, "max_rel_err": rel,
+            "tolerance": TOLERANCE[dtype_name],
+            "cold_compile_ms": entry.cold_compile_s * 1e3,
+            "warm_dispatch_ms": entry.warm_dispatch_s * 1e3, "replay_ms": replay_ms,
+            "k1_kernels": len(k1), "k1_kernel_ms": sum(k[2] for k in k1) / len(k1) / 1e3
+            if k1 else None,
+            "kernels_ms_a_replay": sum(k[2] for k in kernels) / SERVE_REPLAYS / 1e3,
+            "k1_signatures": sorted({(k[0], k[1]) for k in k1}, key=str),
+            "bound_ms": attribution.bound(key.m, key.n, key.k, getattr(torch, dtype_name),
+                                          kind)[0],
+            "cost": entry.cost,
+            "ok": finite and tuple(got.shape) == (key.m, key.n)
+            and rel <= TOLERANCE[dtype_name]
+            and len(k1) in ((SERVE_REPLAYS,) if runs_k1(key.label, kind) else (0,))}
+    del cache, pool
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_run(label: str, argv: list[str], out_dir: str, traced: bool = True) -> dict:
+    """One `serve` run through `serve.cli.main` in process, with K1's launch
+    count set to 0 just before and read just after; `traced`, it writes its
+    ledger (`--json-out`) and its load windows are traced
+    (`profiled_loads`). Returns its records (read back from the ledger when
+    there is one), the ledger's lines, the traces, the launches, the
+    requests the registry counted as failed, and its exit code (`ab` exits
+    1 on a regression)."""
+    from tpu_matmul_bench_torch.obs.registry import get_registry
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.serve import cli as serve_cli
+    from tpu_matmul_bench_torch.utils.reporting import BenchmarkRecord
+
+    def failures() -> float:
+        return get_registry().snapshot()["counters"].get("serve_request_failures_total", 0)
+
+    ledger, traces, rc = f"{out_dir}/serve-{label}.jsonl", [], 0
+    os.makedirs("build/profile/serve", exist_ok=True)
+    failed = failures()
+    cm.LAUNCHES = 0
+    before = routes()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr), \
+            profiled_loads(traces, f"build/profile/serve/{label}") if traced \
+            else contextlib.nullcontext():
+        try:
+            records = serve_cli.main([*argv, "--json-out", ledger] if traced else argv)
+        except SystemExit as e:
+            rc, records = e.code, []
+    seconds = time.perf_counter() - t0
+    launches, by_route = cm.LAUNCHES, routes_since(before)
+    lines = []
+    if traced:
+        with open(ledger) as fh:
+            lines = [json.loads(line) for line in fh if line.strip()]
+        records = [BenchmarkRecord.from_json(json.dumps(d)) for d in lines
+                   if d.get("benchmark") == "serve"]
+    return {"records": records, "lines": lines, "traces": traces, "launches": launches,
+            "launches_by_route": by_route, "failed": failures() - failed, "rc": rc,
+            "seconds": seconds, "ledger": ledger, "traced": traced}
+
+
+def serve_summary(label: str, run: dict, kind: str, signatures: dict) -> tuple[dict, list]:
+    """A serve run's headlines by record (latency percentiles, QPS, each
+    bucket's count, cold and warm ms) and its window's K1 kernels and device
+    busy share, with the contract's problems: a record that fails
+    `validate_serve_record`, a failed request (registry, batch lines, span
+    records), a cold request (every run prewarms), and K1 kernels in a
+    window other than its K1 buckets' requests, by bucket where the trace
+    gives kernels' grids (`signatures`: each bucket's (name, grid) from its
+    replays) and in all."""
+    from tpu_matmul_bench_torch.serve.service import validate_serve_record
+
+    problems = [f"{label}: {p}" for rec in run["records"] for p in validate_serve_record(rec)]
+    batch_failed = sum(d.get("failed", 0) for d in run["lines"]
+                       if d.get("record_type") == "serve_batch")
+    span_failed = sum(1 for d in run["lines"]
+                      if d.get("record_type") == "serve_span" and d.get("state") == "failed")
+    if run["failed"] or batch_failed or span_failed:
+        problems.append(f"{label}: failed requests (registry {run['failed']}, batch lines "
+                        f"{batch_failed}, span records {span_failed})")
+    if not run["records"] or run["traced"] and len(run["traces"]) != len(run["records"]):
+        problems.append(f"{label}: {len(run['traces'])} traced windows for "
+                        f"{len(run['records'])} records")
+    windows = []
+    for i, rec in enumerate(run["records"]):
+        s = rec.extras["serve"]
+        if s["cold_requests"]:
+            problems.append(f"{label}: {s['cold_requests']} cold requests in a prewarmed window")
+        window = {
+            "scheduler": s["scheduler"], "requests": s["requests"], "shed": s["shed"],
+            "achieved_qps": s["achieved_qps"], "offered_qps": s.get("offered_qps"),
+            "p50_ms": s["p50_ms"], "p95_ms": s["p95_ms"], "p99_ms": s["p99_ms"],
+            "max_ms": s["max_ms"], "service_p50_ms": s["service_p50_ms"],
+            "wait_p99_ms": s["wait_p99_ms"], "wall_s": s["wall_s"],
+            "goodput_qps": s["goodput_qps"], "cold_requests": s["cold_requests"],
+            "buckets": {b: {"count": r["count"], "p50_ms": r["p50_ms"], "p99_ms": r["p99_ms"],
+                            "impl_source": r.get("impl_source")}
+                        for b, r in s["buckets"].items()},
+            "by_entry": s["cache"]["by_entry"], "explore": s.get("explore"),
+            "ab": rec.extras.get("ab"), "cost_analysis": rec.extras.get("cost_analysis")}
+        windows.append(window)
+        if not run["traced"]:
+            continue
+        kernels = trace_kernels(run["traces"][i])
+        k1 = [k for k in kernels if K1_KERNEL.search(k[0])]
+        by_bucket = {}
+        for bucket, row in s["buckets"].items():
+            if not runs_k1(bucket, kind):
+                continue
+            sig = {tuple(x) for x in signatures.get(bucket.rsplit("/", 1)[0], [])}
+            counted = sum(1 for k in k1 if (k[0], k[1]) in sig) \
+                if sig and all(g is not None for _, g in sig) else None
+            by_bucket[bucket] = {"requests": row["count"], "k1_kernels": counted}
+            if counted is not None and counted != row["count"]:
+                problems.append(f"{label}: bucket {bucket} ran {counted} K1 kernels for "
+                                f"{row['count']} requests")
+        want = sum(row["count"] for bucket, row in s["buckets"].items() if runs_k1(bucket, kind))
+        if len(k1) != want:
+            problems.append(f"{label}: {len(k1)} K1 kernels in the window for {want} "
+                            "requests of K1 buckets")
+        window.update(k1_kernels=len(k1), k1_by_bucket=by_bucket,
+                      device_busy_share=sum(k[2] for k in kernels) / (s["wall_s"] * 1e6))
+    return {"seconds": run["seconds"], "rc": run["rc"], "launches": run["launches"],
+            "launches_by_route": run["launches_by_route"], "windows": windows}, problems
+
+
+def serve_phase(card: str, out_dir: str) -> dict:
+    """The serving path on the card (the `serve` phase), through
+    `serve.cli.main` in process: each bucket's executable alone first
+    (`serve_buckets`: bf16 under `cuda` and `torch`, int8 under `auto`);
+    then `bench` at SERVE_QPS open loop under `cuda` and under `torch` (the
+    same request stream), closed loop at SERVE_CONCURRENCY under `cuda`,
+    `ab` under `cuda`, `bench --explore SERVE_EXPLORE` under `auto` (the
+    committed DB routes these bf16 problems to cuBLAS, so an explored
+    request runs K1, the runner-up), and int8 under `auto`; every run
+    prewarmed, its load windows traced (`serve_summary` has the checks).
+    The instrumentation's cost beside them: both open loops again with no
+    ledger and no profiler, and the closed loop with its ledger alone and
+    with neither.
+    Then `selftest`, `trace selftest`, `tune online selftest` and `explain
+    --slowest 3` on the `cuda` bench's ledger, each trace reconciled.
+    Fails on any problem; returns the `kernels` line's serve block."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops.impl_select import resolve_route
+    from tpu_matmul_bench_torch.serve import cli as serve_cli
+    from tpu_matmul_bench_torch.tune import cli as tune_cli
+
+    kind = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    problems = []
+    buckets = {"cuda": serve_buckets("cuda", "bfloat16", SERVE_MIX),
+               "torch": serve_buckets("torch", "bfloat16", SERVE_MIX),
+               "int8_auto": serve_buckets("auto", "int8", SERVE_INT8_MIX)}
+    problems += [f"buckets[{impl}] {b}: product or kernels off (rel {r['max_rel_err']}, "
+                 f"{r['k1_kernels']} K1 kernels in {SERVE_REPLAYS} replays)"
+                 for impl, rows in buckets.items() for b, r in rows.items() if not r["ok"]]
+    signatures = {b: r["k1_signatures"] for rows in buckets.values() for b, r in rows.items()
+                  if r["k1_signatures"]}
+    load = ["--mix", SERVE_MIX, "--dtype", "bfloat16", "--seed", "0", "--prewarm",
+            "--duration", str(SERVE_DURATION)]
+    open_loop = ["--qps", str(SERVE_QPS)]
+    argvs = {
+        "bench_cuda": ["bench", *load, *open_loop, "--matmul-impl", "cuda"],
+        "bench_torch": ["bench", *load, *open_loop, "--matmul-impl", "torch"],
+        "closed_cuda": ["bench", *load, "--concurrency", str(SERVE_CONCURRENCY),
+                        "--matmul-impl", "cuda"],
+        "ab_cuda": ["ab", *load, *open_loop, "--matmul-impl", "cuda"],
+        "explore_auto": ["bench", *load, *open_loop, "--matmul-impl", "auto",
+                         "--explore", str(SERVE_EXPLORE)],
+        "int8_auto": ["bench", "--mix", SERVE_INT8_MIX, "--dtype", "int8", "--seed", "0",
+                      "--prewarm", "--duration", str(SERVE_DURATION),
+                      "--qps", str(SERVE_INT8_QPS), "--matmul-impl", "auto"],
+    }
+    # the instrumentation's cost: the open loops with no ledger (so no
+    # fsynced batch and span lines) and no profiler, and the closed loop
+    # with its ledger alone and with neither
+    bare = {"bench_cuda_bare": argvs["bench_cuda"], "bench_torch_bare": argvs["bench_torch"],
+            "closed_cuda_ledger": argvs["closed_cuda"], "closed_cuda_bare": argvs["closed_cuda"]}
+    runs, summaries = {}, {}
+    for label, argv in {**argvs, **bare}.items():
+        if label == "closed_cuda_ledger":
+            argv = [*argv, "--json-out", f"{out_dir}/serve-{label}.jsonl"]
+        runs[label] = serve_run(label, argv, out_dir, traced=label not in bare)
+        summaries[label], found = serve_summary(label, runs[label], kind, signatures)
+        problems += found
+        if label != "ab_cuda" and runs[label]["rc"]:
+            problems.append(f"{label}: exit {runs[label]['rc']}")
+    def window(label: str) -> dict:
+        return summaries[label]["windows"][0]
+
+    cuda, lib = window("bench_cuda"), window("bench_torch")
+    if runs["bench_cuda"]["launches"] <= 0:
+        problems.append("the cuda bench launched no K1 (prewarm's first calls and captures)")
+    ratios = {f"{p}{label}": window(f"bench_cuda{label}")[p] / window(f"bench_torch{label}")[p]
+              for label in ("", "_bare")
+              for p in ("p50_ms", "p95_ms", "p99_ms", "max_ms", "service_p50_ms")}
+    # the same request stream under both impls
+    streams = [[(d["rid"], d["bucket"]) for d in runs[label]["lines"]
+                if d.get("record_type") == "serve_span"] for label in ("bench_cuda", "bench_torch")]
+    if sorted(streams[0]) != sorted(streams[1]):
+        problems.append("the cuda and torch benches did not serve the same request stream")
+    explore = summaries["explore_auto"]["windows"][0]
+    ex = explore["explore"] or {}
+    explored_warm = sum(r["count"] for b, r in explore["buckets"].items() if b.endswith("/cuda"))
+    if not ex or ex["explored"] > SERVE_EXPLORE * ex["seen"]:
+        problems.append(f"explorer over its budget: {ex}")
+    if explore["k1_kernels"] != explored_warm or ex.get("explored") != explored_warm:
+        problems.append(f"explore: {explore['k1_kernels']} K1 kernels, {explored_warm} explored "
+                        f"warm requests, {ex.get('explored')} explored")
+    int8 = summaries["int8_auto"]["windows"][0]
+    routed = {}
+    for bucket, row in int8["buckets"].items():
+        m, k, n = (int(v) for v in bucket.split("/")[0].split("x"))
+        choice = resolve_route(m, n, k, kind, "int8")[0]
+        routed[bucket] = {"impl": choice.impl, "source": choice.source,
+                          "impl_source": row["impl_source"]}
+        if row["impl_source"] != choice.source:
+            problems.append(f"int8 {bucket}: impl_source {row['impl_source']}, "
+                            f"resolve_route says {choice.source}")
+    if set(int8["cost_analysis"] or {}) != {b for b, r in routed.items() if r["impl"] == "cuda"}:
+        problems.append(f"int8: cost_analysis for {sorted(int8['cost_analysis'] or {})}, "
+                        f"routed to cuda {routed}")
+    # the CI hooks, and `explain` on the cuda bench's ledger
+    explained = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            serve_cli.main(["selftest"])
+            serve_cli.main(["trace", "selftest"])
+            tune_cli.main(["online", "selftest"])
+        with contextlib.redirect_stdout(explained):
+            serve_cli.main(["explain", "--ledger", runs["bench_cuda"]["ledger"],
+                            "--slowest", "3"])
+    except SystemExit as e:
+        problems.append(f"a selftest or explain exited {e.code}")
+    reconciled = [line for line in explained.getvalue().splitlines()
+                  if "reconciliation:" in line]
+    print(explained.getvalue(), file=sys.stderr)
+    if len(reconciled) != 3 or not all(line.endswith("ok") for line in reconciled):
+        problems.append(f"explain --slowest 3: {reconciled}")
+    result = {"phase": "serve", "card": card, "mix": SERVE_MIX, "qps": SERVE_QPS,
+              "duration_s": SERVE_DURATION, "buckets": buckets, "runs": summaries,
+              "cuda_over_torch": ratios, "int8_routes": routed,
+              "explained": reconciled, "seconds": time.perf_counter() - t0,
+              "ok": not problems, "problems": problems}
+    emit(result)
+    if problems:
+        fail("serve", "; ".join(problems[:10]))
+    return {"launches": runs["bench_cuda"]["launches"],
+            "launches_by_route": runs["bench_cuda"]["launches_by_route"],
+            "k1_kernels": cuda["k1_kernels"], "requests": cuda["requests"],
+            "p50_ms": cuda["p50_ms"], "p99_ms": cuda["p99_ms"],
+            "torch_p50_ms": lib["p50_ms"], "torch_p99_ms": lib["p99_ms"],
+            "bare_p50_ms": window("bench_cuda_bare")["p50_ms"],
+            "bare_p99_ms": window("bench_cuda_bare")["p99_ms"],
+            "torch_bare_p50_ms": window("bench_torch_bare")["p50_ms"],
+            "torch_bare_p99_ms": window("bench_torch_bare")["p99_ms"],
+            "closed_loop_qps": {label: window(label)["achieved_qps"]
+                                for label in ("closed_cuda", "closed_cuda_ledger",
+                                              "closed_cuda_bare")},
+            "buckets": {b: {k: r[k] for k in ("warm_dispatch_ms", "replay_ms", "k1_kernel_ms",
+                                              "bound_ms", "max_abs_err")}
+                        for b, r in buckets["cuda"].items()}}
+
+
 def residency_probe(cap: int, l2: int, runs: int = 20) -> dict:
     """K6 and K2 through their wrappers at half the fused ring's cap, at
     the cap and at twice it, bf16 over RING_WORLD ranks on the card: ms and
@@ -3804,6 +4210,7 @@ def main() -> None:
         compared = compare_phase(cap, out_dir)
         train_phase(card, out_dir)
         emit({"phase": "programs", "seconds": time.perf_counter() - t0, "ok": True})
+        serve = serve_phase(card, out_dir)
 
     # 5. the plain version's time at the headline shape
     a, b = random_operands(0, (SIZE, SIZE), torch.bfloat16, device="cuda")
@@ -3918,6 +4325,12 @@ def main() -> None:
                   "library_fused_ms": summa["torch,fused"]["avg_ms"]},
         # the scaling curve's rows (batch_parallel over 1, 2, 4 ranks)
         "curve": curve["counts"],
+        # the serving path: bf16 SERVE_MIX at SERVE_QPS open loop under
+        # `cuda`, each request a replay of its bucket's captured K1 (the
+        # launches are the prewarm's first calls and captures; the window's
+        # K1 kernels equal its requests), beside the same stream under
+        # `torch`; each bucket's warm dispatch beside K1's kernel ms
+        "serve": serve,
         # `auto` through a measured `cuda` DB cell at bf16 SIZE³ (tune_db)
         "tune_db": {k: tune_db[k] for k in ("launches", "launches_by_route", "cell",
                                             "max_abs_err", "auto_ms", "cuda_ms",

@@ -49,7 +49,8 @@ def test_main_registry_has_the_five_programs():
                          ("doctor", "doctor"), ("compare", "compare_benchmarks")):
         assert port_main._PROGRAMS[name] == f"tpu_matmul_bench_torch.benchmarks.{module}"
     assert port_main._PROGRAMS["train"] == "tpu_matmul_bench_torch.train.cli"
-    assert len(port_main._PROGRAMS) == 14
+    assert port_main._PROGRAMS["serve"] == "tpu_matmul_bench_torch.serve.cli"
+    assert len(port_main._PROGRAMS) == 15
 
 
 # ------------------------------------------------------------- the renderers

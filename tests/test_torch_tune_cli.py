@@ -119,11 +119,18 @@ def test_selftest_fails_on_a_dead_artifact(tmp_path, capsys):
     assert "does not exist" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("name, item", [("fill", "A14"), ("online", "A13"),
-                                        ("artifacts", "A13")])
+@pytest.mark.parametrize("name, item", [("fill", "A14"), ("artifacts", "A13")])
 def test_unported_subcommands_are_refused_by_name(name, item):
     with pytest.raises(SystemExit, match=f"tune {name}: not ported yet; it waits for {item}"):
         port_main(["tune", name])
+
+
+def test_online_selftest_exits_0(capsys):
+    assert port_main(["tune", "online", "selftest", "--requests", "1000"]) == 0
+    assert "tune online selftest ok: 1000 seeded requests" in capsys.readouterr().out
+    # the executable store stays refused, naming the slice it waits for
+    with pytest.raises(SystemExit, match="tune artifacts: .* A13, slice 16"):
+        port_main(["tune", "artifacts"])
 
 
 def test_flag_style_falls_through_to_the_sweep():

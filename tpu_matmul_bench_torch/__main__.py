@@ -40,6 +40,9 @@ _PROGRAMS = {
     # gradient sync via --grad-quant, ZeRO-style sharded update via
     # --zero) with per-phase timing (`train bench`), and `train selftest`
     "train": "tpu_matmul_bench_torch.train.cli",
+    # matmul as a service under load: `serve {bench,ab,selftest,explain,
+    # trace selftest}` (serve/cli.py)
+    "serve": "tpu_matmul_bench_torch.serve.cli",
 }
 
 

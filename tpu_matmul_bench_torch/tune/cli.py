@@ -1,4 +1,5 @@
-"""`python -m tpu_matmul_bench_torch tune {show,prune,promote,selftest}`.
+"""`python -m tpu_matmul_bench_torch tune
+{show,prune,promote,selftest,online}`.
 
 Port of `tpu_matmul_bench/tune/cli.py`, the tuning database's front end.
 The measurement sweep itself is `benchmarks/cuda_tune.py`: an invocation
@@ -12,12 +13,17 @@ every `tune --sizes ... --candidates ...` spelling keeps working.
                 what would be measured (trials before → trials after)
 - `promote`   — promote winners from existing tune ledgers into the DB
 - `selftest`  — DB schema, provenance and drift consistency
+- `online`    — the serve-time shadow-traffic explorer (tune/online.py):
+                `online selftest` certifies the ε budget and the
+                SLO-debt/breaker guards against a seeded adversarial
+                stream
 
-`fill` (a measurement campaign, with A14's campaign runner), `online` and
-`artifacts` (the serve path's shadow explorer and executable store, with
-A13's serve) are refused by name.
+`fill` (a measurement campaign, with A14's campaign runner) and
+`artifacts` (serve's warm-start executable store, with A13's pod serving
+in slice 16) are refused by name.
 
-Exit codes, as the JAX package's: `selftest` exits 1 on any problem;
+Exit codes, as the JAX package's: `selftest` and `online selftest` exit
+1 on any problem;
 `promote` exits 1 when nothing was promotable; `show` and `prune` are
 informational and exit 0.
 """
@@ -27,11 +33,11 @@ from __future__ import annotations
 import argparse
 from typing import Sequence
 
-SUBCOMMANDS = ("show", "prune", "promote", "selftest")
+SUBCOMMANDS = ("show", "prune", "promote", "selftest", "online")
 #: the JAX package's other subcommands, and the ROADMAP item each waits for
 NOT_PORTED = {"fill": "A14 (it drives the campaign runner)",
-              "online": "A13 (serve's shadow-traffic explorer)",
-              "artifacts": "A13 (serve's warm-start executable store)"}
+              "artifacts": "A13, slice 16 (serve's warm-start executable "
+                           "store, with serve/pod.py)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,6 +94,19 @@ def build_parser() -> argparse.ArgumentParser:
     self_.add_argument("--no-drift", action="store_true",
                        help="skip the program-digest recompute (schema + "
                             "provenance checks only)")
+
+    online = sub.add_parser(
+        "online", help="serve-time shadow-traffic explorer checks")
+    online_sub = online.add_subparsers(dest="online_command", required=True)
+    online_self = online_sub.add_parser(
+        "selftest", help="certify ε budget + SLO/breaker guards against "
+                         "a seeded adversarial stream")
+    online_self.add_argument("--epsilon", type=float, default=0.1,
+                             help="exploration budget under test "
+                                  "(default %(default)s)")
+    online_self.add_argument("--requests", type=int, default=4000,
+                             help="stream length (default %(default)s)")
+    online_self.add_argument("--seed", type=int, default=0)
     return p
 
 
@@ -207,6 +226,13 @@ def _cmd_selftest(args) -> int:
     return 0
 
 
+def _cmd_online(args) -> int:
+    from tpu_matmul_bench_torch.tune.online import run_selftest
+
+    return run_selftest(epsilon=args.epsilon, requests=args.requests,
+                        seed=args.seed)
+
+
 def main(argv: Sequence[str] | None = None):
     import sys
 
@@ -221,7 +247,7 @@ def main(argv: Sequence[str] | None = None):
         return cuda_tune.main(argv)
     args = build_parser().parse_args(argv)
     rc = {"show": _cmd_show, "prune": _cmd_prune, "promote": _cmd_promote,
-          "selftest": _cmd_selftest}[args.command](args)
+          "selftest": _cmd_selftest, "online": _cmd_online}[args.command](args)
     if rc:
         raise SystemExit(rc)
     return rc

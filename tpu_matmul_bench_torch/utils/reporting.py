@@ -299,6 +299,15 @@ class JsonWriter:
             self._fh.write(rec.to_json() + "\n")
             self._sync()
 
+    def write_raw(self, rec: dict[str, Any]) -> None:
+        """Append a non-BenchmarkRecord JSONL line (the serve loop's
+        per-batch progress and terminal span records) with the same
+        fsync-per-line durability. Callers set a `record_type` so
+        measurement readers can skip it."""
+        if self._fh is not None:
+            self._fh.write(json.dumps(rec, sort_keys=True) + "\n")
+            self._sync()
+
     def close(self) -> None:
         if self._fh is not None and self._fh is not sys.stdout:
             self._fh.close()

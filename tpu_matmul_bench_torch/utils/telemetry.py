@@ -17,14 +17,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import io
 import json
 import os
 import subprocess
 import sys
 import time
-import uuid
 from typing import Any, Iterator
 
 import torch
@@ -142,6 +140,24 @@ class SpanTracker:
             if self._sink is not None:
                 self._sink.write(_chrome_event(event))
 
+    def emit(self, name: str, start_pc: float, end_pc: float, *,
+             depth: int = 0, **args: Any) -> None:
+        """Record a span retrospectively from absolute `time.perf_counter`
+        timestamps (the serve flight recorder's request phases are measured
+        first and attributed later, so they cannot be wrapped in a live
+        `span()`). Lands in the same timeline: clamped to this tracker's
+        epoch, flushed through the sink like any other closed span."""
+        event = SpanEvent(
+            name=name,
+            start_s=max(start_pc - self.epoch, 0.0),
+            dur_s=max(end_pc - start_pc, 0.0),
+            depth=depth,
+            args={k: v for k, v in args.items() if v is not None},
+        )
+        self.events.append(event)
+        if self._sink is not None:
+            self._sink.write(_chrome_event(event))
+
     def to_chrome_trace(self) -> dict[str, Any]:
         events = sorted(self.events, key=lambda e: (e.start_s, -e.dur_s))
         return {
@@ -192,6 +208,10 @@ def artifacts() -> dict[str, str]:
     return dict(_ARTIFACTS)
 
 
+def current_tracker() -> SpanTracker | None:
+    return _TRACKER
+
+
 @contextlib.contextmanager
 def _null_span(meta: dict[str, Any]) -> Iterator[dict[str, Any]]:
     yield meta
@@ -204,6 +224,16 @@ def span(name: str, **args: Any):
     if tracker is None:
         return _null_span(dict(args))
     return tracker.span(name, **args)
+
+
+def emit_span(name: str, start_pc: float, end_pc: float, *,
+              depth: int = 0, **args: Any) -> None:
+    """Module-level retrospective span (see SpanTracker.emit): a no-op when
+    no tracker session is installed, so per-request attribution costs
+    nothing outside `--trace-out` runs."""
+    tracker = _TRACKER
+    if tracker is not None:
+        tracker.emit(name, start_pc, end_pc, depth=depth, **args)
 
 
 @contextlib.contextmanager
@@ -262,30 +292,21 @@ def git_sha() -> str | None:
     return sha if out.returncode == 0 and sha else None
 
 
-@functools.cache
-def _run_id() -> str:
-    """This process's run id: TPU_BENCH_RUN_ID pins it, else minted once."""
-    return os.environ.get("TPU_BENCH_RUN_ID") or uuid.uuid4().hex[:12]
-
-
-def _trace_block() -> dict[str, Any]:
-    """The manifest's `trace` block: this run's id, and the spawning run's
-    when TPU_BENCH_PARENT_RUN_ID names one."""
-    block: dict[str, Any] = {"run_id": _run_id(), "pid": os.getpid()}
-    parent = os.environ.get("TPU_BENCH_PARENT_RUN_ID")
-    if parent:
-        block["parent_run_id"] = parent
-    return block
-
-
-def build_manifest(config: Any = None) -> dict[str, Any]:
+def build_manifest(config: Any = None, *, device: str | None = None,
+                   extra: dict[str, Any] | None = None) -> dict[str, Any]:
     """The provenance header record for a JSONL file.
 
     `config` is a BenchConfig (duck-typed to avoid an import cycle); its
-    `device` names the backend described. Without a config the manifest
-    describes the card when there is one.
+    `device`, or else `device`, names the backend described. With neither
+    the manifest describes the card when there is one. `extra` merges
+    program-specific top-level keys (the serve harness's load
+    configuration); the reserved keys win. The `trace` block is the run
+    context's (obs/context.py): this run's id, and the spawning run's when
+    TPU_BENCH_PARENT_RUN_ID names one.
     """
-    device = getattr(config, "device", None) or (
+    from tpu_matmul_bench_torch.obs import context as obs_context
+
+    device = getattr(config, "device", None) or device or (
         "cuda" if torch.cuda.is_available() else "cpu")
     on_card = device == "cuda"
     manifest: dict[str, Any] = {
@@ -303,7 +324,7 @@ def build_manifest(config: Any = None) -> dict[str, Any]:
                           and torch.distributed.is_initialized() else 1),
         "argv": list(sys.argv),
         "git_sha": git_sha(),
-        "trace": _trace_block(),
+        "trace": obs_context.trace_block(),
     }
     if config is not None:
         manifest["mesh_shape"] = [config.num_devices or 1]
@@ -317,6 +338,8 @@ def build_manifest(config: Any = None) -> dict[str, Any]:
             "warmup": config.warmup,
             "seed": config.seed,
         }
+    for key, value in (extra or {}).items():
+        manifest.setdefault(key, value)
     noted = artifacts()
     if _TRACKER is not None:
         # the run's chrome trace, cross-referenced from its ledger
