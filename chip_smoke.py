@@ -160,7 +160,25 @@ The paths:
   buckets on the tier and impl `resolve_route` gives; each bucket's
   executable (a CUDA graph of one product) held to the plain version once
   and its replays timed and traced; then `serve selftest`, `serve trace
-  selftest`, `tune online selftest` and `serve explain --slowest 3`.
+  selftest`, `tune online selftest` and `serve explain --slowest 3`; `ab`
+  runs bare (no ledger, no profiler) and a regressed verdict (exit 1) is
+  recorded on the phase's line, any other nonzero exit fails;
+- pod serving (the `pod` phase) over 8 ranks that share the card
+  (`TMB_RANKS_PER_CARD=8`; every gather a copy within its memory, not
+  NVLink): `serve pod selftest`; each group executable (one CUDA graph of
+  the group's K1 products and gathers) of `--mesh dcn:2,ici:4` and of
+  `dcn:4,ici:2` with its dcn gathers on fp8-block:32, in 2 replica groups,
+  held rank by rank to the plain product (bf16 1e-2; the fp8 wire 0.08),
+  4 K1 kernels a replay; K1 and cuBLAS at the six per-rank products; then
+  SERVE_MIX through `serve bench --mesh` under `cuda` (traced: 4 K1
+  kernels a request), `torch`, closed loop, the quantized mesh (its wire
+  calls counted), unprewarmed (drain threads capture misses while the
+  other group replays: no failed request); the two-process warm start from
+  the kernel-library store (`--artifacts`: the second process, in a copy
+  whose build directory starts empty and whose `nvcc` fails, starts nvcc
+  0 times, imports every executable, serves no cold request and gives the
+  first's outputs bitwise); and `serve ab --mesh` bare, its verdict
+  recorded as the serve phase's is.
 
 Standard output is one JSON object per line: one per phase, then the
 `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
@@ -172,6 +190,7 @@ is present, and when the port's package is not beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import glob
 import io
 import json
@@ -325,6 +344,16 @@ SERVE_MIX = "1024x4096x4096:1,2048x4096x16384:1,8192:0.25"
 SERVE_QPS, SERVE_DURATION, SERVE_CONCURRENCY, SERVE_EXPLORE = 500, 4, 8, 0.05
 SERVE_INT8_MIX, SERVE_INT8_QPS = "1024:1,2048:1,4096:1", 200
 SERVE_REPLAYS = 20
+# the pod cells (slice 16): SERVE_MIX over POD_RANKS ranks that share the
+# card, in POD_GROUPS replica groups of POD_MESH (each group `ici:4`) and of
+# POD_QUANT_MESH (each group `dcn:2,ici:2`, its dcn gathers on POD_QUANT);
+# POD_K1_A_REQUEST K1 products a request, one a rank of its group, whose
+# shapes are POD_RANK_SHAPES (m, k, n): the three buckets on each group mesh
+POD_RANKS, POD_GROUPS, POD_K1_A_REQUEST = 8, 2, 4
+POD_MESH, POD_QUANT_MESH = "dcn:2,ici:4", "dcn:4,ici:2"
+POD_QUANT = "dcn=fp8-block:32,ici=none"
+POD_RANK_SHAPES = [(1024, 4096, 1024), (2048, 4096, 4096), (8192, 8192, 2048),
+                   (512, 4096, 2048), (1024, 4096, 8192), (4096, 8192, 4096)]
 # K1's kernels in a trace (the wgmma, wmma and SIMT routes), not cuBLAS's
 # (whose names hold "xmma_gemm")
 K1_KERNEL = re.compile(r"(?<![A-Za-z0-9_])(wgmma_gemm|wmma_gemm|simt_gemm_f32)\b")
@@ -3653,18 +3682,21 @@ def trace_kernels(path: str) -> list[tuple[str, tuple | None, float]]:
 
 
 @contextlib.contextmanager
-def profiled_loads(paths: list[str], stem: str):
+def profiled_loads(paths: list[str], stem: str, pod: bool = False):
     """Each serve load window run inside the block (`serve/service.py
-    _run_load`: the producer and the worker, after the prewarm and before
-    the record is made) traced by torch.profiler, the card's activity only,
-    after a warm-up step that is traced and dropped (a kernel launched
-    right after the profiler's start can be missed: one request's of 1953
-    was on an H100); each trace's path is appended to `paths`."""
+    _run_load`, or with `pod` `serve/pod.py _run_pod_load`: the producer and
+    the workers, after the prewarm and before the record is made) traced by
+    torch.profiler, the card's activity only, after a warm-up step that is
+    traced and dropped (a kernel launched right after the profiler's start
+    can be missed: one request's of 1953 was on an H100); each trace's path
+    is appended to `paths`."""
     import torch
 
+    from tpu_matmul_bench_torch.serve import pod as pod_module
     from tpu_matmul_bench_torch.serve import service
 
-    real = service._run_load
+    module, name = (pod_module, "_run_pod_load") if pod else (service, "_run_load")
+    real = getattr(module, name)
 
     def traced(*args, **kw):
         path = f"{stem}-{len(paths)}.json"
@@ -3681,11 +3713,11 @@ def profiled_loads(paths: list[str], stem: str):
         paths.append(path)
         return out
 
-    service._run_load = traced
+    setattr(module, name, traced)
     try:
         yield paths
     finally:
-        service._run_load = real
+        setattr(module, name, real)
 
 
 def runs_k1(label: str, kind: str) -> bool:
@@ -3771,14 +3803,15 @@ def serve_buckets(impl: str, dtype_name: str, mix: str) -> dict:
     return rows
 
 
-def serve_run(label: str, argv: list[str], out_dir: str, traced: bool = True) -> dict:
+def serve_run(label: str, argv: list[str], out_dir: str, traced: bool = True,
+              pod: bool = False) -> dict:
     """One `serve` run through `serve.cli.main` in process, with K1's launch
     count set to 0 just before and read just after; `traced`, it writes its
     ledger (`--json-out`) and its load windows are traced
-    (`profiled_loads`). Returns its records (read back from the ledger when
-    there is one), the ledger's lines, the traces, the launches, the
-    requests the registry counted as failed, and its exit code (`ab` exits
-    1 on a regression)."""
+    (`profiled_loads`, the pod's with `pod`). Returns its records (read back
+    from the ledger when there is one), the ledger's lines, the traces, the
+    launches, the requests the registry counted as failed, and its exit
+    code."""
     from tpu_matmul_bench_torch.obs.registry import get_registry
     from tpu_matmul_bench_torch.ops import cuda_matmul as cm
     from tpu_matmul_bench_torch.serve import cli as serve_cli
@@ -3794,7 +3827,7 @@ def serve_run(label: str, argv: list[str], out_dir: str, traced: bool = True) ->
     before = routes()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(sys.stderr), \
-            profiled_loads(traces, f"build/profile/serve/{label}") if traced \
+            profiled_loads(traces, f"build/profile/serve/{label}", pod) if traced \
             else contextlib.nullcontext():
         try:
             records = serve_cli.main([*argv, "--json-out", ledger] if traced else argv)
@@ -3813,13 +3846,15 @@ def serve_run(label: str, argv: list[str], out_dir: str, traced: bool = True) ->
             "seconds": seconds, "ledger": ledger, "traced": traced}
 
 
-def serve_summary(label: str, run: dict, kind: str, signatures: dict) -> tuple[dict, list]:
+def serve_summary(label: str, run: dict, kind: str, signatures: dict,
+                  k1_a_request: int | None = 1, prewarmed: bool = True) -> tuple[dict, list]:
     """A serve run's headlines by record (latency percentiles, QPS, each
     bucket's count, cold and warm ms) and its window's K1 kernels and device
     busy share, with the contract's problems: a record that fails
     `validate_serve_record`, a failed request (registry, batch lines, span
-    records), a cold request (every run prewarms), and K1 kernels in a
-    window other than its K1 buckets' requests, by bucket where the trace
+    records), a cold request (when the run prewarms), and K1 kernels in a
+    window other than `k1_a_request` a request of its K1 buckets (one; a
+    pod's group ranks; None: read, not counted), by bucket where the trace
     gives kernels' grids (`signatures`: each bucket's (name, grid) from its
     replays) and in all."""
     from tpu_matmul_bench_torch.serve.service import validate_serve_record
@@ -3838,7 +3873,7 @@ def serve_summary(label: str, run: dict, kind: str, signatures: dict) -> tuple[d
     windows = []
     for i, rec in enumerate(run["records"]):
         s = rec.extras["serve"]
-        if s["cold_requests"]:
+        if s["cold_requests"] and prewarmed:
             problems.append(f"{label}: {s['cold_requests']} cold requests in a prewarmed window")
         window = {
             "scheduler": s["scheduler"], "requests": s["requests"], "shed": s["shed"],
@@ -3851,7 +3886,9 @@ def serve_summary(label: str, run: dict, kind: str, signatures: dict) -> tuple[d
                             "impl_source": r.get("impl_source")}
                         for b, r in s["buckets"].items()},
             "by_entry": s["cache"]["by_entry"], "explore": s.get("explore"),
-            "ab": rec.extras.get("ab"), "cost_analysis": rec.extras.get("cost_analysis")}
+            "ab": rec.extras.get("ab"), "cost_analysis": rec.extras.get("cost_analysis"),
+            "pod": s.get("pod"), "artifacts": s["cache"].get("artifacts"),
+            "preload": s["cache"]["preload"]}
         windows.append(window)
         if not run["traced"]:
             continue
@@ -3868,14 +3905,51 @@ def serve_summary(label: str, run: dict, kind: str, signatures: dict) -> tuple[d
             if counted is not None and counted != row["count"]:
                 problems.append(f"{label}: bucket {bucket} ran {counted} K1 kernels for "
                                 f"{row['count']} requests")
-        want = sum(row["count"] for bucket, row in s["buckets"].items() if runs_k1(bucket, kind))
-        if len(k1) != want:
-            problems.append(f"{label}: {len(k1)} K1 kernels in the window for {want} "
-                            "requests of K1 buckets")
+        want = (k1_a_request or 0) * sum(row["count"] for bucket, row in s["buckets"].items()
+                                         if runs_k1(bucket, kind))
+        if k1_a_request is not None and len(k1) != want:
+            problems.append(f"{label}: {len(k1)} K1 kernels in the window, {want} for the "
+                            f"requests of K1 buckets ({k1_a_request} a request)")
         window.update(k1_kernels=len(k1), k1_by_bucket=by_bucket,
                       device_busy_share=sum(k[2] for k in kernels) / (s["wall_s"] * 1e6))
     return {"seconds": run["seconds"], "rc": run["rc"], "launches": run["launches"],
             "launches_by_route": run["launches_by_route"], "windows": windows}, problems
+
+
+def ab_run(label: str, argv: list[str]) -> tuple[dict, list]:
+    """One `serve ab` run through `serve.cli.main` in process, bare: no
+    ledger and no profiler, whose host stalls moved the verdict (ROADMAP
+    C4). The verdict is read where `serve/service.py _ab_verdict` returns it
+    (`ab --mesh` reaches it too). Exit 1 with a regressed verdict is a
+    finding, recorded on the phase's line; any other nonzero exit, a missing
+    verdict, or an exit that disagrees with the verdict is a problem."""
+    from tpu_matmul_bench_torch.serve import cli as serve_cli
+    from tpu_matmul_bench_torch.serve import service
+
+    verdicts, real = [], service._ab_verdict
+
+    def captured(*args, **kw):
+        verdicts.append(real(*args, **kw))
+        return verdicts[-1]
+
+    service._ab_verdict = captured
+    rc, t0 = 0, time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            serve_cli.main(argv)
+    except SystemExit as e:
+        rc = e.code
+    finally:
+        service._ab_verdict = real
+    verdict = verdicts[-1] if verdicts else None
+    problems = []
+    if verdict is None:
+        problems.append(f"{label}: no verdict (exit {rc})")
+    elif rc not in (0, 1) or (rc == 1) != bool(verdict["regressed"]):
+        problems.append(f"{label}: exit {rc} with verdict regressed={verdict['regressed']}")
+    return {"rc": rc, "verdict": verdict, "seconds": time.perf_counter() - t0,
+            "finding": "regressed" if rc == 1 and verdict and verdict["regressed"] else None,
+            }, problems
 
 
 def serve_phase(card: str, out_dir: str) -> dict:
@@ -3884,7 +3958,8 @@ def serve_phase(card: str, out_dir: str) -> dict:
     (`serve_buckets`: bf16 under `cuda` and `torch`, int8 under `auto`);
     then `bench` at SERVE_QPS open loop under `cuda` and under `torch` (the
     same request stream), closed loop at SERVE_CONCURRENCY under `cuda`,
-    `ab` under `cuda`, `bench --explore SERVE_EXPLORE` under `auto` (the
+    `ab` under `cuda` bare (`ab_run`: its verdict recorded, a regression a
+    finding), `bench --explore SERVE_EXPLORE` under `auto` (the
     committed DB routes these bf16 problems to cuBLAS, so an explored
     request runs K1, the runner-up), and int8 under `auto`; every run
     prewarmed, its load windows traced (`serve_summary` has the checks).
@@ -3919,7 +3994,6 @@ def serve_phase(card: str, out_dir: str) -> dict:
         "bench_torch": ["bench", *load, *open_loop, "--matmul-impl", "torch"],
         "closed_cuda": ["bench", *load, "--concurrency", str(SERVE_CONCURRENCY),
                         "--matmul-impl", "cuda"],
-        "ab_cuda": ["ab", *load, *open_loop, "--matmul-impl", "cuda"],
         "explore_auto": ["bench", *load, *open_loop, "--matmul-impl", "auto",
                          "--explore", str(SERVE_EXPLORE)],
         "int8_auto": ["bench", "--mix", SERVE_INT8_MIX, "--dtype", "int8", "--seed", "0",
@@ -3938,8 +4012,10 @@ def serve_phase(card: str, out_dir: str) -> dict:
         runs[label] = serve_run(label, argv, out_dir, traced=label not in bare)
         summaries[label], found = serve_summary(label, runs[label], kind, signatures)
         problems += found
-        if label != "ab_cuda" and runs[label]["rc"]:
+        if runs[label]["rc"]:
             problems.append(f"{label}: exit {runs[label]['rc']}")
+    ab, found = ab_run("ab_cuda", ["ab", *load, *open_loop, "--matmul-impl", "cuda"])
+    problems += found
     def window(label: str) -> dict:
         return summaries[label]["windows"][0]
 
@@ -3995,7 +4071,7 @@ def serve_phase(card: str, out_dir: str) -> dict:
     result = {"phase": "serve", "card": card, "mix": SERVE_MIX, "qps": SERVE_QPS,
               "duration_s": SERVE_DURATION, "buckets": buckets, "runs": summaries,
               "cuda_over_torch": ratios, "int8_routes": routed,
-              "explained": reconciled, "seconds": time.perf_counter() - t0,
+              "explained": reconciled, "ab_cuda": ab, "seconds": time.perf_counter() - t0,
               "ok": not problems, "problems": problems}
     emit(result)
     if problems:
@@ -4014,7 +4090,363 @@ def serve_phase(card: str, out_dir: str) -> dict:
                                               "closed_cuda_bare")},
             "buckets": {b: {k: r[k] for k in ("warm_dispatch_ms", "replay_ms", "k1_kernel_ms",
                                               "bound_ms", "max_abs_err")}
-                        for b, r in buckets["cuda"].items()}}
+                        for b, r in buckets["cuda"].items()},
+            "ab_cuda": {"rc": ab["rc"], "finding": ab["finding"],
+                        "verdict": ab["verdict"]}}
+
+
+def pod_config(mesh_spec: str, quant: str | None = None):
+    """A pod ServeConfig of the slice 16 cells: SERVE_MIX, bf16, seed 0,
+    under `cuda`, in POD_GROUPS groups."""
+    from tpu_matmul_bench_torch.serve import service
+
+    return service.ServeConfig(mix=SERVE_MIX, dtype_name="bfloat16", matmul_impl="cuda",
+                               device="cuda", mesh=mesh_spec, replica_groups=POD_GROUPS,
+                               comm_quant=quant, prewarm=True)
+
+
+def pod_buckets(mesh_spec: str, quant: str | None, tolerance: float) -> dict:
+    """Each group executable of a pod cell built as the pod arm builds it
+    (`serve/pod.py _group_caches`: one CUDA graph of the group's program, K1
+    on every rank and the gathers, replayed on the group's stream), one
+    replay held rank by rank to the plain product of the pooled operands
+    (`cuda_matmul.matmul_plain`) at `tolerance`; its K1 launches counted
+    while it is built (the eager first call's and the capture's,
+    POD_K1_A_REQUEST each, on wgmma: a replay runs every node the capture
+    recorded); the device µs of its K1 kernels and of all its kernels in a
+    torch.profiler trace of SERVE_REPLAYS replays, and a replay's host ms
+    with its wait."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.serve import pod, service
+    from tpu_matmul_bench_torch.serve.placement import group_meshes
+    from tpu_matmul_bench_torch.serve.queue import ShapeGrid
+
+    config = pod_config(mesh_spec, quant)
+    devices, info = pod._pod_devices(config)
+    pairs = group_meshes(devices, mesh_spec, POD_GROUPS)
+    base = service._OperandPool(config.seed, devices[0])
+    gpools, caches = pod._group_caches(config, info, [m for _, m in pairs], base, None)
+    rows = {}
+    for gi, (group, mesh) in enumerate(pairs):
+        for key in pod._group_keys(config, ShapeGrid(), group, mesh, config.tenant_specs):
+            a, b = gpools[gi].get(key)
+            before = routes()
+            entry = caches[gi].get(key)
+            built = routes_since(before)
+            out = entry.compiled(a, b)
+            entry.compiled.wait()
+            want = cm.matmul_plain(*base.get(key)).double()
+            scale = want.abs().max().item() or 1.0
+            errs = [(o.double() - want).abs().max().item() for o in out]
+            finite = all(bool(torch.isfinite(o.double()).all().item()) for o in out)
+            del want
+            path = (f"build/profile/serve/pod-{mesh_spec.replace(':', '').replace(',', '-')}"
+                    f"-g{gi}-{key.label.replace('/', '-')}.json")
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA],
+                    schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1),
+                    on_trace_ready=lambda p, path=path: p.export_chrome_trace(path)) as prof:
+                for _ in range(2):
+                    for _ in range(SERVE_REPLAYS):
+                        entry.compiled(a, b)
+                    torch.cuda.synchronize()
+                    prof.step()
+            kernels = trace_kernels(path)
+            k1 = [k for k in kernels if K1_KERNEL.search(k[0])]
+            t0 = time.perf_counter()
+            for _ in range(SERVE_REPLAYS):
+                entry.compiled(a, b)
+                entry.compiled.wait()
+            host_ms = (time.perf_counter() - t0) * 1e3 / SERVE_REPLAYS
+            rel = max(errs) / scale
+            rows[f"g{gi}:{key.label}"] = {
+                "placement": group.placement, "ranks": len(out),
+                "rank_product": [key.m // (mesh.dims[0] if len(mesh.dims) == 2 else 1), key.k,
+                                 key.n // mesh.dims[-1]],
+                "max_abs_err": max(errs), "max_rel_err": rel, "tolerance": tolerance,
+                "k1_launches_built": built,
+                "k1_kernels_traced": len(k1),
+                "k1_kernel_ms": sum(k[2] for k in k1) / len(k1) / 1e3 if k1 else None,
+                "kernels_ms_a_replay": sum(k[2] for k in kernels) / SERVE_REPLAYS / 1e3,
+                "replay_wait_ms": host_ms, "cold_compile_ms": entry.cold_compile_s * 1e3,
+                "cost": entry.cost,
+                "ok": finite and rel <= tolerance and all(tuple(o.shape) == (key.m, key.n)
+                                                          for o in out)
+                and built == {"gemm:wgmma": 2 * POD_K1_A_REQUEST} and bool(k1)}
+    del caches, gpools, base
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pod_rank_products(card: str) -> dict:
+    """K1 and cuBLAS at each per-rank product of the pod cells
+    (POD_RANK_SHAPES), CUDA events over 20 calls each in turns (K1,
+    library, library, K1), beside the bound."""
+    import torch
+
+    from tpu_matmul_bench_torch.obs import attribution
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.ops.matmul import random_operands
+
+    name = torch.cuda.get_device_name(0)
+    rows = {}
+    for m, k, n in POD_RANK_SHAPES:
+        (a,) = random_operands(0, (m, k), torch.bfloat16, device="cuda", count=1)
+        (b,) = random_operands(1, (k, n), torch.bfloat16, device="cuda", count=1)
+        c = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+        turns = [events_ms(lambda: cm.cuda_matmul(a, b, out=c), 20),
+                 events_ms(lambda: torch.matmul(a, b, out=c), 20),
+                 events_ms(lambda: torch.matmul(a, b, out=c), 20),
+                 events_ms(lambda: cm.cuda_matmul(a, b, out=c), 20)]
+        bound_ms, bound_by = attribution.bound(m, n, k, torch.bfloat16, name)
+        rows[f"{m}x{k}x{n}"] = {"ms": (turns[0] + turns[3]) / 2,
+                                "library_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+                                "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+        del a, b, c
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pod_warm_start(out_dir: str) -> tuple[dict, list]:
+    """The two-process warm start from the kernel-library store: run 1 in
+    this checkout (its library already built) exports into a store under
+    `out_dir`; run 2 in a copy of the package and this script whose build
+    directory starts empty, with an `nvcc` first on PATH that records its
+    call and fails. Each run is `chip_smoke.py --pod-warm-start` (a pod
+    bench at POD_MESH with `--artifacts`, then every group executable's
+    output bytes digested). Run 2 must start nvcc zero times, take every
+    preload from the store, serve no cold request, serve its buckets from
+    `artifact`, and give bitwise run 1's outputs."""
+    import shutil
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    store = os.path.join(out_dir, "pod-store")
+    copy = tempfile.mkdtemp(prefix="pod-warm-")
+    shutil.copytree(os.path.join(repo, "tpu_matmul_bench_torch"),
+                    os.path.join(copy, "tpu_matmul_bench_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.abspath(__file__), copy)
+    fakebin, marker = os.path.join(copy, "fakebin"), os.path.join(copy, "nvcc-called")
+    os.makedirs(fakebin)
+    with open(os.path.join(fakebin, "nvcc"), "w") as fh:
+        fh.write(f"#!/bin/sh\necho \"$@\" >> {marker}\nexit 1\n")
+    os.chmod(os.path.join(fakebin, "nvcc"), 0o755)
+    env = {**os.environ, "TMB_RANKS_PER_CARD": str(POD_RANKS)}
+    runs, problems = {}, []
+    try:
+        for label, cwd, extra in (("run1", repo, {}),
+                                  ("run2", copy, {"PATH": f"{fakebin}:{os.environ['PATH']}"})):
+            out = os.path.join(out_dir, f"pod-warm-{label}.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "chip_smoke.py", "--pod-warm-start", store, out],
+                                  cwd=cwd, env={**env, **extra}, capture_output=True, text=True,
+                                  timeout=600)
+            print(proc.stderr[-4000:], file=sys.stderr)
+            if proc.returncode != 0:
+                problems.append(f"{label}: exit {proc.returncode}: {proc.stderr[-400:]}")
+                return {"runs": runs}, problems
+            with open(out) as fh:
+                runs[label] = json.load(fh)
+            runs[label]["seconds"] = time.perf_counter() - t0
+        run1, run2 = runs["run1"], runs["run2"]
+        count = run1["preload"]["count"]
+        if not count or run1["preload"]["compiled"] != count \
+                or run1["artifacts"]["exports"] != count:
+            problems.append(f"run1 did not build and export every executable: "
+                            f"{run1['preload']}, {run1['artifacts']}")
+        if run2["nvcc_runs"] or os.path.exists(marker):
+            problems.append(f"run2 started nvcc {run2['nvcc_runs']} times")
+        if run2["preload"]["deserialized"] != count or run2["preload"]["compiled"] \
+                or run2["artifacts"]["hits"] != count:
+            problems.append(f"run2 did not import every executable: {run2['preload']}, "
+                            f"{run2['artifacts']}")
+        if run2["cold_requests"] or not run2["requests"] or run2["failed"]:
+            problems.append(f"run2: {run2['cold_requests']} cold, {run2['failed']} failed of "
+                            f"{run2['requests']} requests")
+        if set(run2["impl_sources"].values()) != {"artifact"}:
+            problems.append(f"run2 impl_source {run2['impl_sources']}")
+        if not run1["digests"] or run1["digests"] != run2["digests"]:
+            problems.append("run2's outputs are not run 1's bitwise")
+    finally:
+        shutil.rmtree(copy, ignore_errors=True)
+    return {"runs": runs, "store": store}, problems
+
+
+def pod_warm_start_child(store: str, out_path: str) -> None:
+    """One process of the warm start (`--pod-warm-start STORE OUT`): a pod
+    bench at POD_MESH under `cuda` with `--artifacts STORE` (prewarmed: each
+    executable imported from the store, or built and exported), then each
+    group executable built again over the store and replayed once, its
+    output bytes digested; writes the counts, sources and digests to OUT."""
+    import hashlib
+
+    import torch
+
+    from tpu_matmul_bench_torch.obs.registry import get_registry
+    from tpu_matmul_bench_torch.ops import _build
+    from tpu_matmul_bench_torch.serve import cli as serve_cli
+    from tpu_matmul_bench_torch.serve import pod, service
+    from tpu_matmul_bench_torch.serve.placement import group_meshes
+    from tpu_matmul_bench_torch.serve.queue import ShapeGrid
+    from tpu_matmul_bench_torch.tune.artifacts import ArtifactStore
+
+    with contextlib.redirect_stdout(sys.stderr):
+        (rec,) = serve_cli.main(["bench", "--mesh", POD_MESH, "--replica-groups",
+                                 str(POD_GROUPS), "--mix", SERVE_MIX, "--dtype", "bfloat16",
+                                 "--seed", "0", "--prewarm", "--qps", "200", "--duration", "1",
+                                 "--matmul-impl", "cuda", "--artifacts", store])
+    s = rec.extras["serve"]
+    config = dataclasses.replace(pod_config(POD_MESH), artifacts=store)
+    devices, info = pod._pod_devices(config)
+    pairs = group_meshes(devices, POD_MESH, POD_GROUPS)
+    gpools, caches = pod._group_caches(
+        config, info, [m for _, m in pairs], service._OperandPool(config.seed, devices[0]),
+        pod._LockedStore(ArtifactStore.load(store)))
+    digests = {}
+    for gi, (group, mesh) in enumerate(pairs):
+        keys = pod._group_keys(config, ShapeGrid(), group, mesh, config.tenant_specs)
+        caches[gi].warm_start(keys)
+        for key in keys:
+            entry = caches[gi].get(key)
+            out = entry.compiled(*gpools[gi].get(key))
+            entry.compiled.wait()
+            h = hashlib.sha256()
+            for t in out:
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+            digests[f"g{gi}:{key.label}"] = h.hexdigest()
+    result = {
+        "nvcc_runs": _build.NVCC_RUNS, "requests": s["requests"],
+        "cold_requests": s["cold_requests"], "preload": s["cache"]["preload"],
+        "artifacts": s["cache"]["artifacts"],
+        "failed": get_registry().snapshot()["counters"].get("serve_request_failures_total", 0),
+        "sources": {label: row["source"] for label, row in s["cache"]["by_entry"].items()},
+        "impl_sources": {b: row.get("impl_source") for b, row in s["buckets"].items()},
+        "build_dir": sorted(os.listdir(_build.BUILD_DIR)), "digests": digests}
+    with open(out_path, "w") as fh:
+        json.dump(result, fh)
+
+
+def pod_phase(card: str, out_dir: str) -> dict:
+    """Pod serving on the card (the `pod` phase), POD_RANKS ranks sharing it
+    (TMB_RANKS_PER_CARD): `serve pod selftest`; each group executable of
+    both pod cells against its plain version (`pod_buckets`: exact at
+    TOLERANCE, the quantized cell within WIRE_FORMATS' fp8 bound); K1 and
+    cuBLAS at the six per-rank products (`pod_rank_products`); then through
+    `serve.cli.main`, SERVE_MIX at seed 0, prewarmed: `pod_cuda` (traced:
+    POD_K1_A_REQUEST K1 kernels a request), `pod_torch`, `pod_closed_cuda`
+    (SERVE_CONCURRENCY clients), `pod_quant_cuda` (POD_QUANT_MESH, the dcn
+    gathers on an fp8-block:32 wire: its wire calls counted); `pod_cold_cuda`
+    unprewarmed, so drain threads capture misses while the other group
+    replays (no failed request); the two-process warm start
+    (`pod_warm_start`); and `pod_ab_cuda` bare (`ab_run`). Fails on any
+    problem; returns the `kernels` line's pod block."""
+    import torch
+
+    from tpu_matmul_bench_torch.parallel import collectives
+    from tpu_matmul_bench_torch.serve import cli as serve_cli
+
+    kind = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    problems = []
+    with ranks_per_card(POD_RANKS):
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                serve_cli.main(["pod", "selftest"])
+            selftest = 0
+        except SystemExit as e:
+            selftest = e.code
+        if selftest:
+            problems.append(f"serve pod selftest exited {selftest}")
+        wire_before = dict(collectives.WIRE_CALLS)
+        buckets = {POD_MESH: pod_buckets(POD_MESH, None, TOLERANCE["bfloat16"]),
+                   POD_QUANT_MESH: pod_buckets(POD_QUANT_MESH, POD_QUANT,
+                                               WIRE_FORMATS["fp8"])}
+        problems += [f"buckets[{mesh_spec}] {label}: product or kernels off (rel "
+                     f"{r['max_rel_err']}, K1 launches while built {r['k1_launches_built']}, "
+                     f"{r['k1_kernels_traced']} traced in {SERVE_REPLAYS} replays)"
+                     for mesh_spec, rows in buckets.items()
+                     for label, r in rows.items() if not r["ok"]]
+        ranks = pod_rank_products(card)
+        load = ["--mix", SERVE_MIX, "--dtype", "bfloat16", "--seed", "0",
+                "--duration", str(SERVE_DURATION)]
+        pod_flags = ["--mesh", POD_MESH, "--replica-groups", str(POD_GROUPS)]
+        open_loop = ["--qps", str(SERVE_QPS)]
+        argvs = {
+            "pod_cuda": ["bench", *pod_flags, *load, *open_loop, "--prewarm",
+                         "--matmul-impl", "cuda"],
+            "pod_torch": ["bench", *pod_flags, *load, *open_loop, "--prewarm",
+                          "--matmul-impl", "torch"],
+            "pod_closed_cuda": ["bench", *pod_flags, *load, "--prewarm",
+                                "--concurrency", str(SERVE_CONCURRENCY), "--matmul-impl", "cuda"],
+            "pod_quant_cuda": ["bench", "--mesh", POD_QUANT_MESH, "--replica-groups",
+                               str(POD_GROUPS), "--comm-quant", POD_QUANT, *load, *open_loop,
+                               "--prewarm", "--matmul-impl", "cuda"],
+            "pod_cold_cuda": ["bench", *pod_flags, "--mix", SERVE_MIX, "--dtype", "bfloat16",
+                              "--seed", "0", "--duration", "2", *open_loop,
+                              "--matmul-impl", "cuda"],
+        }
+        runs, summaries = {}, {}
+        for label, argv in argvs.items():
+            traced = label != "pod_cold_cuda"
+            if label == "pod_quant_cuda":
+                wire_run = dict(collectives.WIRE_CALLS)
+            runs[label] = serve_run(label, argv, out_dir, traced=traced, pod=True)
+            # the quantized window's trace holds ~15 wire kernels a K1 kernel,
+            # and lost 4 of 7496 K1 records in one call: it is read, not counted
+            summaries[label], found = serve_summary(
+                label, runs[label], kind, {},
+                k1_a_request=None if label == "pod_quant_cuda" else POD_K1_A_REQUEST,
+                prewarmed=traced)
+            problems += found
+            if runs[label]["rc"]:
+                problems.append(f"{label}: exit {runs[label]['rc']}")
+        wire_calls = {f"{f}:{c}": n - wire_run.get((f, c), 0)
+                      for (f, c), n in collectives.WIRE_CALLS.items()
+                      if n - wire_run.get((f, c), 0)}
+        if not wire_calls.get("fp8-block:32:all_gather"):
+            problems.append(f"pod_quant_cuda put no dcn gather on the wire: {wire_calls}")
+        cold = summaries["pod_cold_cuda"]["windows"][0]
+        if not cold["requests"] or not any(r["cold_compile_ms"] for r in
+                                           cold["by_entry"].values()):
+            problems.append(f"pod_cold_cuda: {cold['requests']} requests, no capture in the "
+                            "window")
+        warm, found = pod_warm_start(out_dir)
+        problems += found
+        ab, found = ab_run("pod_ab_cuda", ["ab", *pod_flags, *load, *open_loop, "--prewarm",
+                                           "--matmul-impl", "cuda"])
+        problems += found
+
+    def window(label: str) -> dict:
+        return summaries[label]["windows"][0]
+
+    result = {"phase": "pod", "card": card, "ranks": POD_RANKS, "mix": SERVE_MIX,
+              "qps": SERVE_QPS, "duration_s": SERVE_DURATION, "selftest_rc": selftest,
+              "buckets": buckets, "rank_products": ranks, "runs": summaries,
+              "wire_calls": wire_calls, "wire_calls_before": {
+                  f"{f}:{c}": n for (f, c), n in wire_before.items()},
+              "warm_start": warm, "pod_ab_cuda": ab, "seconds": time.perf_counter() - t0,
+              "ok": not problems, "problems": problems}
+    emit(result)
+    if problems:
+        fail("pod", "; ".join(problems[:10]))
+    cuda = window("pod_cuda")
+    return {"launches": runs["pod_cuda"]["launches"],
+            "launches_by_route": runs["pod_cuda"]["launches_by_route"],
+            "k1_kernels": cuda["k1_kernels"], "requests": cuda["requests"],
+            "k1_a_request": POD_K1_A_REQUEST,
+            "p50_ms": cuda["p50_ms"], "p99_ms": cuda["p99_ms"],
+            "achieved_qps": cuda["achieved_qps"], "busy_share": cuda["device_busy_share"],
+            "groups": cuda["pod"]["groups"],
+            "torch_p50_ms": window("pod_torch")["p50_ms"],
+            "torch_p99_ms": window("pod_torch")["p99_ms"],
+            "closed_loop_qps": window("pod_closed_cuda")["achieved_qps"],
+            "quant_p99_ms": window("pod_quant_cuda")["p99_ms"],
+            "max_rel_err": {mesh_spec: max(r["max_rel_err"] for r in rows.values())
+                            for mesh_spec, rows in buckets.items()},
+            "rank_products": ranks,
+            "ab_cuda": {"rc": ab["rc"], "finding": ab["finding"], "verdict": ab["verdict"]}}
 
 
 def residency_probe(cap: int, l2: int, runs: int = 20) -> dict:
@@ -4137,6 +4569,8 @@ def main() -> None:
     # and its four in the collective-matmul rings, and hybrid's and SUMMA's
     cases += [("bfloat16", mkn) for mkn in CM_SHAPES]
     cases += [("bfloat16", HYBRID_SHAPE), ("bfloat16", SUMMA_SHAPE)]
+    # and each rank's product in the pod cells
+    cases += [("bfloat16", mkn) for mkn in POD_RANK_SHAPES]
     headline_err = None
     for dtype_name, mkn in cases:
         result = check_kernel(dtype_name, mkn)
@@ -4211,6 +4645,7 @@ def main() -> None:
         train_phase(card, out_dir)
         emit({"phase": "programs", "seconds": time.perf_counter() - t0, "ok": True})
         serve = serve_phase(card, out_dir)
+        pod = pod_phase(card, out_dir)
 
     # 5. the plain version's time at the headline shape
     a, b = random_operands(0, (SIZE, SIZE), torch.bfloat16, device="cuda")
@@ -4331,6 +4766,12 @@ def main() -> None:
         # K1 kernels equal its requests), beside the same stream under
         # `torch`; each bucket's warm dispatch beside K1's kernel ms
         "serve": serve,
+        # pod serving (the `pod` phase): SERVE_MIX over POD_RANKS ranks on the
+        # card in POD_GROUPS groups of POD_MESH under `cuda`, each request a
+        # replay of its group's captured program (POD_K1_A_REQUEST K1 kernels,
+        # one a rank); the launches are the prewarm's first calls and
+        # captures; K1 and cuBLAS at the per-rank products
+        "pod": pod,
         # `auto` through a measured `cuda` DB cell at bf16 SIZE³ (tune_db)
         "tune_db": {k: tune_db[k] for k in ("launches", "launches_by_route", "cell",
                                             "max_abs_err", "auto_ms", "cuda_ms",
@@ -4393,4 +4834,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--pod-warm-start"]:
+        pod_warm_start_child(*sys.argv[2:4])
+    else:
+        main()

@@ -10,7 +10,7 @@ the JAX package's `serve/`:
   a bench window's `extras["serve"]` keys against a JAX selftest record's,
   `serve explain` of a JAX ledger printing JAX's text, the JAX validator
   accepting a port record, the card needed unless `--device cpu`, and the
-  pod and artifact options refused by name.
+  pod and artifact options run on the CPU.
 """
 
 import dataclasses
@@ -397,14 +397,39 @@ def test_bench_needs_the_card_unless_the_cpu_is_asked_for():
         port_main(["serve", "bench", "--mix", "64", "--duration", "0.1"])
 
 
+LOAD = ["--mix", "64", "--qps", "40", "--duration", "0.2"]
+
+
 @pytest.mark.parametrize("flags", [["bench", "--mesh", "dcn:2,ici:4"],
                                    ["bench", "--replica-groups", "2"],
                                    ["ab", "--comm-quant", "dcn=fp8-block:32,ici=none"],
                                    ["selftest", "--artifacts"],
                                    ["pod", "selftest"]])
-def test_pod_and_artifact_options_are_refused_by_name(flags):
-    with pytest.raises(SystemExit, match="not ported yet; it waits for ROADMAP A13's slice 16"):
-        port_main(["serve", *flags, "--device", "cpu"])
+def test_pod_and_artifact_options_run_on_the_cpu(flags, monkeypatch, capsys):
+    from tpu_matmul_bench_torch.parallel.mesh import RANKS_PER_CARD_ENV
+
+    # unset, restored afterwards: `--device cpu` places the mesh's ranks
+    monkeypatch.setenv(RANKS_PER_CARD_ENV, "1")
+    monkeypatch.delenv(RANKS_PER_CARD_ENV)
+    argv = ["serve", *flags, "--device", "cpu", *(LOAD if flags[0] in ("bench", "ab") else [])]
+    if flags == ["bench", "--replica-groups", "2"]:
+        # as the JAX package: there is no pod to partition
+        with pytest.raises(SystemExit, match="--replica-groups needs --mesh"):
+            port_main(argv)
+        return
+    try:
+        records = port_main(argv)
+    except SystemExit as e:  # `ab`: a noisy CPU window may read as a regression
+        assert flags[0] == "ab" and e.code == 1
+        return
+    s = records[-1].extras["serve"]
+    assert all(validate_serve_record(r) == [] for r in records)
+    if "--mesh" in flags or flags[0] == "pod":
+        assert s["scheduler"] == "pod" and records[-1].world == 8
+    if "--artifacts" in flags:
+        # on the CPU nothing loads a library: nothing is imported or stored
+        assert s["cache"]["artifacts"] == {"hits": 0, "misses": 0, "exports": 0, "errors": 0}
+        assert "selftest ok" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flags, match", [(["--mix", "1x2"], "bad mix shape"),

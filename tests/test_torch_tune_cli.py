@@ -119,7 +119,7 @@ def test_selftest_fails_on_a_dead_artifact(tmp_path, capsys):
     assert "does not exist" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("name, item", [("fill", "A14"), ("artifacts", "A13")])
+@pytest.mark.parametrize("name, item", [("fill", "A14")])
 def test_unported_subcommands_are_refused_by_name(name, item):
     with pytest.raises(SystemExit, match=f"tune {name}: not ported yet; it waits for {item}"):
         port_main(["tune", name])
@@ -128,9 +128,13 @@ def test_unported_subcommands_are_refused_by_name(name, item):
 def test_online_selftest_exits_0(capsys):
     assert port_main(["tune", "online", "selftest", "--requests", "1000"]) == 0
     assert "tune online selftest ok: 1000 seeded requests" in capsys.readouterr().out
-    # the executable store stays refused, naming the slice it waits for
-    with pytest.raises(SystemExit, match="tune artifacts: .* A13, slice 16"):
-        port_main(["tune", "artifacts"])
+
+
+def test_artifacts_show_lists_an_empty_store(tmp_path, capsys):
+    store = str(tmp_path / "store")
+    assert port_main(["tune", "artifacts", "show", "--store", store]) == 0
+    assert f"artifact store {store}: 0 live artifacts (0 records)" in capsys.readouterr().out
+    assert port_main(["tune", "artifacts", "verify", "--store", store]) == 0
 
 
 def test_flag_style_falls_through_to_the_sweep():

@@ -2,9 +2,10 @@
 their bytes on a quantized wire.
 
 Port of `tpu_matmul_bench/analysis/comms_model.py` `:55-685`: the flat
-world's model, the hierarchical one of the factorized meshes, and the
-train step's gradient collectives (`train_axis_collectives`). It is
-derived from the mode definitions, not from a trace.
+world's model, the hierarchical one of the factorized meshes, the
+train step's gradient collectives (`train_axis_collectives`) and a pod
+replica group's gathers (`pod_axis_collectives`). It is derived from the
+mode definitions, not from a trace.
 Payload bytes are each rank's operand bytes of the collective for a square
 [size, size] problem in `dtype`:
 
@@ -567,3 +568,69 @@ def train_wire_bytes_summary(
         "bottleneck_link": bottleneck,
         "comm_seconds_rel": round(bottleneck_secs, 1),
     }
+
+
+# ---------------------------------------------------------------------------
+# Pod term (JAX `:387-444`): one replica group's serving executable
+# (serve/pod.py). The group computes an exact C[m, n] = A·B with A cut into
+# rows over the outer axis and B into columns over the inner axis, then
+# reassembles the replicated output with one all_gather a mesh axis, inner
+# first.
+# ---------------------------------------------------------------------------
+
+
+def pod_axis_collectives(
+        mesh_spec: str, m: int, k: int, n: int,
+) -> list[tuple[str, str, int, tuple[int, ...]]]:
+    """The float collectives of one replica group's serving executable as
+    ``(kind, axis_name, axis_size, per_rank_operand_shape)``: a two-axis
+    group gathers its [m/o, n/i] tiles' columns within an ici group, then
+    the rows across the group's remaining dcn extent; a one-axis group
+    gathers the columns of its [m, n/d] tiles. Shapes are the gathers'
+    inputs (per-rank shards)."""
+    from tpu_matmul_bench_torch.parallel.mesh import parse_mesh_spec
+
+    axes = parse_mesh_spec(mesh_spec)
+    if len(axes) == 2:
+        (o_name, o), (i_name, i) = axes
+        if m % o or n % i:
+            raise ValueError(
+                f"pod group over {mesh_spec!r} needs {o} | m={m} and "
+                f"{i} | n={n}")
+        return [
+            ("all_gather", i_name, i, (m // o, n // i)),
+            ("all_gather", o_name, o, (m // o, n)),
+        ]
+    (name, d), = axes
+    if n % d:
+        raise ValueError(
+            f"pod group over {mesh_spec!r} needs {d} | n={n}")
+    return [("all_gather", name, d, (m, n // d))]
+
+
+def pod_expected_collectives(
+        mesh_spec: str, m: int, k: int, n: int, dtype: Any,
+        comm_quant=None) -> list[tuple[str, str, int]]:
+    """The per-axis collective inventory of one replica group's bucket
+    executable as ``(kind, axis_name, payload_bytes)``: what the POD-002
+    audit holds the recorded group programs to. Each axis's gathers go on
+    the wire of the format its link class resolves to, as in
+    `hier_expected_collectives`."""
+    from tpu_matmul_bench_torch.parallel.collectives import (
+        link_format_spec,
+        parse_wire_format,
+    )
+
+    item = matmul_out_itemsize(dtype)
+    integer = _dtype_info(dtype)[1]
+    out: list[tuple[str, str, int]] = []
+    for kind, name, axis, shape in pod_axis_collectives(mesh_spec, m, k, n):
+        fmt = None if integer else parse_wire_format(
+            link_format_spec(comm_quant, name))
+        if fmt is None:
+            out.append((kind, name, int(np.prod(shape)) * item))
+        else:
+            for kk, _, payload, _ in _one_wire_entries(
+                    kind, axis, shape, fmt, where=f"pod/{name}"):
+                out.append((kk, name, payload))
+    return out

@@ -2,7 +2,8 @@
 
 The `Finding` dataclass of `tpu_matmul_bench/analysis/findings.py`, with
 the rules the port's audits fire today: the flight recorder's span-coverage
-audit (`serve/trace.py trace_findings`, TRACE-001/002/003). The findings
+audit (`serve/trace.py trace_findings`, TRACE-001/002/003) and the pod
+layer's audit (`serve/pod.py pod_findings`, POD-001/002/003). The findings
 ledger and the other rule families come with ROADMAP A15.
 """
 
@@ -31,6 +32,24 @@ RULES: dict[str, tuple[Severity, str]] = {
                            "EXEMPLAR_LIMIT bound, or the limit is outside "
                            "its sane range — trace-id retention behind "
                            "tail quantiles must stay small"),
+    "POD-001": ("error", "replica-group partition does not cover the mesh "
+                         "disjointly: a device belongs to zero or to more "
+                         "than one group, or a group claims a device "
+                         "outside the world — pod placement would route "
+                         "traffic onto devices nobody (or everybody) "
+                         "owns"),
+    "POD-002": ("error", "per-group collective inventory mismatch: a "
+                         "recorded group executable's (kind, axis, payload) "
+                         "multiset differs from the pod comms model "
+                         "(comms_model.pod_expected_collectives) at a "
+                         "tested factorization — the sharded serving "
+                         "program gathers the wrong way or sizes a shard "
+                         "wrong"),
+    "POD-003": ("error", "cross-group collective: a dispatched group "
+                         "program carries a collective over an axis "
+                         "outside its own group mesh — one replica "
+                         "group's request would synchronize with another "
+                         "group's devices, destroying replica isolation"),
 }
 
 

@@ -34,6 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# nvcc processes this process started: a warm start from the kernel-library
+# store (tune/artifacts.py) starts none
+NVCC_RUNS = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -67,6 +70,7 @@ def library_path(name: str) -> Path:
 
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
     """Start compiling `name` unless its library is already built."""
+    global NVCC_RUNS
     lib = library_path(name)
     if lib.is_file():
         return None
@@ -75,6 +79,7 @@ def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    NVCC_RUNS += 1
     return lib, tmp, proc
 
 

@@ -1,11 +1,9 @@
-"""`python -m tpu_matmul_bench_torch serve {bench,ab,selftest,explain,trace}`.
+"""`python -m tpu_matmul_bench_torch serve {bench,ab,selftest,explain,trace,pod}`.
 
 Port of `tpu_matmul_bench/serve/cli.py`, with the JAX package's flags,
 except that `--matmul-impl` takes {auto,torch,cuda} and `--device`
 {cuda,cpu} (default cuda: with no card and no `--device cpu` the run
-stops). `--mesh`, `--replica-groups` above 1, `--comm-quant`,
-`--artifacts` and `pod selftest` parse and are refused by name: pod
-serving and the executable store wait for ROADMAP A13's slice 16.
+stops).
 
 `bench` runs one load window — open loop (Poisson at `--qps`, the
 default) or closed loop (`--concurrency N`) — over a declarative
@@ -36,6 +34,21 @@ card.
 `trace selftest` certifies the recorder end to end: static span-coverage
 audit (TRACE-001/002/003) over the port's package, a seeded in-process
 run whose span records reconcile, and the exemplar bound.
+
+`--mesh dcn:R,ici:C --replica-groups G` lifts bench/ab to pod scale
+(serve/pod.py): G data-parallel replica groups over the factorized world
+of ranks, each bucket's group program captured in one CUDA graph keyed by
+the group's placement label, and the pod SLO block (per-group goodput +
+worst-tenant attainment) in the ledger. `pod selftest` is its check: the
+POD-001/002/003 audit plus a seeded pod window (default `dcn:2,ici:4` in
+2 groups). The ranks are placed `TMB_RANKS_PER_CARD` to a device
+(parallel/mesh.py); under `--device cpu` the CLI sets it to the mesh's
+world when it is unset, and on the card a mesh with more ranks than that
+places raises, naming it.
+
+`--artifacts [DIR]` attaches the kernel-library store (tune/artifacts.py,
+default under `build/artifacts/`): with `--prewarm`, a fresh process
+imports each `cuda` executable's library from it instead of running nvcc.
 """
 
 from __future__ import annotations
@@ -116,15 +129,22 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "behind them")
     p.add_argument("--artifacts", default=None, nargs="?",
                    const="", metavar="DIR",
-                   help="serialized-executable store (not ported: refused)")
+                   help="kernel-library store: a `cuda` executable's "
+                        "library is imported from it at prewarm instead of "
+                        "built with nvcc, and exported after a build (bare "
+                        "flag = the default store under build/artifacts)")
     p.add_argument("--mesh", default=None, metavar="SPEC",
-                   help="pod serving over a dcn:R,ici:C mesh (not ported: "
-                        "refused)")
+                   help="pod serving over a dcn:R,ici:C world of ranks "
+                        "(serve/pod.py); bench/ab then run the replica-"
+                        "group arm")
     p.add_argument("--replica-groups", type=int, default=1,
                    dest="replica_groups", metavar="G",
-                   help="pod replica groups (not ported: refused above 1)")
+                   help="data-parallel replica groups the --mesh is split "
+                        "into along its outer axis (default %(default)s)")
     p.add_argument("--comm-quant", default=None, metavar="SPEC",
-                   help="pod groups' wire formats (not ported: refused)")
+                   help="wire format(s) of the pod group programs' "
+                        "all-gathers, per link class allowed "
+                        "(e.g. dcn=fp8-block:32,ici=none)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -197,9 +217,11 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(tselftest)
 
     pod = sub.add_parser(
-        "pod", help="pod-scale replica-group serving (not ported: refused)")
+        "pod", help="pod-scale replica-group serving tooling")
     psub = pod.add_subparsers(dest="pod_command", required=True)
-    pselftest = psub.add_parser("selftest", help="not ported: refused")
+    pselftest = psub.add_parser(
+        "selftest", help="POD-001/002/003 audit + a seeded pod window "
+                         "(default dcn:2,ici:4 in 2 groups)")
     _add_common(pselftest)
     return p
 
@@ -246,6 +268,19 @@ def _config_from(args: argparse.Namespace):
     )
     if args.cache_capacity is not None:
         kwargs["cache_capacity"] = args.cache_capacity
+    # the pod flags are checked before any device is touched: the
+    # partition grammar and its divisibility rules are pure
+    if args.mesh is not None:
+        from tpu_matmul_bench_torch.serve.placement import partition_spec
+
+        try:
+            partition_spec(args.mesh, args.replica_groups)
+        except ValueError as e:
+            raise SystemExit(f"serve: {e}")
+    elif args.replica_groups != 1:
+        raise SystemExit(
+            "serve: --replica-groups needs --mesh (there is no pod to "
+            "partition)")
     if args.command in ("bench", "ab"):
         if not 0.0 <= args.explore <= 1.0:
             raise SystemExit(f"serve: --explore must be in [0, 1], "
@@ -254,6 +289,21 @@ def _config_from(args: argparse.Namespace):
                       concurrency=args.concurrency, prewarm=args.prewarm,
                       explore=args.explore, explore_db=args.explore_db)
     return ServeConfig(**kwargs)
+
+
+def _place_cpu_ranks(args: argparse.Namespace) -> None:
+    """The counterpart of the JAX CLI's forced host device count: under
+    `--device cpu`, put the mesh's world of ranks on the CPU by setting
+    TMB_RANKS_PER_CARD, unless the caller set it. On the card nothing is
+    set: a mesh with more ranks than the card holds raises, naming the
+    variable (parallel/mesh.py place_ranks)."""
+    import os
+
+    from tpu_matmul_bench_torch.parallel.mesh import RANKS_PER_CARD_ENV
+    from tpu_matmul_bench_torch.serve.placement import mesh_world
+
+    if args.device == "cpu" and RANKS_PER_CARD_ENV not in os.environ:
+        os.environ[RANKS_PER_CARD_ENV] = str(mesh_world(args.mesh))
 
 
 def main(argv: Sequence[str] | None = None):
@@ -267,25 +317,29 @@ def main(argv: Sequence[str] | None = None):
         if rc:
             raise SystemExit(rc)
         return None
+    if args.command == "pod" and args.mesh is None:
+        args.mesh = "dcn:2,ici:4"  # the selftest's certified default
+        if args.replica_groups == 1:
+            args.replica_groups = 2
     from tpu_matmul_bench_torch.serve.service import (
-        UNPORTED,
-        refuse_unported,
         run_ab,
         run_bench,
         run_selftest,
         run_trace_selftest,
     )
 
-    if args.command == "pod":
-        raise SystemExit(f"serve: pod selftest: not ported yet; it waits "
-                         f"for {UNPORTED}")
     try:
         config = _config_from(args)
-        refuse_unported(config)
         config.mix_entries  # validate the mix spec before touching devices
         config.tenant_specs  # ... and the tenant definitions
     except ValueError as e:
         raise SystemExit(f"serve: {e}")
+    if args.mesh is not None:
+        _place_cpu_ranks(args)
+    if args.command == "pod":
+        from tpu_matmul_bench_torch.serve.pod import run_pod_selftest
+
+        return run_pod_selftest(config)
     if args.command == "trace":
         return run_trace_selftest(config)
     if args.command == "selftest":

@@ -1,14 +1,15 @@
 """The serving worker loop: cache + queue + loadgen → schema-v2 ledger.
 
-Port of `tpu_matmul_bench/serve/service.py` for one card (its pod
-branches wait for ROADMAP A13's slice 16). One process, two threads: a
+Port of `tpu_matmul_bench/serve/service.py`. One process, two threads: a
 **producer** replaying the load schedule (sleeping to each request's
 planned arrival, or acting as N closed-loop clients) into the admission
 queue, and the **worker** (the main thread, the only thread that touches
 the card) draining micro-batches, resolving each batch's bucket to a
-captured executable (serve/cache.py), and running every request with the
-sync discipline of `utils.timing.sync`: a request is complete when its
-result is on the card, not when its launch was enqueued.
+captured executable (serve/cache.py), and running every request until its
+executable's `wait` returns: a request is complete when its result is on
+the card, not when its launch was enqueued. A config with a `--mesh`
+routes `bench` and `ab` to the pod arm (serve/pod.py), which runs one
+worker thread a replica group.
 
 Request latency is wall clock from successful admission to post-sync
 completion, so it includes queue wait, a cold compile when the request
@@ -78,7 +79,7 @@ from tpu_matmul_bench_torch.utils.reporting import (
     header,
     report,
 )
-from tpu_matmul_bench_torch.utils.timing import sample_stats, sync
+from tpu_matmul_bench_torch.utils.timing import sample_stats
 
 # per-batch progress lines streamed into the ledger while the run is
 # live: a SIGKILL mid-serve leaves a manifest + complete serve_batch
@@ -89,9 +90,6 @@ SERVE_BATCH_RECORD_TYPE = "serve_batch"
 # the campaign gate's drift floor (the JAX package's campaign/gate.py
 # NOISE_FLOOR_PCT): the A/B verdict's tolerance is never tighter
 NOISE_FLOOR_PCT = 1.5
-
-# the serve CLI's pod and artifact options, and the ROADMAP step they wait for
-UNPORTED = "ROADMAP A13's slice 16 (serve/placement.py, serve/pod.py, tune/artifacts.py)"
 
 # within-run p99 stability estimate (first-half vs second-half p99) is
 # capped before it widens the gate: a short window's halves can differ
@@ -136,13 +134,14 @@ class ServeConfig:
     # tune DB measured winners are promoted into (None = no promotion)
     explore: float = 0.0
     explore_db: str | None = None
-    # the JAX package's serialized-executable store and pod serving
-    # (`--artifacts`, `--mesh`, `--replica-groups`, `--comm-quant`): kept
-    # so the manifest's serve_config has JAX's keys, refused when set
-    # (UNPORTED)
+    # kernel-library store root (tune/artifacts.py); None = no store,
+    # "" = the default store under build/
     artifacts: str | None = None
+    # pod-scale serving (serve/pod.py): a `dcn:R,ici:C` factorized mesh
+    # spec routes bench/ab through the replica-group arm; None = one card
     mesh: str | None = None
     replica_groups: int = 1
+    # per-link wire formats of the group programs' gathers
     comm_quant: str | None = None
 
     @property
@@ -179,7 +178,7 @@ class _OperandPool:
 
     def __init__(self, seed: int, device: torch.device | str = "cpu") -> None:
         self._seed = seed
-        self._device = device
+        self.device = torch.device(device)
         self._pool: dict[tuple[int, int, int, str], tuple[Any, ...]] = {}
 
     def get(self, key: ExecKey) -> tuple[Any, ...]:
@@ -188,9 +187,9 @@ class _OperandPool:
         if ops is None:
             dtype = getattr(torch, key.dtype)
             (a,) = random_operands(self._seed, (key.m, key.k), dtype,
-                                   device=self._device, count=1)
+                                   device=self.device, count=1)
             (b,) = random_operands(self._seed + 1, (key.k, key.n), dtype,
-                                   device=self._device, count=1)
+                                   device=self.device, count=1)
             ops = (a, b)
             self._pool[pk] = ops
         return ops
@@ -211,14 +210,42 @@ def _resolve_key_impl(key: ExecKey,
     return impl, blocks
 
 
+def _artifact_meta_fn(device_kind: str, on_card: bool):
+    """The ExecKey → ArtifactMeta resolver of a cache with a store: the
+    identity is the RESOLVED program (impl + tile), digested as the tuning
+    DB digests its cells, so torch or kernel-source drift changes the key
+    and a stale library can only miss. A `torch` key, and any key on the
+    CPU (where the wrappers run their plain versions and load no library),
+    has nothing to store: None."""
+    from tpu_matmul_bench_torch.tune.artifacts import ArtifactMeta
+
+    def meta(key: ExecKey):
+        impl, blocks = _resolve_key_impl(key, device_kind)
+        if impl != "cuda" or not on_card:
+            return None
+        return ArtifactMeta.build(
+            key.m, key.k, key.n, key.dtype, impl=impl, blocks=blocks,
+            device_kind=device_kind, mesh_shape=key.mesh_shape,
+            mesh_spec=key.mesh_spec)
+
+    return meta
+
+
 def _make_cache(config: ServeConfig, device_kind: str,
                 pool: _OperandPool) -> ExecutableCache:
     def build(key: ExecKey) -> Program:
         impl, blocks = _resolve_key_impl(key, device_kind)
         return Program(matmul_2d(impl, blocks, device_kind), impl, blocks)
 
+    store = meta = None
+    if config.artifacts is not None:  # "" = the default store
+        from tpu_matmul_bench_torch.tune.artifacts import ArtifactStore
+
+        store = ArtifactStore.load(config.artifacts or None)
+        meta = _artifact_meta_fn(device_kind, pool.device.type == "cuda")
     return ExecutableCache(build, capacity=config.cache_capacity,
-                           operands=pool.get)
+                           operands=pool.get, artifacts=store,
+                           artifact_meta=meta)
 
 
 def _make_explorer(config: ServeConfig, device_kind: str, q):
@@ -255,7 +282,9 @@ def _worker_drain(
     explorer=None,
 ) -> None:
     """Drain the queue to exhaustion (producer closes it). Runs on the
-    main thread, the only thread in the harness that touches the card. With an
+    main thread, the only thread in the harness that touches the card (a
+    pod runs one drain thread a replica group, each replaying its group's
+    executables on the group's stream). With an
     `explorer` (tune/online.py) each request may be shadow-routed
     through the bucket's runner-up impl — a separate executable under
     its own ExecKey — and every completion's warm service time feeds
@@ -309,10 +338,10 @@ def _worker_drain(
                     entry = cache.get(use_key)
                     # cache-acquisition boundary: t0→t_entry is the
                     # request's cache span (a cold request's capture lives
-                    # here), t_entry→done its replay and sync
+                    # here), t_entry→done its replay and wait
                     t_entry = time.perf_counter()
-                    out = entry.compiled(a, b)
-                    sync(out)
+                    entry.compiled(a, b)
+                    entry.compiled.wait()
                 except Exception as e:  # noqa: BLE001 — fault boundary
                     # a failed request must not take the worker down:
                     # count it, feed the breaker, release the client
@@ -360,7 +389,11 @@ def _worker_drain(
                             cache_source=None if was_cached
                             else entry.source,
                             cold_compile_ms=entry.cold_compile_s * 1e3
-                            if not was_cached else None),
+                            if not was_cached
+                            and entry.source == "compile" else None,
+                            deserialize_ms=entry.deserialize_s * 1e3
+                            if not was_cached
+                            and entry.source == "artifact" else None),
                         wall_ms=round((done - req.submitted_at) * 1e3, 4))
                     # the same request on the Perfetto timeline: one
                     # admission→completion event carrying its trace id,
@@ -568,7 +601,7 @@ def serve_stats(
         "cache": cache_stats,
         "buckets": _bucket_breakdown(
             samples, bucket_flops,
-            sources=_impl_sources(samples, matmul_impl,
+            sources=_impl_sources(samples, cache_stats, matmul_impl,
                                   device_kind,
                                   explore_active=explore is not None)),
         "tenants": tenant_rows,
@@ -580,18 +613,25 @@ def serve_stats(
     return stats
 
 
-def _impl_sources(samples: Sequence[Sample],
+def _impl_sources(samples: Sequence[Sample], cache_stats: dict[str, Any],
                   matmul_impl: str, device_kind: str, *,
                   explore_active: bool) -> dict[str, str]:
     """Per-bucket routing-tier provenance for the ledger:
 
+    - ``artifact`` — the bucket's executable was built on a kernel library
+      imported from the tune/artifacts store (acquisition provenance wins:
+      nothing was built in this process);
     - ``online``  — a shadow-routed explorer bucket, or an incumbent
       resolved from a ``measured-online`` DB cell;
     - ``db`` / ``table`` — the tuning-DB cell vs baked-table tiers;
     - ``flag``    — an explicit --matmul-impl pinned the impl.
     """
+    by_entry = cache_stats.get("by_entry", {})
     out: dict[str, str] = {}
     for label in {s.bucket for s in samples}:
+        if by_entry.get(label, {}).get("source") == "artifact":
+            out[label] = "artifact"
+            continue
         impl_token = label.rsplit("/", 1)[1]
         if explore_active and impl_token != matmul_impl:
             out[label] = "online"  # the explorer's shadow executable
@@ -764,19 +804,6 @@ def _make_admission(config: ServeConfig, grid: ShapeGrid,
                      "(want 'fixed' or 'continuous')")
 
 
-def refuse_unported(config: ServeConfig) -> None:
-    """The JAX package's pod serving and artifact store are not ported:
-    a config asking for either raises, naming the step they wait for."""
-    asked = [flag for flag, on in (
-        ("--mesh", config.mesh is not None),
-        ("--replica-groups", config.replica_groups != 1),
-        ("--comm-quant", config.comm_quant is not None),
-        ("--artifacts", config.artifacts is not None)) if on]
-    if asked:
-        raise ValueError(f"{', '.join(asked)}: not ported yet; "
-                         f"it waits for {UNPORTED}")
-
-
 def _mix_keys(config: ServeConfig, grid: ShapeGrid,
               tenants: Sequence[TenantSpec], world: int) -> set[ExecKey]:
     """The keys of every bucket the run's mixes can reach."""
@@ -796,9 +823,12 @@ def _build_kernels(config: ServeConfig, grid: ShapeGrid,
     when the run can reach the kernel: under `cuda`, or under `auto` with
     a bucket routed to `cuda` or with the explorer on (its runner-up may be
     `cuda`). Minutes on a cold build directory, and never inside a
-    request's latency. On the CPU the wrappers run their plain versions,
-    and nothing is built."""
-    if info.platform != "cuda":
+    request's latency. With an artifact store and `--prewarm` the preload
+    acquires the library instead (imported from the store, or built there
+    on a miss), so a warm start runs no nvcc. On the CPU the wrappers run
+    their plain versions, and nothing is built."""
+    if info.platform != "cuda" or (config.artifacts is not None
+                                   and config.prewarm):
         return
     reaches = config.matmul_impl == "cuda" or (
         config.matmul_impl == "auto"
@@ -822,7 +852,6 @@ def _devices(config: ServeConfig):
         resolve_devices,
     )
 
-    refuse_unported(config)
     devices = resolve_devices(config.device, config.num_devices)
     info = collect_device_info(devices)
     report(device_banner(info))
@@ -1031,7 +1060,12 @@ def _ab_verdict(base: dict[str, Any], cand: dict[str, Any],
 
 
 def run_bench(config: ServeConfig) -> list[BenchmarkRecord]:
-    """The `serve bench` program: one load run → one ledger."""
+    """The `serve bench` program: one load run → one ledger. A config
+    carrying a pod mesh routes to the replica-group arm."""
+    if config.mesh:
+        from tpu_matmul_bench_torch.serve.pod import run_pod_bench
+
+        return run_pod_bench(config)
     devices, info, pool, cache, q, tenants, explorer = _setup(config)
     world = len(devices)
     _bench_header(config, config.scheduler, tenants)
@@ -1075,7 +1109,12 @@ def run_ab(config: ServeConfig) -> list[BenchmarkRecord]:
     records in one ledger, with the noise-aware verdict on the
     continuous record's ``extras["ab"]``. Exits nonzero when continuous
     batching regresses p99 or goodput beyond the widened tolerance: the
-    in-repo form of the scheduler's claim."""
+    in-repo form of the scheduler's claim. A config carrying a pod mesh
+    routes to the pod-vs-single-device A/B."""
+    if config.mesh:
+        from tpu_matmul_bench_torch.serve.pod import run_pod_ab
+
+        return run_pod_ab(config)
     devices, info = _devices(config)
     world = len(devices)
     tenants = config.tenant_specs
@@ -1245,15 +1284,19 @@ def run_selftest(config: ServeConfig) -> list[BenchmarkRecord]:
         problems.append(
             f"warm-start failed: {s['cold_requests']} of {len(samples)} "
             "requests paid a cold compile after the preload phase")
-    # the preload split contract: every preloaded executable was compiled
-    # (deserialized only with an artifact store, which the port has not),
-    # and the phase wall times sum to the total
+    # the preload split contract: every preloaded executable was either
+    # compiled or imported (and only imported when an artifact store was
+    # configured), and the phase wall times sum to the total
     pre = s["cache"]["preload"]
     if pre["count"] != pre["compiled"] + pre["deserialized"]:
         problems.append(
             f"preload split does not reconcile: {pre['count']} preloaded "
             f"!= {pre['compiled']} compiled + {pre['deserialized']} "
             "deserialized")
+    if config.artifacts is None and pre["deserialized"]:
+        problems.append(
+            f"{pre['deserialized']} executable(s) claim deserialization "
+            "with no artifact store configured")
     if abs(pre["total_ms"]
            - (pre["compile_ms"] + pre["deserialize_ms"])) > 0.01:
         problems.append(

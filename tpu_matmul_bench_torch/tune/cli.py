@@ -1,5 +1,5 @@
 """`python -m tpu_matmul_bench_torch tune
-{show,prune,promote,selftest,online}`.
+{show,prune,promote,selftest,online,artifacts}`.
 
 Port of `tpu_matmul_bench/tune/cli.py`, the tuning database's front end.
 The measurement sweep itself is `benchmarks/cuda_tune.py`: an invocation
@@ -17,15 +17,19 @@ every `tune --sizes ... --candidates ...` spelling keeps working.
                 `online selftest` certifies the ε budget and the
                 SLO-debt/breaker guards against a seeded adversarial
                 stream
+- `artifacts` — the kernel-library store (tune/artifacts.py): `artifacts
+                show` lists the manifest, `artifacts verify` exits 1 on
+                any integrity (ART-001-class) problem; `--check-drift`
+                recomputes each library's program digest from `csrc/`
+                (no card needed)
 
-`fill` (a measurement campaign, with A14's campaign runner) and
-`artifacts` (serve's warm-start executable store, with A13's pod serving
-in slice 16) are refused by name.
+`fill` (a measurement campaign, with A14's campaign runner) is refused by
+name.
 
-Exit codes, as the JAX package's: `selftest` and `online selftest` exit
-1 on any problem;
-`promote` exits 1 when nothing was promotable; `show` and `prune` are
-informational and exit 0.
+Exit codes, as the JAX package's: `selftest`, `online selftest` and
+`artifacts verify` exit 1 on any problem; `promote` exits 1 when nothing
+was promotable; `show`, `prune` and `artifacts show` are informational
+and exit 0.
 """
 
 from __future__ import annotations
@@ -33,11 +37,9 @@ from __future__ import annotations
 import argparse
 from typing import Sequence
 
-SUBCOMMANDS = ("show", "prune", "promote", "selftest", "online")
+SUBCOMMANDS = ("show", "prune", "promote", "selftest", "online", "artifacts")
 #: the JAX package's other subcommands, and the ROADMAP item each waits for
-NOT_PORTED = {"fill": "A14 (it drives the campaign runner)",
-              "artifacts": "A13, slice 16 (serve's warm-start executable "
-                           "store, with serve/pod.py)"}
+NOT_PORTED = {"fill": "A14 (it drives the campaign runner)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -107,6 +109,20 @@ def build_parser() -> argparse.ArgumentParser:
     online_self.add_argument("--requests", type=int, default=4000,
                              help="stream length (default %(default)s)")
     online_self.add_argument("--seed", type=int, default=0)
+
+    arts = sub.add_parser(
+        "artifacts", help="kernel-library store maintenance")
+    arts_sub = arts.add_subparsers(dest="artifacts_command", required=True)
+    for name, helptext in (
+            ("show", "list the manifest: problem, impl, size, staleness"),
+            ("verify", "exit 1 on any integrity problem (ART-001 class); "
+                       "staleness is reported but does not fail")):
+        ap = arts_sub.add_parser(name, help=helptext)
+        ap.add_argument("--store", default=None,
+                        help="store root (default: build/artifacts)")
+        ap.add_argument("--check-drift", action="store_true",
+                        help="also recompute each library's program "
+                             "digest from csrc/")
     return p
 
 
@@ -233,6 +249,50 @@ def _cmd_online(args) -> int:
                         seed=args.seed)
 
 
+def _cmd_artifacts(args) -> int:
+    from tpu_matmul_bench_torch.tune.artifacts import ArtifactStore, recomputed_digests
+    from tpu_matmul_bench_torch.tune.db import cuda_torch_version
+
+    store = ArtifactStore.load(args.store)
+    print(f"artifact store {store.root}: {len(store)} live artifacts "
+          f"({store.records_read} records)")
+    digests = recomputed_digests(store.records()) if args.check_drift \
+        else None
+    stale_total = 0
+    for rec in store.records():
+        reasons = store.stale_reasons(
+            rec, digests=digests if digests is not None else {})
+        stale_total += bool(reasons)
+        prob = rec.get("problem") or {}
+        blocks = "x".join(str(b) for b in rec["blocks"]) \
+            if rec.get("blocks") else "-"
+        flag = " STALE" if reasons else ""
+        print(f"  {rec.get('key', '?')[:16]}  {prob.get('dtype', '?'):>8} "
+              f"{prob.get('m')}x{prob.get('k')}x{prob.get('n'):<6} "
+              f"→ {rec.get('impl', '?'):<6} blocks={blocks:<14} "
+              f"{rec.get('size_bytes', 0) / 1024:.0f} KiB "
+              f"torch={rec.get('torch_version')}"
+              + (f" {rec['mesh_spec']}" if rec.get("mesh_spec") else "") + flag)
+        for r in reasons:
+            print(f"      stale: {r}")
+    current = cuda_torch_version() or "a CPU build of torch (no version check)"
+    drift_note = "" if args.check_drift else \
+        " (torch-version check only; --check-drift recomputes digests)"
+    print(f"{stale_total} stale under {current}{drift_note}")
+    if args.artifacts_command != "verify":
+        return 0
+    problems = store.validate()
+    if problems:
+        print(f"tune artifacts verify FAILED — {len(problems)} "
+              f"problem(s):")
+        for where, message in problems:
+            print(f"  {where}: {message}")
+        return 1
+    print(f"tune artifacts verify ok: {len(store)} artifacts, digest "
+          "chain closes (key ← fields, blob ← digest)")
+    return 0
+
+
 def main(argv: Sequence[str] | None = None):
     import sys
 
@@ -247,7 +307,8 @@ def main(argv: Sequence[str] | None = None):
         return cuda_tune.main(argv)
     args = build_parser().parse_args(argv)
     rc = {"show": _cmd_show, "prune": _cmd_prune, "promote": _cmd_promote,
-          "selftest": _cmd_selftest, "online": _cmd_online}[args.command](args)
+          "selftest": _cmd_selftest, "online": _cmd_online,
+          "artifacts": _cmd_artifacts}[args.command](args)
     if rc:
         raise SystemExit(rc)
     return rc
