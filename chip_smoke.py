@@ -178,10 +178,39 @@ The paths:
   whose build directory starts empty and whose `nvcc` fails, starts nvcc
   0 times, imports every executable, serves no cold request and gives the
   first's outputs bitwise); and `serve ab --mesh` bare, its verdict
-  recorded as the serve phase's is.
+  recorded as the serve phase's is;
+- the campaign runner (the `campaign` phase): `campaign run
+  specs/torch/card.toml` (K1 fused at 16384³ traced, the library at the
+  same shape, K1b at 28672x4096x8192 S=2 traced, a 2 s serve window under
+  `cuda`) as a process of its own, SIGKILLed with its group once the first
+  job is done and the next job's child is on the card; every job child
+  that outlives the group kill (the supervisor starts each in a session of
+  its own) is listed, with whether nvidia-smi's compute apps name it, and
+  killed by its session; no process of the killed run may be alive or on
+  the card before `campaign resume`; then every job done exactly once with
+  one ledger, K1's GEMM in the cuda job's trace and K1b's S=2 grids plus
+  `reduce_partials` in the split-K job's, `campaign status` exit 0, the
+  gate against itself exit 0 and against a baseline with the cuda job's
+  TFLOPS raised 1.5x exit 1, each twice with the same output; the cuda
+  job's TFLOPS beside the fused run of this process (printed, not gated),
+  the resumed job's beside its pre-kill attempt when one landed; and
+  `tune fill` of a
+  one-job spec (bf16 8192³, two tiles) into a DB of its own, never the
+  committed one, through which `matmul --matmul-impl auto` in this process
+  resolves `source` "db", counted by `tune_route_total{source="db"}`, its
+  K1 launches counted;
+- the fault certifier (the `faults` phase): `faults selftest` and
+  `faults audit --smoke --spec specs/chaos.toml` (its first ledger, tune
+  and obs cells), processes whose children never touch the card, run
+  beside the campaign phase, and `faults audit` of the matrix's serve
+  cell, copied verbatim into a spec of its own (`serve selftest` on the
+  card killed at its second batch), beside the campaign's resume (whose
+  jobs' numbers are recorded, not compared): every exit 0 and every
+  verdict PASS, each cell's seconds on the phase's line. The whole matrix took 308.5 s on an NVIDIA H100 80GB
+  HBM3 at 700 W, over the phase's share of the script's time.
 
-Standard output is one JSON object per line: one per phase, then the
-`kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
+Standard output is one JSON object per line: one per phase, the
+`seconds` line (each stretch's seconds), then the `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
 programs' own reports go to standard error. The script exits nonzero,
 without the last line, at the first phase that fails, when no CUDA device
 is present, and when the port's package is not beside it.
@@ -397,7 +426,7 @@ AG_RAGGED, AG_RAGGED_PAD, AG_FILL = (520, 264, 1000), 24, -3.0
 # the all-gather rings in turns with their hop schedule and the library
 # product, at the power limit's steady clocks: RING_TURN_RUNS calls after
 # RING_TURN_WARMUP, in RING_TURN_PASSES passes (as the c1 phase)
-RING_TURN_RUNS, RING_TURN_WARMUP, RING_TURN_PASSES = 200, 80, 3
+RING_TURN_RUNS, RING_TURN_WARMUP, RING_TURN_PASSES = 100, 80, 2
 # ROADMAP C1: the fused protocol may read at most C1_MARGIN slower, against
 # dispatch, for the port's kernel than for cuBLAS. The main path's runs
 # (50 products after 10, or after the 51 of the graph's warm call) time
@@ -406,7 +435,7 @@ RING_TURN_RUNS, RING_TURN_WARMUP, RING_TURN_PASSES = 200, 80, 3
 # compares the two protocols once both run at the limit's steady clocks:
 # C1_ITERATIONS products after C1_WARMUP (about a second of load), in
 # C1_PASSES passes of the four runs, every other pass in the mirrored order.
-C1_MARGIN, C1_ITERATIONS, C1_WARMUP, C1_PASSES = 0.02, 200, 80, 3
+C1_MARGIN, C1_ITERATIONS, C1_WARMUP, C1_PASSES = 0.02, 120, 80, 3
 # the headline entry (`python -m tpu_matmul_bench_torch.bench`, the
 # `headline` phase): its budget (BENCH_TIMEOUT_S), and how far its `cuda`
 # rung may read from the matmul phase's fused K1 TFLOPS in the same call
@@ -2217,7 +2246,7 @@ def drive_overlap_mode(mode: str, impl: str, timing: str, out_dir: str) -> dict:
 # each collective-matmul ring beside the ring kernel of its contract
 CM_KERNELS = {"collective_matmul": "ring_ag", "collective_matmul_bidir": "ring_ag_bidir",
               "collective_matmul_rs": "ring_rs", "collective_matmul_bidir_rs": "ring_rs_bidir"}
-CM_TURN_RUNS, CM_TURN_WARMUP, CM_TURN_PASSES = 20, 5, 2
+CM_TURN_RUNS, CM_TURN_WARMUP, CM_TURN_PASSES = 20, 5, 1
 
 
 def collective_turns(card: str) -> dict:
@@ -4449,6 +4478,465 @@ def pod_phase(card: str, out_dir: str) -> dict:
             "ab_cuda": {"rc": ab["rc"], "finding": ab["finding"], "verdict": ab["verdict"]}}
 
 
+# the campaign runner on the card (the `campaign` phase, slice 17):
+# CAMPAIGN_SPEC's four jobs as children of `campaign run`, killed after the
+# first job is done and resumed; the gate against itself and against a
+# baseline with CAMPAIGN_DOCTORED_JOB's TFLOPS raised CAMPAIGN_DOCTOR times;
+# then `tune fill` of a one-job spec (FILL_SIZE, FILL_TILES) into a DB of
+# its own, and `auto` at its problem through that DB
+CAMPAIGN_SPEC = "specs/torch/card.toml"
+CAMPAIGN_DOCTORED_JOB, CAMPAIGN_DOCTOR = "matmul_cuda", 1.5
+CAMPAIGN_TIMEOUT_S = 900
+FILL_SIZE, FILL_TILES = 8192, ("128,256,64", "128,128,64")
+# the chaos matrix (the `faults` phase): `faults selftest` and the smoke
+# subset (the first ledger, tune and obs cell), whose children never touch
+# the card, run beside the campaign phase; the serve cell, verbatim, in a
+# spec of its own (`serve selftest` on the card), beside the campaign's
+# resume, whose jobs' numbers are recorded, not compared. The whole matrix
+# took 308.5 s on an NVIDIA H100 80GB HBM3 at 700 W, over the phase's
+# 240-s share of the script's time: a campaign or ledger cell is 3-4
+# children of about 7 s
+CHAOS_SPEC, FAULTS_TIMEOUT_S = "specs/chaos.toml", 600
+
+
+def compute_apps() -> list[int]:
+    """Pids that hold the card, as `nvidia-smi --query-compute-apps=pid
+    --format=csv,noheader` lists them (host pids when the card's processes
+    live in another pid namespace)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return [int(line) for line in out.stdout.split() if line.strip().isdigit()]
+
+
+def campaign_children(campaign_dir: str) -> list[int]:
+    """Live job children of a campaign: the port's processes whose argv
+    names the campaign directory (each job's --json-out lies in it), the
+    campaign's own process left out."""
+    pids = []
+    for entry in glob.glob("/proc/[0-9]*/cmdline"):
+        try:
+            with open(entry, "rb") as fh:
+                argv = fh.read().split(b"\0")
+        except OSError:
+            continue
+        if (b"tpu_matmul_bench_torch" in argv and b"campaign" not in argv
+                and any(campaign_dir.encode() in a for a in argv)):
+            pids.append(int(entry.split("/")[2]))
+    return pids
+
+
+def alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().split(")")[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def start_port(argv: list[str], log: str) -> subprocess.Popen:
+    """`python -m tpu_matmul_bench_torch ARGV` as a child in a session of
+    its own, its output to `log`."""
+    with open(log, "w") as fh:
+        return subprocess.Popen([sys.executable, "-m", "tpu_matmul_bench_torch", *argv],
+                                stdout=fh, stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def finish_port(proc: subprocess.Popen, log: str, timeout: float) -> tuple[int, str]:
+    """Wait for a `start_port` child (killed with its group past `timeout`
+    seconds, rc 124) and kill whatever its group left; (rc, its output)."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = 124
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+    with open(log) as fh:
+        return rc, fh.read()
+
+
+def run_port(argv: list[str], timeout: float, log: str) -> tuple[int, str]:
+    return finish_port(start_port(argv, log), log, timeout)
+
+
+def in_process(main, argv: list[str]) -> tuple[int, str]:
+    """A program's `main(argv)` in this process, its report captured (this
+    process's standard output holds JSON lines only): (exit code, report)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        try:
+            rc = main(argv) or 0
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+    return (rc if isinstance(rc, int) else 0), buf.getvalue()
+
+
+def campaign_cli(argv: list[str]) -> tuple[int, str]:
+    """`campaign ARGV` in this process (its parent never touches the card)."""
+    from tpu_matmul_bench_torch.campaign import cli
+
+    return in_process(cli.main, argv)
+
+
+def kill_after_first_done(campaign_dir: str, card_name: str) -> dict:
+    """`campaign run CAMPAIGN_SPEC` as a process of its own; once the
+    journal holds the first `done` and the next job's child has reached
+    the card (its log names the card), SIGKILL the campaign's process
+    group; then every job child still alive (the supervisor starts each in
+    a session of its own, so the group kill does not reach it: ROADMAP C5)
+    by its own session. Returns what was killed and what held the card."""
+    journal = os.path.join(campaign_dir, "journal.jsonl")
+    log_path = os.path.join(os.path.dirname(campaign_dir), "campaign_run.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_matmul_bench_torch", "campaign", "run",
+             CAMPAIGN_SPEC, "--dir", campaign_dir],
+            stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    result = {"campaign_pid": proc.pid}
+    try:
+        deadline = time.monotonic() + CAMPAIGN_TIMEOUT_S
+        while '"status": "done"' not in (open(journal).read() if os.path.exists(journal)
+                                         else ""):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                fail("campaign", f"the campaign ended (rc {proc.returncode}) or timed out "
+                                 "before its first job was done")
+            time.sleep(0.05)
+        running = [json.loads(line) for line in open(journal) if '"running"' in line]
+        in_flight = running[-1]["job_id"]
+        result["first_done_s"] = time.monotonic() - (deadline - CAMPAIGN_TIMEOUT_S)
+        result["in_flight_job"] = in_flight
+        child_log = os.path.join(campaign_dir, "jobs", f"{in_flight}.log")
+        wait_until = time.monotonic() + 120
+        while time.monotonic() < wait_until and proc.poll() is None:
+            if os.path.exists(child_log) and card_name in open(child_log).read():
+                break
+            time.sleep(0.05)
+        result["in_flight_on_card"] = (os.path.exists(child_log)
+                                       and card_name in open(child_log).read())
+        children = campaign_children(campaign_dir)
+        result["children_before_kill"] = children
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+        time.sleep(1.0)
+        # a child spawned between the scan and the kill counts too
+        children = sorted(set(children) | set(campaign_children(campaign_dir)))
+        orphans = [pid for pid in children if alive(pid)]
+        apps = compute_apps()
+        result.update(orphans_after_group_kill=orphans,
+                      orphans_on_card=[pid for pid in orphans if pid in apps])
+        for pid in orphans:
+            try:
+                os.killpg(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+    gone_by = time.monotonic() + 60
+    killed = [proc.pid, *children]
+    while any(alive(pid) for pid in killed) and time.monotonic() < gone_by:
+        time.sleep(0.1)
+    apps = compute_apps()
+    result.update(killed_alive=[pid for pid in killed if alive(pid)],
+                  compute_apps_before_resume=apps, own_pid=os.getpid(),
+                  own_pid_listed=os.getpid() in apps,
+                  killed_on_card=[pid for pid in killed if pid in apps])
+    return result
+
+
+def ledger_lines(path: str) -> list[dict]:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def campaign_phase(card: str, k1_fused_tflops: float, out_dir: str, beside: dict) -> dict:
+    """The campaign runner on the card: kill after the first done and
+    resume, every job done once with its ledger, K1's and K1b's kernels in
+    the jobs' traces, `status`, the gate against itself (exit 0) and
+    against a doctored baseline (exit 1), each twice with the same output,
+    and `tune fill` into a DB of its own with `auto` through it (source db,
+    counted by tune_route_total, K1 launched). The cuda job's TFLOPS is
+    printed beside this process's fused K1 run (`k1_fused_tflops`), the
+    resumed job's beside its pre-kill attempt when one landed. The chaos
+    matrix's serve cell starts beside the resume (`beside`)."""
+    import torch
+
+    from tpu_matmul_bench_torch.benchmarks import matmul_benchmark
+    from tpu_matmul_bench_torch.campaign import spec as cspec
+    from tpu_matmul_bench_torch.campaign import state as cstate
+    from tpu_matmul_bench_torch.obs.registry import get_registry
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.tune import db as tdb
+
+    t0 = time.perf_counter()
+    root = os.path.join(out_dir, "campaign")
+    d = os.path.join(root, "card")
+    os.makedirs(root, exist_ok=True)
+    from tpu_matmul_bench_torch.ops import _build
+
+    name = torch.cuda.get_device_name(0)
+    result = {"phase": "campaign", "card": card, "spec": CAMPAIGN_SPEC}
+    problems = []
+    # the kernels were built before this phase: no child may run nvcc
+    libraries = sorted(glob.glob(str(_build.BUILD_DIR / "*.so")))
+    kill = kill_after_first_done(d, name)
+    result["kill"] = kill
+    if kill["killed_alive"] or kill["killed_on_card"]:
+        problems.append(f"processes of the killed run remain: alive {kill['killed_alive']}, "
+                        f"on the card {kill['killed_on_card']}")
+    in_flight = kill["in_flight_job"]
+    pre_ledger = os.path.join(d, "jobs", f"{in_flight}.jsonl")
+    pre_kill = ([r for r in ledger_lines(pre_ledger) if "benchmark" in r]
+                if os.path.exists(pre_ledger) else [])
+    beside["serve"] = start_serve_cell(out_dir)
+    t_resume = time.perf_counter()
+    rc, out = run_port(["campaign", "resume", d], CAMPAIGN_TIMEOUT_S,
+                       os.path.join(root, "resume.log"))
+    result["resume_s"] = time.perf_counter() - t_resume
+    result["resume_tail"] = out.strip().splitlines()[-2:]
+    if rc != 0:
+        problems.append(f"campaign resume exited {rc}: {out[-2000:]}")
+    spec = cspec.load_spec(CAMPAIGN_SPEC)
+    events = cstate.load_events(d)
+    done = [ev.fingerprint for ev in events if ev.status == cstate.DONE]
+    jobs = {}
+    for job in spec.jobs:
+        ledger = os.path.join(d, "jobs", f"{job.job_id}.jsonl")
+        lines = ledger_lines(ledger) if os.path.exists(ledger) else []
+        recs = [r for r in lines if "benchmark" in r]
+        manifests = sum(r.get("record_type") == "manifest" for r in lines)
+        # a child's start-up: from its journaled launch to its ledger's
+        # manifest (python, torch, the card's context and the device probe)
+        launched = [ev.ts for ev in events if ev.job_id == job.job_id
+                    and ev.status == cstate.RUNNING and not ev.detail]
+        made = [r["created_unix"] for r in lines if r.get("record_type") == "manifest"]
+        jobs[job.job_id] = {"done": done.count(job.fingerprint), "records": len(recs),
+                            "manifests": manifests,
+                            "startup_s": made[0] - launched[-1] if made and launched
+                            else None,
+                            "tflops": max((r.get("tflops_per_device") or 0.0) for r in recs)
+                            if recs else None}
+        if done.count(job.fingerprint) != 1 or not recs or manifests != 1:
+            problems.append(f"job {job.job_id}: done {done.count(job.fingerprint)} times, "
+                            f"{len(recs)} records, {manifests} manifests")
+    result["jobs"] = jobs
+    result["libraries_unchanged"] = sorted(glob.glob(str(_build.BUILD_DIR / "*.so"))) \
+        == libraries
+    if not result["libraries_unchanged"]:
+        problems.append("a campaign child built a kernel library (nvcc ran)")
+    # the kernels in the jobs' traces
+    traces = {}
+    for job_id, want in (("matmul_cuda", "K1"), ("tune_ksplit", "K1b")):
+        paths = glob.glob(os.path.join(d, "prof", job_id, "*.json"))
+        kernels = [k for p in paths for k in trace_kernels(p)]
+        gemm = [g for n, g, _ in kernels if "wgmma_gemm" in n]
+        entry = {"traces": len(paths), "kernels": len(kernels), "wgmma_gemm": len(gemm),
+                 "reduce_partials": sum("reduce_partials" in n for n, _, _ in kernels),
+                 "split_grids": sum(1 for g in gemm if g and len(g) == 3 and g[2] == 2),
+                 "device_us": sum(dur for _, _, dur in kernels)}
+        traces[job_id] = entry
+        if want == "K1" and not entry["wgmma_gemm"]:
+            problems.append("the cuda job's trace holds no K1 kernel")
+        if want == "K1b" and not (entry["split_grids"] and entry["reduce_partials"]):
+            problems.append(f"the split-K job's trace lacks K1b (S=2 GEMM grids "
+                            f"{entry['split_grids']}, reduce_partials "
+                            f"{entry['reduce_partials']})")
+    result["traces"] = traces
+    rc, out = campaign_cli(["status", d])
+    result["status_rc"] = rc
+    if rc != 0:
+        problems.append(f"campaign status exited {rc}")
+    # the gate: against itself, then against a doctored copy of the baseline
+    baseline = os.path.join(root, "baseline.json")
+    gates = [campaign_cli(["gate", d, "--baseline", d, "--write-baseline", baseline])]
+    gates.append(campaign_cli(["gate", d, "--baseline", d]))
+    with open(baseline) as fh:
+        snap = json.load(fh)
+    fp = next(fp for fp, row in sorted(snap["jobs"].items())
+              if row["job_id"] == CAMPAIGN_DOCTORED_JOB)
+    snap["jobs"][fp]["tflops_per_device"] *= CAMPAIGN_DOCTOR
+    doctored = os.path.join(root, "doctored.json")
+    with open(doctored, "w") as fh:
+        json.dump(snap, fh)
+    gates += [campaign_cli(["gate", d, "--baseline", doctored]) for _ in range(2)]
+    result["gate"] = {"self_rc": [gates[0][0], gates[1][0]],
+                      "doctored_rc": [gates[2][0], gates[3][0]],
+                      "self_summary": gates[1][1].strip().splitlines()[-1],
+                      "doctored_summary": gates[3][1].strip().splitlines()[-1]}
+    if [gates[0][0], gates[1][0], gates[2][0], gates[3][0]] != [0, 0, 1, 1]:
+        problems.append(f"gate exit codes {[g[0] for g in gates]}, want [0, 0, 1, 1]")
+    if gates[2][1] != gates[3][1] or gates[0][1].splitlines()[1:] != gates[1][1].splitlines():
+        problems.append("a gate's output differs between two runs on the same inputs")
+    cuda_tflops = jobs["matmul_cuda"]["tflops"]
+    result["numbers"] = {
+        "cuda_job_tflops": cuda_tflops, "in_process_fused_tflops": k1_fused_tflops,
+        "cuda_job_over_in_process": (cuda_tflops / k1_fused_tflops
+                                     if cuda_tflops and k1_fused_tflops else None),
+        "torch_job_tflops": jobs["matmul_torch"]["tflops"],
+        "resumed_job": in_flight,
+        "resumed_pre_kill_records": len(pre_kill),
+        "resumed_tflops": jobs[in_flight]["tflops"],
+        "resumed_over_pre_kill": (jobs[in_flight]["tflops"] / pre_kill[0]["tflops_per_device"]
+                                  if pre_kill else None),
+    }
+    # `tune fill` into a DB of its own, then `auto` through it
+    fill_spec = os.path.join(root, "fill.toml")
+    with open(fill_spec, "w") as fh:
+        fh.write('[campaign]\nname = "card_fill"\n\n[defaults]\ntimeout_s = 600.0\n'
+                 'retries = 1\nbackoff_s = 5.0\n\n[[job]]\nid = "bf16_8k"\n'
+                 'program = "tune"\n'
+                 f'flags = ["--sizes", "{FILL_SIZE}", "--dtype", "bfloat16", '
+                 '"--iterations", "10", "--warmup", "3", "--num-devices", "1", '
+                 '"--timing", "fused", "--confirm-top", "2", "--candidates", '
+                 + ", ".join(f'"{t}"' for t in FILL_TILES) + "]\n")
+    committed = open(tdb.TuningDB.load().path, "rb").read()
+    fill_db = os.path.join(root, "fill_db.jsonl")
+    from tpu_matmul_bench_torch.tune import cli as tune_cli
+
+    rc, out = in_process(tune_cli.main, ["fill", "--spec", fill_spec, "--dir",
+                                         os.path.join(root, "fill"), "--db", fill_db,
+                                         "--device-kind", name])
+    fill = {"rc": rc, "promoted": [line for line in out.splitlines()
+                                   if line.startswith(("promoted", "skipped"))]}
+    if rc != 0 or not os.path.exists(fill_db):
+        problems.append(f"tune fill exited {rc}: {out[-2000:]}")
+    else:
+        filled = tdb.TuningDB.load(fill_db)
+        cell = filled.lookup(FILL_SIZE, FILL_SIZE, FILL_SIZE, "bfloat16", name)
+        fill["cell"] = None if cell is None else {"impl": cell.impl, "blocks": cell.blocks,
+                                                  "tflops": cell.tflops}
+        if cell is None:
+            problems.append("tune fill promoted no cell for its problem")
+        else:
+            key = 'tune_route_total{source="db"}'
+            before = get_registry().snapshot()["counters"].get(key, 0.0)
+            tdb.install_default_db(filled)
+            cm.LAUNCHES = 0
+            try:
+                with contextlib.redirect_stdout(sys.stderr):
+                    (rec,) = matmul_benchmark.main(
+                        ["--sizes", str(FILL_SIZE), "--dtype", "bfloat16", "--num-devices",
+                         "1", "--matmul-impl", "auto", "--iterations", "5", "--warmup", "2",
+                         "--validate"])
+                launches = cm.LAUNCHES
+            finally:
+                tdb.install_default_db(None)
+            counted = get_registry().snapshot()["counters"].get(key, 0.0) - before
+            fill.update(auto_source=rec.extras.get("impl_source"),
+                        auto_impl=rec.extras.get("matmul_impl_resolved"),
+                        auto_validation=rec.extras.get("validation"),
+                        auto_k1_launches=launches, route_db_counted=counted,
+                        auto_ms=rec.avg_time_s * 1e3)
+            if (rec.extras.get("impl_source"), rec.extras.get("validation")) != ("db", "ok") \
+                    or counted < 1 or (cell.impl == "cuda" and launches < 1):
+                problems.append(f"auto through the filled DB: {fill}")
+    if open(tdb.TuningDB.load().path, "rb").read() != committed:
+        problems.append("tune fill wrote to the committed DB")
+    result["fill"] = fill
+    result["seconds"] = time.perf_counter() - t0
+    result["ok"] = not problems
+    emit(result)
+    if problems:
+        fail("campaign", "; ".join(problems))
+    return result
+
+
+def serve_cell_spec(path: str) -> None:
+    """A chaos spec at `path` holding CHAOS_SPEC's seed and its serve cell,
+    the cell's text copied verbatim."""
+    import tomllib
+
+    with open(CHAOS_SPEC) as fh:
+        text = fh.read()
+    seed = tomllib.loads(text)["chaos"]["seed"]
+    (cell,) = [block for block in text.split("[[chaos.cell]]")[1:]
+               if 'subsystem = "serve"' in block]
+    with open(path, "w") as fh:
+        fh.write(f"[chaos]\nseed = {seed}\n\n[[chaos.cell]]{cell}")
+
+
+def start_faults_beside(out_dir: str) -> dict:
+    """`faults selftest` and `faults audit --smoke` started as processes
+    of their own, to run beside the campaign phase: their children never
+    touch the card. Returns {label: (process, log, seconds at start)}."""
+    runs = {}
+    for label, argv in (("selftest", ["faults", "selftest"]),
+                        ("smoke", ["faults", "audit", "--smoke", "--spec", CHAOS_SPEC,
+                                   "--dir", os.path.join(out_dir, "fault_audit_smoke")])):
+        log = os.path.join(out_dir, f"faults_{label}.log")
+        runs[label] = (start_port(argv, log), log, time.time())
+    return runs
+
+
+def start_serve_cell(out_dir: str) -> tuple:
+    """`faults audit` of the chaos matrix's serve cell alone (`serve
+    selftest` on the card killed at its second batch), started as a
+    process of its own."""
+    serve_spec = os.path.join(out_dir, "chaos_serve.toml")
+    serve_cell_spec(serve_spec)
+    log = os.path.join(out_dir, "faults_serve.log")
+    argv = ["faults", "audit", "--spec", serve_spec, "--dir",
+            os.path.join(out_dir, "fault_audit_serve")]
+    return start_port(argv, log), log, time.time()
+
+
+def stop_faults_beside(runs: dict) -> None:
+    for proc, _log, _t in runs.values():
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def faults_phase(card: str, out_dir: str, beside: dict) -> dict:
+    """The fault certifier: `faults selftest`, `faults audit --smoke` and
+    `faults audit` of the chaos matrix's serve cell (started beside the
+    campaign phase, `start_faults_beside` and `start_serve_cell`) must
+    exit 0 with every verdict PASS; each cell's wall and recovery seconds,
+    each run's time."""
+    t0 = time.perf_counter()
+    result = {"phase": "faults", "card": card, "cells": {}}
+    problems = []
+    # a run's seconds: from its start to its log's last write
+    runs = {label: finish_port(proc, log, FAULTS_TIMEOUT_S) + (os.path.getmtime(log) - t,)
+            for label, (proc, log, t) in beside.items()}
+    result["waited_s"] = time.perf_counter() - t0
+    for label, (rc, out, seconds) in runs.items():
+        result[f"{label}_rc"], result[f"{label}_s"] = rc, seconds
+        if rc != 0:
+            problems.append(f"faults {label} exited {rc}: {out[-2000:]}")
+    for label, want in (("smoke", 3), ("serve", 1)):
+        ledger = os.path.join(out_dir, f"fault_audit_{label}", "fault_audit.jsonl")
+        verdicts = ledger_lines(ledger) if os.path.exists(ledger) else []
+        result["cells"].update(
+            {v["cell"]: {"status": v["status"], "subsystem": v["subsystem"],
+                         "wall_s": v.get("wall_s"), "recovery_s": v.get("recovery_s"),
+                         "attempts": v.get("attempts"), "escalation": v.get("escalation"),
+                         "problems": v.get("problems")[:2]}
+             for v in verdicts})
+        if len(verdicts) != want or any(v["status"] != "PASS" for v in verdicts):
+            problems.append(f"faults audit {label}: {len(verdicts)} of {want} verdicts, "
+                            f"{[v['cell'] for v in verdicts if v['status'] != 'PASS']} failed")
+    if not any(c["subsystem"] == "serve" for c in result["cells"].values()):
+        problems.append("the serve cell gave no verdict")
+    result["seconds"] = time.perf_counter() - t0
+    result["ok"] = not problems
+    emit(result)
+    if problems:
+        fail("faults", "; ".join(problems))
+    return result
+
+
 def residency_probe(cap: int, l2: int, runs: int = 20) -> dict:
     """K6 and K2 through their wrappers at half the fused ring's cap, at
     the cap and at twice it, bf16 over RING_WORLD ranks on the card: ms and
@@ -4517,6 +5005,14 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(2)
 
+    # each stretch's seconds, printed on the `seconds` line
+    laps, mark = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = now - mark[0]
+        mark[0] = now
+
     # 1. the card
     try:
         card = card_line()
@@ -4558,6 +5054,7 @@ def main() -> None:
     if warned or not wgmma_kernels:
         fail("build", f"ptxas warned on wgmma kernels: {warned}" if warned
              else "no wgmma kernel was built")
+    lap("build")
 
     # 3. each kernel against its plain version, on the card, in true fp32
     apply_matmul_precision("highest")
@@ -4597,6 +5094,7 @@ def main() -> None:
     emit({"phase": "fused_cap", "l2_bytes": l2, "ranks": RING_WORLD, "cap": cap})
     check_races(cap, ["ring_fused"])
     check_overlap_races()
+    lap("kernel_vs_plain")
 
     # 4. the paths through their entry points; launch counts are set to 0
     # just before each run and read just after
@@ -4606,7 +5104,9 @@ def main() -> None:
         library, _ = drive("torch", "dispatch", out_dir)
         library_fused, _ = drive("torch", "fused", out_dir)
         c1 = c1_check([dispatch, fused, library, library_fused], out_dir)
+        lap("main_path")
         headline = headline_phase(fused["tflops"], out_dir)
+        lap("headline")
         tiles_mnk, _, _, _ = tune(f"tune[{SIZE}]", ["--sizes", str(SIZE)], out_dir)
         tiles_nmk, _, _, _ = tune(f"tune[{SIZE},nmk]", ["--sizes", str(SIZE),
                                                         "--grid-order", "nmk"], out_dir)
@@ -4617,7 +5117,9 @@ def main() -> None:
             "tune[ksplit,{}x{}x{},nmk]".format(*TALL),
             ["--mkn", *map(str, TALL), "--grid-order", "nmk", "--ksplit", "2"],
             out_dir, ksplit=2)
+        lap("tune")
         tune_db = tune_db_phase(tune_ledger(f"tune[{SIZE}]", out_dir), out_dir)
+        lap("tune_db")
         # each HBM ring's overlap run, then its tile sweep (the `tune_ring`
         # phase) at the same point of the clock's fall
         overlaps, tuned_rings = {}, {}
@@ -4626,16 +5128,22 @@ def main() -> None:
             tuned_rings[label] = tune_ring(label, overlaps[label][0]["avg_ms"], out_dir)
         overlaps["ring_fused"] = drive_overlap("cuda_ring", out_dir, size=cap)
         k2_at_cap, _ = drive_overlap("cuda_ring_hbm", out_dir, size=cap)
+        lap("overlap_tune_ring")
         scaling = scaling_phase(out_dir)
         comm_quant_phase(scaling, out_dir)
+        lap("scaling_comm_quant")
         wire_phase(card)
         collectives_phase(card, out_dir)
+        lap("wire_collectives")
         hybrid = hybrid_phase(out_dir)
         summa = summa_phase(out_dir)
         stream = stream_phase(card, out_dir)
+        lap("hybrid_summa_stream")
         overlap_modes = overlap_modes_phase(out_dir)
         cm_turns = collective_turns(card)
+        lap("overlap_modes_turns")
         profile = profile_phase(cap, out_dir)
+        lap("profile")
         # the curve, membw, doctor, compare and train programs
         t0 = time.perf_counter()
         curve = curve_phase(out_dir)
@@ -4644,8 +5152,22 @@ def main() -> None:
         compared = compare_phase(cap, out_dir)
         train_phase(card, out_dir)
         emit({"phase": "programs", "seconds": time.perf_counter() - t0, "ok": True})
+        lap("programs")
         serve = serve_phase(card, out_dir)
+        lap("serve")
         pod = pod_phase(card, out_dir)
+        lap("pod")
+        # the campaign runner and the fault certifier (slice 17): their
+        # jobs and cells are child processes that own the card in turn
+        torch.cuda.empty_cache()
+        beside = start_faults_beside(out_dir)
+        try:
+            campaign = campaign_phase(card, fused["tflops"], out_dir, beside)
+            lap("campaign")
+            faults = faults_phase(card, out_dir, beside)
+            lap("faults")
+        finally:
+            stop_faults_beside(beside)
 
     # 5. the plain version's time at the headline shape
     a, b = random_operands(0, (SIZE, SIZE), torch.bfloat16, device="cuda")
@@ -4710,6 +5232,8 @@ def main() -> None:
             forward_over_library=turns["forward_over_library"],
             hop_over_library=turns["hop_over_library"],
             step=ag_step_ms(label), step_max_abs_err=ag_errors[label])
+    lap("tail")
+    emit({"phase": "seconds", "laps": laps, "total": sum(laps.values()), "card": card})
     emit({"kernels": [{
         "name": "matmul", "route": "cuda",
         "source": "tpu_matmul_bench_torch/csrc/matmul.cu",
@@ -4776,6 +5300,16 @@ def main() -> None:
         "tune_db": {k: tune_db[k] for k in ("launches", "launches_by_route", "cell",
                                             "max_abs_err", "auto_ms", "cuda_ms",
                                             "lookup_us", "int8_auto")},
+        # the campaign phase: K1 in the cuda job's child (its trace's
+        # kernels), that job's TFLOPS beside this process's fused run, and
+        # `auto` through the filled DB in this process (launches counted)
+        "campaign": {"trace": campaign["traces"]["matmul_cuda"],
+                     **{k: campaign["numbers"][k] for k in (
+                         "cuda_job_tflops", "in_process_fused_tflops",
+                         "cuda_job_over_in_process", "resumed_over_pre_kill")},
+                     "fill_auto_launches": campaign["fill"].get("auto_k1_launches"),
+                     "fill_cell": campaign["fill"].get("cell"),
+                     "faults_s": faults["seconds"]},
         "stream": {"kernel": "cuda_matmul_acc (tmb_matmul_acc)",
                    "shape": [STREAM_SIZE, STREAM_SIZE // STREAM_PANELS, STREAM_SIZE],
                    "launches": stream["cuda"]["acc_launches"],
@@ -4792,6 +5326,9 @@ def main() -> None:
         "replaces_function": "pallas_matmul_ksplit",
         "dtype": "bfloat16", "card": card,
         **square, "shapes": [square, tall],
+        # the campaign phase's split-K job (tall shape, S = 2) in its child
+        "campaign": {"trace": campaign["traces"]["tune_ksplit"],
+                     "job_tflops": campaign["jobs"]["tune_ksplit"]["tflops"]},
     }, {
         "name": "ring_allgather_matmul",
         "source": "tpu_matmul_bench_torch/ops/cuda_ring.py",

@@ -50,7 +50,9 @@ def test_main_registry_has_the_five_programs():
         assert port_main._PROGRAMS[name] == f"tpu_matmul_bench_torch.benchmarks.{module}"
     assert port_main._PROGRAMS["train"] == "tpu_matmul_bench_torch.train.cli"
     assert port_main._PROGRAMS["serve"] == "tpu_matmul_bench_torch.serve.cli"
-    assert len(port_main._PROGRAMS) == 15
+    assert port_main._PROGRAMS["campaign"] == "tpu_matmul_bench_torch.campaign.cli"
+    assert port_main._PROGRAMS["faults"] == "tpu_matmul_bench_torch.faults.cli"
+    assert len(port_main._PROGRAMS) == 17
 
 
 # ------------------------------------------------------------- the renderers

@@ -54,10 +54,20 @@ def test_no_profile_dir_no_trace_and_no_artifact(ranks4, tmp_path):
         assert path is None
 
 
-def test_matmul_and_tune_offer_no_profile_dir():
-    for program in ("matmul", "tune"):
-        with pytest.raises(SystemExit):
-            port_main.main([program, "--profile-dir", "x", "--device", "cpu"])
+def test_matmul_and_tune_offer_no_profile_dir(tmp_path):
+    # they do now, as the JAX package's matmul does: the campaign's card
+    # jobs trace K1 and K1b through it; the trace is written and the
+    # ledger's manifest names its directory
+    small = ["--device", "cpu", "--iterations", "1", "--warmup", "1"]
+    for program, argv in (("matmul", ["--sizes", "32"]),
+                          ("tune", ["--sizes", "64", "--candidates", "64,128,32",
+                                    "--confirm-top", "0"])):
+        prof, out = tmp_path / program, tmp_path / f"{program}.jsonl"
+        port_main.main([program, *argv, *small, "--profile-dir", str(prof),
+                        "--json-out", str(out)])
+        assert len(list(prof.glob("trace-*.json"))) == 1
+        manifest = json.loads(out.read_text().splitlines()[0])
+        assert manifest["artifacts"]["profiler_trace_dir"] == str(prof)
 
 
 def test_trace_of_a_card_with_no_device_event_raises(tmp_path):

@@ -43,6 +43,13 @@ _PROGRAMS = {
     # matmul as a service under load: `serve {bench,ab,selftest,explain,
     # trace selftest}` (serve/cli.py)
     "serve": "tpu_matmul_bench_torch.serve.cli",
+    # declarative sweeps over the programs above, resumable at job
+    # granularity, with a noise-aware regression gate: `campaign
+    # {run,resume,status,gate}` (campaign/cli.py)
+    "campaign": "tpu_matmul_bench_torch.campaign.cli",
+    # fault injection and crash-consistency certification: `faults
+    # {run,audit,selftest}` (faults/cli.py)
+    "faults": "tpu_matmul_bench_torch.faults.cli",
 }
 
 

@@ -2,9 +2,12 @@
 
 The `Finding` dataclass of `tpu_matmul_bench/analysis/findings.py`, with
 the rules the port's audits fire today: the flight recorder's span-coverage
-audit (`serve/trace.py trace_findings`, TRACE-001/002/003) and the pod
-layer's audit (`serve/pod.py pod_findings`, POD-001/002/003). The findings
-ledger and the other rule families come with ROADMAP A15.
+audit (`serve/trace.py trace_findings`, TRACE-001/002/003), the pod
+layer's audit (`serve/pod.py pod_findings`, POD-001/002/003), the fault
+subsystem's static audits (`faults/audit.py static_findings`,
+FAULT-001/002) and the chaos matrix's lint (`faults/audit.py
+lint_chaos_data`, SPEC-001/002). The findings ledger and the other rule
+families come with ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -18,6 +21,18 @@ SEVERITIES = ("info", "warn", "error")
 
 #: rule id -> (default severity, one-line description), the JAX package's
 RULES: dict[str, tuple[Severity, str]] = {
+    "SPEC-001": ("error", "spec failed to parse/validate"),
+    "SPEC-002": ("error", "unknown key in a spec table (silently ignored at "
+                          "run time — almost always a typo)"),
+    "FAULT-001": ("error", "subprocess spawn site not routed through "
+                           "faults/supervisor.supervised_run (and not on "
+                           "its allowlist) — the child escapes the "
+                           "heartbeat watchdog and signal-escalation "
+                           "ladder"),
+    "FAULT-002": ("error", "durable JSONL writer (fsync site) not "
+                           "registered in faults/audit.WRITER_REGISTRY — "
+                           "crash-consistency certification does not know "
+                           "this artifact exists"),
     "TRACE-001": ("error", "scheduler shed/breaker raise site with no "
                            "adjacent flight-recorder terminal emission — "
                            "a refused request would vanish from the "

@@ -71,6 +71,7 @@ from tpu_matmul_bench_torch.utils.device import (
     resolve_devices,
 )
 from tpu_matmul_bench_torch.utils.metrics import calculate_tflops, throughput_unit
+from tpu_matmul_bench_torch.utils.profiling import maybe_trace
 from tpu_matmul_bench_torch.utils.reporting import (
     BenchmarkRecord,
     JsonWriter,
@@ -258,7 +259,7 @@ def _tune_ring(ring: str, candidates, config, devices, info,
 
 def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
     parser = build_parser(__doc__ or "kernel tile tuner",
-                          extra_dtypes=("int8",))
+                          extra_dtypes=("int8",), profile=True)
     parser.add_argument(
         "--candidates", type=_parse_candidate, nargs="+",
         default=list(DEFAULT_CANDIDATES),
@@ -342,8 +343,9 @@ def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
     def _manifest():
         return telemetry.build_manifest(config) if config.json_out else None
 
+    traced = maybe_trace(config.profile_dir, cuda=info.platform == "cuda")
     if args.ring:
-        with telemetry.session(config.trace_out), \
+        with telemetry.session(config.trace_out), traced, \
                 JsonWriter(config.json_out, manifest=_manifest()) as jw:
             return _tune_ring(args.ring, candidates, config, devices, info, jw)
 
@@ -352,7 +354,7 @@ def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
         else [(s, s, s) for s in config.sizes])
 
     records: list[BenchmarkRecord] = []
-    with telemetry.session(config.trace_out), \
+    with telemetry.session(config.trace_out), traced, \
             JsonWriter(config.json_out, manifest=_manifest()) as jw:
         for m, k, n in shapes:
             rect = not (m == k == n)

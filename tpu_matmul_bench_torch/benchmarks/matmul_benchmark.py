@@ -36,6 +36,7 @@ from tpu_matmul_bench_torch.utils.device import (
     resolve_devices,
 )
 from tpu_matmul_bench_torch.utils.metrics import calculate_tflops
+from tpu_matmul_bench_torch.utils.profiling import maybe_trace
 from tpu_matmul_bench_torch.utils.reporting import BenchmarkRecord, header, report
 from tpu_matmul_bench_torch.utils.timing import (
     Timing,
@@ -180,12 +181,13 @@ def run(config: BenchConfig, mkn: tuple[int, int, int] | None = None
         )
     )
     device, kind = devices[0], info.device_kind
+    traced = maybe_trace(config.profile_dir, cuda=info.platform == "cuda")
     if mkn is not None:
         m, k, n = mkn
         wl = RectMatmulWorkload(m, k, n, config.dtype)
         # one "size" through the shared runner: the same memory guard, OOM
         # backstop, JSON sink and report as the sweep
-        with telemetry.session(config.trace_out):
+        with telemetry.session(config.trace_out), traced:
             records = run_sizes(
                 config,
                 lambda _s: _bench_rect(config, mkn, kind, device),
@@ -198,7 +200,7 @@ def run(config: BenchConfig, mkn: tuple[int, int, int] | None = None
                 ),
             )
     else:
-        with telemetry.session(config.trace_out):
+        with telemetry.session(config.trace_out), traced:
             records = run_sizes(
                 config,
                 lambda size: _bench_single(config, size, kind, device),
@@ -212,7 +214,8 @@ def run(config: BenchConfig, mkn: tuple[int, int, int] | None = None
 def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
     from tpu_matmul_bench_torch.utils.config import build_parser, config_from_args
 
-    parser = build_parser(__doc__ or "matmul benchmark", extra_dtypes=("int8",))
+    parser = build_parser(__doc__ or "matmul benchmark", extra_dtypes=("int8",),
+                          profile=True)
     parser.add_argument(
         "--mkn", type=int, nargs=3, metavar=("M", "K", "N"), default=None,
         help="Benchmark one rectangular C[M,N] = A[M,K]·B[K,N] instead of "

@@ -1,0 +1,198 @@
+"""`python -m tpu_matmul_bench_torch campaign {run,resume,status,gate}`.
+
+Port of `tpu_matmul_bench/campaign/cli.py`, with its flags and exit codes:
+`run` executes a declarative spec into a campaign directory, `resume` finishes
+a killed/interrupted one (re-running only unfinished fingerprints),
+`status` reads the journal, and `gate` compares two campaigns (or a
+campaign and a baseline snapshot) with a noise-aware threshold.
+
+The parent process never initializes CUDA — the job children own the card
+— so reporting is forced on (the same parent-off-the-device contract as
+`compare --isolate`).
+
+Two flags wait for modules the port does not have yet, and are refused by
+name (exit 2): `run --lint` (the static contract auditor, ROADMAP A15) and
+`gate --history` (the metric-history store, ROADMAP A14.4).
+
+Exit codes: `run`/`resume` exit 1 if any job failed; `gate` exits 0 on
+pass, 1 on regression (or a lost job), 2 on unusable input.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+from typing import Sequence
+
+from tpu_matmul_bench_torch.campaign import executor, gate as gate_mod, state
+from tpu_matmul_bench_torch.campaign.spec import CampaignSpecError, load_spec
+from tpu_matmul_bench_torch.campaign.store import CampaignStore
+from tpu_matmul_bench_torch.utils import telemetry
+
+#: the exit code of a flag refused by name (argparse's usage-error code)
+EXIT_REFUSED = 2
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m tpu_matmul_bench_torch campaign",
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="command", required=True)
+
+    run = sub.add_parser("run", help="execute a campaign spec")
+    run.add_argument("spec", help="spec file (.toml, or JSON)")
+    run.add_argument("--dir", dest="campaign_dir", required=True,
+                     help="campaign directory (journal, spec copy, "
+                          "jobs/<id>.jsonl ledgers)")
+    run.add_argument("--resume", action="store_true",
+                     help="continue an existing campaign in --dir instead "
+                          "of refusing to touch it")
+    run.add_argument("--dry-run", action="store_true",
+                     help="print the expanded job plan (id, fingerprint, "
+                          "command) without executing")
+    run.add_argument("--trace-out", default=None,
+                     help="campaign-level Chrome-trace span timeline "
+                          "('-' for stdout)")
+    run.add_argument("--lint", action="store_true",
+                     help="the static contract auditor before executing: "
+                          "not ported yet (ROADMAP A15), refused")
+    run.add_argument("--no-hlo", action="store_true",
+                     help="with --lint: not ported yet (ROADMAP A15), "
+                          "refused")
+
+    res = sub.add_parser("resume", help="finish an interrupted campaign")
+    res.add_argument("campaign_dir")
+    res.add_argument("--trace-out", default=None)
+
+    st = sub.add_parser("status", help="journal-derived job status table")
+    st.add_argument("campaign_dir")
+
+    gt = sub.add_parser("gate", help="pass/fail vs a baseline")
+    gt.add_argument("campaign_dir")
+    gt.add_argument("--baseline", default=None,
+                    help="baseline campaign directory, or a snapshot JSON "
+                         "written by --write-baseline (alternative: "
+                         "--history)")
+    gt.add_argument("--history", nargs="?", const="", default=None,
+                    metavar="STORE",
+                    help="gate against the metric-history store: not "
+                         "ported yet (ROADMAP A14.4), refused")
+    gt.add_argument("--threshold-pct", type=float,
+                    default=gate_mod.DEFAULT_THRESHOLD_PCT,
+                    help="regression threshold (default %(default)s%%; "
+                         "widened per job by measured sample noise, never "
+                         f"tighter than ±{gate_mod.NOISE_FLOOR_PCT}%% drift)")
+    gt.add_argument("--write-baseline", default=None, metavar="PATH",
+                    help="also snapshot THIS campaign's summary as a "
+                         "baseline JSON (e.g. BASELINE_CAMPAIGN.json)")
+    return p
+
+
+def _load_spec_or_exit(path: str):
+    try:
+        return load_spec(path)
+    except CampaignSpecError as e:
+        raise SystemExit(f"campaign: bad spec: {e}")
+
+
+#: `campaign run --lint` waits for the static contract auditor
+LINT_NOT_PORTED = ("campaign run --lint: not ported yet; it waits for "
+                   "ROADMAP A15 (analysis/ and the `lint` program)")
+
+
+def _cmd_run(args: argparse.Namespace) -> int:
+    if getattr(args, "lint", False) or getattr(args, "no_hlo", False):
+        print(LINT_NOT_PORTED, file=sys.stderr)
+        return EXIT_REFUSED
+    spec = _load_spec_or_exit(args.spec)
+    if args.dry_run:
+        for job in spec.jobs:
+            ledger, _ = executor.job_paths(args.campaign_dir, job)
+            cmd = executor.job_command(job, args.campaign_dir, ledger)
+            print(f"{job.fingerprint}  {job.job_id}\n    {' '.join(cmd)}")
+        print(f"{len(spec.jobs)} jobs (dry run; nothing executed)")
+        return 0
+    try:
+        with telemetry.session(args.trace_out):
+            outcomes = executor.run_campaign(
+                spec, args.campaign_dir,
+                resume=getattr(args, "resume", False))
+    except RuntimeError as e:  # e.g. refusing to restart a journaled dir
+        raise SystemExit(f"campaign: {e}")
+    failed = [o for o in outcomes if o.status == state.FAILED]
+    done = [o for o in outcomes if o.status != state.FAILED]
+    print(f"campaign: {len(done)}/{len(outcomes)} jobs done"
+          + (f", {len(failed)} FAILED: "
+             + ", ".join(o.job.job_id for o in failed) if failed else ""))
+    merged = Path(args.campaign_dir) / executor.MERGED_TRACE_NAME
+    if merged.exists():
+        print(f"campaign: merged trace at {merged}")
+    return 1 if failed else 0
+
+
+def _cmd_resume(args: argparse.Namespace) -> int:
+    spec_copy = Path(args.campaign_dir) / executor.SPEC_COPY_NAME
+    if not spec_copy.exists():
+        raise SystemExit(f"campaign: {args.campaign_dir} has no "
+                         f"{executor.SPEC_COPY_NAME} to resume from")
+    args.spec = str(spec_copy)
+    args.resume, args.dry_run = True, False
+    return _cmd_run(args)
+
+
+def _cmd_status(args: argparse.Namespace) -> int:
+    store = CampaignStore.load(args.campaign_dir)
+    width = max((len(j.job_id) for j in store.jobs.values()), default=6)
+    print(f"campaign {store.spec.name} in {store.campaign_dir}:")
+    for fp, jl in store.jobs.items():
+        n = len(jl.records)
+        print(f"  {jl.job_id:<{width}}  {jl.status:<8} {fp}"
+              + (f"  {n} records" if n else ""))
+    counts = store.status_counts()
+    print("  " + "  ".join(f"{k}={v}" for k, v in sorted(counts.items())))
+    return 0
+
+
+def _cmd_gate(args: argparse.Namespace) -> int:
+    if (args.baseline is None) == (args.history is None):
+        print("campaign gate: need exactly one of --baseline or "
+              "--history")
+        return gate_mod.EXIT_UNUSABLE
+    if args.history is not None:
+        print(gate_mod.HISTORY_NOT_PORTED, file=sys.stderr)
+        return EXIT_REFUSED
+    try:
+        current = gate_mod.load_summary(args.campaign_dir)
+        baseline = gate_mod.load_summary(args.baseline)
+    except (RuntimeError, FileNotFoundError) as e:
+        print(f"campaign gate: {e}")
+        return gate_mod.EXIT_UNUSABLE
+    if args.write_baseline:
+        gate_mod.write_baseline(current, args.write_baseline)
+        print(f"baseline snapshot written to {args.write_baseline}")
+    report = gate_mod.run_gate(current, baseline,
+                               threshold_pct=args.threshold_pct)
+    print(report.format())
+    return report.exit_code
+
+
+def main(argv: Sequence[str] | None = None) -> int:
+    # the campaign parent must not initialize the card (children own it),
+    # so the reporting gate cannot ask the device runtime
+    from tpu_matmul_bench_torch.utils.reporting import (
+        force_reporting_process,
+        reporting_process_override,
+    )
+
+    prev = reporting_process_override()
+    force_reporting_process(True)
+    try:
+        args = build_parser().parse_args(argv)
+        rc = {"run": _cmd_run, "resume": _cmd_resume,
+              "status": _cmd_status, "gate": _cmd_gate}[args.command](args)
+    finally:
+        force_reporting_process(prev)
+    if rc:
+        raise SystemExit(rc)
+    return rc

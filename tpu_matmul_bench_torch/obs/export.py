@@ -132,6 +132,7 @@ class SnapshotExporter:
                  registry: MetricsRegistry | None = None,
                  interval_s: float = DEFAULT_INTERVAL_S,
                  run_id: str | None = None,
+                 seq_start: int = 0,
                  exemplars: bool = False) -> None:
         self.out_dir = Path(out_dir)
         self.snapshot_path = self.out_dir / SNAPSHOT_NAME
@@ -141,7 +142,10 @@ class SnapshotExporter:
         self._run_id = run_id
         # OpenMetrics exemplar annotation on exported tail quantiles
         self._exemplars = bool(exemplars)
-        self._seq = 0
+        # seq_start lets a resumed process continue an existing snapshot
+        # file with monotonic seq numbers (faults/workloads.py) instead
+        # of restarting at 1
+        self._seq = int(seq_start)
         self._stop = threading.Event()
         # guards the state the exporter loop writes: _seq and the _thread
         # handle. Held only around field access — the fsync and file

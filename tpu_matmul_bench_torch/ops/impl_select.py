@@ -96,8 +96,20 @@ def select_impl(m: int, n: int, k: int, device_kind: str,
     """The implementation for C[m,n] = A[m,k]·B[k,n] of `dtype` on
     `device_kind`: the DB cell first, the table as the fallback. Pure
     lookups, no device calls. `db` (tests and audits inject their own)
-    defaults to the committed store, loaded once per process."""
-    return resolve_route(m, n, k, device_kind, dtype, db=db)[0]
+    defaults to the committed store, loaded once per process. Each call
+    counts its tier on `tune_route_total{source}`."""
+    choice = resolve_route(m, n, k, device_kind, dtype, db=db)[0]
+    _route_counter(choice.source).inc()
+    return choice
+
+
+def _route_counter(source: str):
+    """`tune_route_total{source=db|table|online}` on the obs registry: how
+    often routing resolved from a measured DB cell, an online-promoted
+    cell, or the fallback table — the DB-coverage signal of a tune fill."""
+    from tpu_matmul_bench_torch.obs.registry import get_registry
+
+    return get_registry().counter("tune_route_total", source=source)
 
 
 def _db_lookup(m: int, n: int, k: int, device_kind: str, dtype: Any, db):

@@ -87,10 +87,6 @@ from tpu_matmul_bench_torch.utils.timing import sample_stats
 # instead of a truncated buffer. Measurement readers skip the type.
 SERVE_BATCH_RECORD_TYPE = "serve_batch"
 
-# the campaign gate's drift floor (the JAX package's campaign/gate.py
-# NOISE_FLOOR_PCT): the A/B verdict's tolerance is never tighter
-NOISE_FLOOR_PCT = 1.5
-
 # within-run p99 stability estimate (first-half vs second-half p99) is
 # capped before it widens the gate: a short window's halves can differ
 # a lot under Poisson arrivals without saying anything about run-to-run
@@ -1021,12 +1017,15 @@ def _explore_block(config: ServeConfig, explorer) -> dict[str, Any] | None:
 def _ab_verdict(base: dict[str, Any], cand: dict[str, Any],
                 base_name: str, cand_name: str) -> dict[str, Any]:
     """The noise-aware A/B verdict block: candidate vs baseline on p99
-    and goodput, the tolerance the JAX package's campaign gate allows
-    (`tolerance_pct` with no configured threshold): never under
-    NOISE_FLOOR_PCT, widened to 2x the noisier arm's within-run p99 noise.
-    Key names embed the arm names."""
-    tol = max(NOISE_FLOOR_PCT,
-              2.0 * max(base["p99_noise_pct"], cand["p99_noise_pct"]))
+    and goodput, with the campaign gate's tolerance (`campaign/gate.py
+    tolerance_pct` with no configured threshold): never under the drift
+    floor, widened to 2x the noisier arm's within-run p99 noise. Key names
+    embed the arm names."""
+    from tpu_matmul_bench_torch.campaign.gate import tolerance_pct
+
+    tol = tolerance_pct(0.0,
+                        {"noise_pct": base["p99_noise_pct"]},
+                        {"noise_pct": cand["p99_noise_pct"]})
     base_p99 = base["p99_ms"] or 1e-9
     p99_delta = 100.0 * (cand["p99_ms"] - base_p99) / base_p99
     base_good = base["goodput_qps"] or 1e-9

@@ -1,5 +1,5 @@
 """`python -m tpu_matmul_bench_torch tune
-{show,prune,promote,selftest,online,artifacts}`.
+{show,prune,fill,promote,selftest,online,artifacts}`.
 
 Port of `tpu_matmul_bench/tune/cli.py`, the tuning database's front end.
 The measurement sweep itself is `benchmarks/cuda_tune.py`: an invocation
@@ -11,6 +11,9 @@ every `tune --sizes ... --candidates ...` spelling keeps working.
                 `--check-drift` recomputes every cell's program digest)
 - `prune`     — rank the tile candidates with the cost models and print
                 what would be measured (trials before → trials after)
+- `fill`      — run the `specs/torch/tune.toml` measurement campaign over
+                the pruned card tiles (campaign/), then promote the
+                winners into the DB
 - `promote`   — promote winners from existing tune ledgers into the DB
 - `selftest`  — DB schema, provenance and drift consistency
 - `online`    — the serve-time shadow-traffic explorer (tune/online.py):
@@ -23,13 +26,10 @@ every `tune --sizes ... --candidates ...` spelling keeps working.
                 recomputes each library's program digest from `csrc/`
                 (no card needed)
 
-`fill` (a measurement campaign, with A14's campaign runner) is refused by
-name.
-
 Exit codes, as the JAX package's: `selftest`, `online selftest` and
-`artifacts verify` exit 1 on any problem; `promote` exits 1 when nothing
-was promotable; `show`, `prune` and `artifacts show` are informational
-and exit 0.
+`artifacts verify` exit 1 on any problem; `fill`/`promote` exit 1 when the
+campaign failed or nothing was promotable; `show`, `prune` and `artifacts
+show` are informational and exit 0.
 """
 
 from __future__ import annotations
@@ -37,9 +37,8 @@ from __future__ import annotations
 import argparse
 from typing import Sequence
 
-SUBCOMMANDS = ("show", "prune", "promote", "selftest", "online", "artifacts")
-#: the JAX package's other subcommands, and the ROADMAP item each waits for
-NOT_PORTED = {"fill": "A14 (it drives the campaign runner)"}
+SUBCOMMANDS = ("show", "prune", "fill", "promote", "selftest", "online",
+               "artifacts")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,6 +77,25 @@ def build_parser() -> argparse.ArgumentParser:
                        help="ring size for --ring (default 8)")
     prune.add_argument("--emit-flags", action="store_true",
                        help="print the kept set as --block-m/n/k flag lines")
+
+    fill = sub.add_parser(
+        "fill", help="measure pruned candidates via a campaign, then "
+                     "promote the winners")
+    fill.add_argument("--dir", dest="campaign_dir", required=True,
+                      help="campaign directory for the measurement jobs")
+    fill.add_argument("--spec", default=None,
+                      help="campaign spec (default: specs/torch/tune.toml)")
+    fill.add_argument("--db", default=None,
+                      help="DB path (default: the committed "
+                           "measurements/torch/tune_db.jsonl)")
+    fill.add_argument("--device-kind", default=None,
+                      help="device kind the winners are promoted under "
+                           "(default: tune.promote.H100)")
+    fill.add_argument("--resume", action="store_true",
+                      help="continue an interrupted fill campaign")
+    fill.add_argument("--dry-run", action="store_true",
+                      help="print the job plan; measure and promote "
+                           "nothing")
 
     promote = sub.add_parser(
         "promote", help="promote winners from existing tune ledgers")
@@ -195,6 +213,44 @@ def _cmd_prune(args) -> int:
     return 0
 
 
+def _cmd_fill(args) -> int:
+    import glob
+    import os
+
+    from tpu_matmul_bench_torch.campaign import cli as campaign_cli
+    from tpu_matmul_bench_torch.tune import promote as promote_mod
+
+    spec = args.spec
+    if spec is None:
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        spec = os.path.join(root, "specs", "torch", "tune.toml")
+    cmd = ["run", spec, "--dir", args.campaign_dir]
+    if args.resume:
+        cmd.append("--resume")
+    if args.dry_run:
+        cmd.append("--dry-run")
+    try:
+        campaign_cli.main(cmd)
+        campaign_rc = 0
+    except SystemExit as e:
+        campaign_rc = int(e.code or 0) if not isinstance(e.code, str) else 1
+    if args.dry_run:
+        return campaign_rc
+    ledgers = sorted(glob.glob(
+        os.path.join(args.campaign_dir, "jobs", "*.jsonl")))
+    if not ledgers:
+        print("tune fill: campaign produced no ledgers")
+        return 1
+    db = _load_db(args.db)
+    result = promote_mod.promote(ledgers, db,
+                                 device_kind=args.device_kind or promote_mod.H100)
+    _print_promotions(db, result)
+    # a partially failed campaign can still promote what it measured;
+    # fail the fill if either stage failed outright
+    return 1 if (campaign_rc and not result["promoted"]) else campaign_rc
+
+
 def _print_promotions(db, result) -> None:
     for cell in result["promoted"]:
         blocks = "x".join(str(b) for b in cell.blocks) if cell.blocks \
@@ -297,16 +353,14 @@ def main(argv: Sequence[str] | None = None):
     import sys
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in NOT_PORTED:
-        raise SystemExit(f"tune {argv[0]}: not ported yet; it waits for "
-                         f"{NOT_PORTED[argv[0]]}")
     if not argv or argv[0] not in SUBCOMMANDS:
         # flag-style invocation: the measurement sweep, unchanged
         from tpu_matmul_bench_torch.benchmarks import cuda_tune
 
         return cuda_tune.main(argv)
     args = build_parser().parse_args(argv)
-    rc = {"show": _cmd_show, "prune": _cmd_prune, "promote": _cmd_promote,
+    rc = {"show": _cmd_show, "prune": _cmd_prune, "fill": _cmd_fill,
+          "promote": _cmd_promote,
           "selftest": _cmd_selftest, "online": _cmd_online,
           "artifacts": _cmd_artifacts}[args.command](args)
     if rc:

@@ -9,7 +9,8 @@ and the benchmark's --mode --device --num-devices --json-out --matmul-impl
 --stream-k --mem-budget-gib. `--repeats` and `--timing` are offered only to
 programs whose timed loop reads them (`best_of`, `fused_timing`), `--mode`
 and `--profile-dir` only to the mode programs (scaling, distributed,
-overlap, collectives; `--profile-dir` also to hybrid and summa: `profile`),
+overlap, collectives; `--profile-dir` also to hybrid, summa, matmul and
+tune: `profile`),
 whose runners read them, `--wres` only to those whose modes run the ring
 kernels (`wres`), `--comm-quant` only to those whose modes route a
 collective through a wire format (scaling, distributed, hybrid, summa:

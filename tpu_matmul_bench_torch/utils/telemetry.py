@@ -219,7 +219,18 @@ def _null_span(meta: dict[str, Any]) -> Iterator[dict[str, Any]]:
 
 def span(name: str, **args: Any):
     """Records into the installed tracker, or is a free null context when
-    telemetry is off. Yields the args dict."""
+    telemetry is off. Yields the args dict.
+
+    Span opens are also the port's fault-injection points and liveness
+    signal: when `TPU_BENCH_FAULT_PLAN` / `TPU_BENCH_HEARTBEAT_FILE` are
+    set (faults/plan.py), the hook fires scheduled faults and touches the
+    supervisor's heartbeat file. The env names are inlined so the
+    fault-free path pays two dict lookups and imports nothing."""
+    if os.environ.get("TPU_BENCH_FAULT_PLAN") \
+            or os.environ.get("TPU_BENCH_HEARTBEAT_FILE"):
+        from tpu_matmul_bench_torch.faults import plan as _fault_plan
+
+        _fault_plan.on_span(name)
     tracker = _TRACKER
     if tracker is None:
         return _null_span(dict(args))
