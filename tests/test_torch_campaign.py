@@ -34,6 +34,9 @@ from tpu_matmul_bench_torch.campaign.store import CampaignStore
 REPO = Path(__file__).resolve().parent.parent
 SPECS = sorted((REPO / "specs").glob("*.toml")) + sorted(
     (REPO / "specs" / "torch").glob("*.toml"))
+#: the observatory's detection-window spec beside the card specs: a
+#: [history] table, no campaign (`obs detect`, `obs report`)
+HISTORY_SPEC = "history.toml"
 
 
 # ---------------------------------------------------------------- specs
@@ -55,13 +58,15 @@ def _plan(mod, path):
 def test_spec_plans_match_jax(path):
     port, ref = _plan(spec, path), _plan(jax_spec, path)
     assert port == ref
-    if path.parent.name == "torch":
+    if path.parent.name == "torch" and path.name != HISTORY_SPEC:
         assert port[0] != "error" and port[1], "a card spec declares jobs"
 
 
 def test_card_specs_name_the_port_implementations():
     # the card's specs keep no TPU implementation or VMEM tile
     for path in (REPO / "specs" / "torch").glob("*.toml"):
+        if path.name == HISTORY_SPEC:
+            continue
         for job in spec.load_spec(path).jobs:
             argv = list(job.argv)
             if "--matmul-impl" in argv:
@@ -421,14 +426,43 @@ def test_the_parent_never_asks_cuda(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("argv, item", [
     (["run", "SPEC", "--dir", "D", "--lint"], "A15"),
     (["run", "SPEC", "--dir", "D", "--no-hlo"], "A15"),
+    # A14.4 came with the observatory: the history gate runs, against the
+    # committed store or the store named
     (["gate", "D", "--history"], "A14.4"),
     (["gate", "D", "--history", "store.jsonl"], "A14.4"),
 ])
 def test_unported_flags_are_refused_by_name(tmp_path, capsys, argv, item):
     spec_path = tmp_path / "spec.json"
     spec_path.write_text(_two_job_spec().to_json())
-    argv = [str(spec_path) if a == "SPEC" else str(tmp_path / "d") if a == "D" else a
-            for a in argv]
+    argv = [str(spec_path) if a == "SPEC" else str(tmp_path / "d") if a == "D"
+            else str(tmp_path / a) if a.endswith(".jsonl") else a for a in argv]
+    if item == "A14.4":
+        from tpu_matmul_bench_torch.obs import history as hist
+
+        executor.run_campaign(_two_job_spec(), tmp_path / "d", env={},
+                              launch=_launch_by_job(), sleep=lambda s: None)
+        # an earlier run of the same jobs (its manifests differ) is the
+        # store's round 1; this campaign's own ledgers, round 2, are no
+        # baseline of it
+        prior = tmp_path / "prior"
+        prior.mkdir()
+        for ledger in sorted((tmp_path / "d" / "jobs").glob("*.jsonl")):
+            head, rest = ledger.read_text().split("\n", 1)
+            (prior / ledger.name).write_text(
+                json.dumps({**json.loads(head), "created_unix": 1.0}) + "\n" + rest)
+        store = hist.HistoryStore.load(str(tmp_path / "store.jsonl"))
+        assert hist.ingest(sorted(prior.glob("*.jsonl")), store)[0]
+        assert hist.ingest(sorted((tmp_path / "d" / "jobs").glob("*.jsonl")), store)[0]
+        if argv[-1] == "--history":  # the committed store: every job is new
+            with pytest.raises(SystemExit) as e:
+                cli.main(argv)
+            assert e.value.code == 2
+            assert capsys.readouterr().out.count("(no baseline row)") == 2
+            return
+        assert cli.main(argv) == 0
+        out = capsys.readouterr().out
+        assert "gate: PASS (3 compared" in out and "no baseline row" not in out, out
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
     assert e.value.code == 2

@@ -52,7 +52,8 @@ def test_main_registry_has_the_five_programs():
     assert port_main._PROGRAMS["serve"] == "tpu_matmul_bench_torch.serve.cli"
     assert port_main._PROGRAMS["campaign"] == "tpu_matmul_bench_torch.campaign.cli"
     assert port_main._PROGRAMS["faults"] == "tpu_matmul_bench_torch.faults.cli"
-    assert len(port_main._PROGRAMS) == 17
+    assert port_main._PROGRAMS["obs"] == "tpu_matmul_bench_torch.obs.cli"
+    assert len(port_main._PROGRAMS) == 18
 
 
 # ------------------------------------------------------------- the renderers

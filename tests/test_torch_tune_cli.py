@@ -122,14 +122,17 @@ def test_selftest_fails_on_a_dead_artifact(tmp_path, capsys):
 @pytest.mark.parametrize("name, item", [("fill", "A14")])
 def test_unported_subcommands_are_refused_by_name(name, item, tmp_path, capsys):
     # `tune fill` came with A14's campaign runner and is no longer refused:
-    # a dry run prints the card fill spec's job plan. What A14 still leaves
-    # out (the history gate, A14.4) is refused by name in its place.
+    # a dry run prints the card fill spec's job plan. The history gate
+    # (A14.4) came with the observatory and runs: on a directory that holds
+    # no campaign it reports the input unusable (exit 2), not a refusal.
     assert port_main(["tune", name, "--dir", str(tmp_path / "fill"), "--dry-run"]) == 0
     assert "jobs (dry run; nothing executed)" in capsys.readouterr().out
     with pytest.raises(SystemExit) as e:
         port_main(["campaign", "gate", str(tmp_path), "--history"])
     assert e.value.code == 2
-    assert f"not ported yet; it waits for ROADMAP {item}.4" in capsys.readouterr().err
+    captured = capsys.readouterr()
+    assert f"ROADMAP {item}.4" not in captured.err
+    assert "is not a campaign directory" in captured.out
 
 
 def test_online_selftest_exits_0(capsys):

@@ -50,6 +50,10 @@ _PROGRAMS = {
     # fault injection and crash-consistency certification: `faults
     # {run,audit,selftest}` (faults/cli.py)
     "faults": "tpu_matmul_bench_torch.faults.cli",
+    # the perf observatory: live snapshots, the bus selftest, and the
+    # metric-history store with its drift verdicts and report: `obs
+    # {status,selftest,ingest,history,detect,report}` (obs/cli.py)
+    "obs": "tpu_matmul_bench_torch.obs.cli",
 }
 
 

@@ -5,14 +5,17 @@ the rules the port's audits fire today: the flight recorder's span-coverage
 audit (`serve/trace.py trace_findings`, TRACE-001/002/003), the pod
 layer's audit (`serve/pod.py pod_findings`, POD-001/002/003), the fault
 subsystem's static audits (`faults/audit.py static_findings`,
-FAULT-001/002) and the chaos matrix's lint (`faults/audit.py
-lint_chaos_data`, SPEC-001/002). The findings ledger and the other rule
-families come with ROADMAP A15.
+FAULT-001/002), the chaos matrix's lint (`faults/audit.py
+lint_chaos_data`, SPEC-001/002), the observatory's bus checks (`obs
+selftest`, OBS-001/002) and its drift verdicts (`obs/detect.py`,
+HIST-001..004), with the findings ledger `obs detect --json-out` writes.
+The other rule families come with ROADMAP A15.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any
 
 Severity = str  # "info" | "warn" | "error"
@@ -24,6 +27,14 @@ RULES: dict[str, tuple[Severity, str]] = {
     "SPEC-001": ("error", "spec failed to parse/validate"),
     "SPEC-002": ("error", "unknown key in a spec table (silently ignored at "
                           "run time — almost always a typo)"),
+    "OBS-001": ("error", "the kernels' cost books disagree with the hand "
+                         "FLOPs model (utils.metrics.matmul_flops) beyond "
+                         "tolerance — reported TFLOP/s are computed from "
+                         "the wrong op count"),
+    "OBS-002": ("error", "instrumented entrypoint emitted no metrics "
+                         "snapshot, or its snapshot counters do not "
+                         "reconcile with the ledger's extras — the obs bus "
+                         "and the ledger disagree about what happened"),
     "FAULT-001": ("error", "subprocess spawn site not routed through "
                            "faults/supervisor.supervised_run (and not on "
                            "its allowlist) — the child escapes the "
@@ -33,6 +44,22 @@ RULES: dict[str, tuple[Severity, str]] = {
                            "registered in faults/audit.WRITER_REGISTRY — "
                            "crash-consistency certification does not know "
                            "this artifact exists"),
+    "HIST-001": ("error", "metric-history regression: the latest ingest "
+                          "round's best reading fell beyond the noise "
+                          "band vs the series' last-known-good "
+                          "(obs detect; store measurements/torch/"
+                          "history.jsonl)"),
+    "HIST-002": ("warn", "metric-history improvement beyond noise not "
+                         "reflected in the recorded last-known-good — "
+                         "update the gate baseline / tune DB or the "
+                         "evidence rots"),
+    "HIST-003": ("warn", "recurring history series gone stale: no "
+                         "successful ingest for N rounds — the repo "
+                         "stopped measuring a cell it used to measure"),
+    "HIST-004": ("error", "analytic-vs-measured attribution residual "
+                          "moved beyond noise for a (mode × wire-format "
+                          "× shape) cell — the compute+comm model "
+                          "stopped explaining the machine"),
     "TRACE-001": ("error", "scheduler shed/breaker raise site with no "
                            "adjacent flight-recorder terminal emission — "
                            "a refused request would vanish from the "
@@ -85,3 +112,44 @@ class Finding:
         if sev not in SEVERITIES:
             raise ValueError(f"unknown severity {sev!r}")
         object.__setattr__(self, "severity", sev)
+
+    def to_record(self) -> dict[str, Any]:
+        return {
+            "record_type": "lint_finding",
+            "rule": self.rule,
+            "severity": self.severity,
+            "where": self.where,
+            "message": self.message,
+            "rule_doc": RULES[self.rule][1],
+            "details": self.details,
+        }
+
+
+def summarize(findings: list[Finding]) -> dict[str, int]:
+    counts = {"info": 0, "warn": 0, "error": 0}
+    for f in findings:
+        counts[f.severity] += 1
+    return counts
+
+
+def should_fail(findings: list[Finding], fail_on: Severity) -> bool:
+    """Exit-code policy: --fail-on warn trips on warn+error, --fail-on
+    error trips on error only."""
+    threshold = SEVERITIES.index(fail_on)
+    return any(SEVERITIES.index(f.severity) >= threshold for f in findings)
+
+
+def write_ledger(path: str, findings: list[Finding], *,
+                 extra: dict[str, Any] | None = None) -> None:
+    """Write the findings ledger: manifest + findings + summary trailer.
+    The manifest describes the host (`device="cpu"`): a findings ledger
+    reads files, never the card."""
+    from tpu_matmul_bench_torch.utils.telemetry import build_manifest
+
+    manifest = build_manifest(device="cpu", extra={"lint": extra or {}})
+    with open(path, "w") as fh:
+        fh.write(json.dumps(manifest) + "\n")
+        for f in findings:
+            fh.write(json.dumps(f.to_record()) + "\n")
+        fh.write(json.dumps({"record_type": "lint_summary",
+                             **summarize(findings)}) + "\n")

@@ -10,9 +10,10 @@ The parent process never initializes CUDA — the job children own the card
 — so reporting is forced on (the same parent-off-the-device contract as
 `compare --isolate`).
 
-Two flags wait for modules the port does not have yet, and are refused by
-name (exit 2): `run --lint` (the static contract auditor, ROADMAP A15) and
-`gate --history` (the metric-history store, ROADMAP A14.4).
+One flag waits for modules the port does not have yet, and is refused by
+name (exit 2): `run --lint` (the static contract auditor, ROADMAP A15).
+`gate --history` gates against the port's metric-history store
+(`obs/history.py`, ``measurements/torch/history.jsonl``).
 
 Exit codes: `run`/`resume` exit 1 if any job failed; `gate` exits 0 on
 pass, 1 on regression (or a lost job), 2 on unusable input.
@@ -76,8 +77,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "--history)")
     gt.add_argument("--history", nargs="?", const="", default=None,
                     metavar="STORE",
-                    help="gate against the metric-history store: not "
-                         "ported yet (ROADMAP A14.4), refused")
+                    help="gate against the metric-history store's "
+                         "last-known-good per job instead of a lone "
+                         "baseline file (optional value: a store path; "
+                         "default measurements/torch/history.jsonl). Jobs "
+                         "whose series has no prior round gate as 'new'; "
+                         "lost jobs are only detectable with --baseline")
     gt.add_argument("--threshold-pct", type=float,
                     default=gate_mod.DEFAULT_THRESHOLD_PCT,
                     help="regression threshold (default %(default)s%%; "
@@ -159,12 +164,13 @@ def _cmd_gate(args: argparse.Namespace) -> int:
         print("campaign gate: need exactly one of --baseline or "
               "--history")
         return gate_mod.EXIT_UNUSABLE
-    if args.history is not None:
-        print(gate_mod.HISTORY_NOT_PORTED, file=sys.stderr)
-        return EXIT_REFUSED
     try:
         current = gate_mod.load_summary(args.campaign_dir)
-        baseline = gate_mod.load_summary(args.baseline)
+        if args.history is not None:
+            baseline = gate_mod.history_baseline(args.campaign_dir,
+                                                 args.history or None)
+        else:
+            baseline = gate_mod.load_summary(args.baseline)
     except (RuntimeError, FileNotFoundError) as e:
         print(f"campaign gate: {e}")
         return gate_mod.EXIT_UNUSABLE

@@ -142,10 +142,29 @@ def write_baseline(summary: dict[str, dict[str, Any]],
                           + "\n")
 
 
-#: `campaign gate --history` waits for the metric-history store
-HISTORY_NOT_PORTED = ("campaign gate --history: not ported yet; it waits "
-                      "for ROADMAP A14.4 (obs/history.py, the metric-history "
-                      "store); gate against --baseline instead")
+def history_baseline(campaign_dir: str | Path,
+                     store_path: str | None = None,
+                     ) -> dict[str, dict[str, Any]]:
+    """A gate baseline synthesized from the metric-history store
+    (``campaign gate --history``): per campaign job, the last-known-good
+    of its headline series across prior ingest rounds — so the gate
+    compares against the repo's whole measured past instead of one
+    hand-picked snapshot file. Jobs with no prior history gate as 'new';
+    a job the past measured but this campaign dropped is NOT detectable
+    here (history has no notion of this campaign's intended job set) —
+    use --baseline for lost-job coverage."""
+    from tpu_matmul_bench_torch.obs.history import (
+        HistoryStore,
+        baseline_rows_for_campaign,
+    )
+
+    store = HistoryStore.load(store_path)
+    if len(store) == 0:
+        raise RuntimeError(
+            f"history store {store.path} is empty or missing — run "
+            "`obs ingest` (or python -m tpu_matmul_bench_torch.obs.regen) "
+            "first")
+    return baseline_rows_for_campaign(store, campaign_dir)
 
 
 def tolerance_pct(threshold_pct: float,

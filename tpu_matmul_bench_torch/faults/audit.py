@@ -78,6 +78,10 @@ WRITER_REGISTRY: dict[str, str] = {
     "obs/export.py":
         "obs snapshot stream (obs_snapshot.jsonl), certified by the obs "
         "chaos cells",
+    "obs/history.py":
+        "perf-observatory metric-history store "
+        "(measurements/torch/history.jsonl): fingerprint-keyed time-series "
+        "points, append-only last-wins, torn-tail fuzzed in test_faults",
     "utils/reporting.py":
         "schema-v2 measurement ledgers (JsonWriter), certified by the "
         "ledger and serve chaos cells",

@@ -112,3 +112,36 @@ def bound_ms(m: int, n: int, k: int, dtype: Any, device_kind: str,
              extra_bytes: float = 0.0) -> float:
     """max(2mnk / peak, bytes / bandwidth) in ms (`bound`)."""
     return bound(m, n, k, dtype, device_kind, extra_bytes)[0]
+
+
+def achieved_fraction_pct(flops: float, time_s: float, device_kind: str,
+                          dtype: Any, *, tf32: bool = False) -> float | None:
+    """The uniform achieved-fraction: the books' operations over measured
+    time, as % of the device's datasheet peak (`tf32`: the TF32 row for a
+    float32 product). None when the peak table doesn't know the
+    device/dtype (e.g. CPU)."""
+    peak = metrics.theoretical_peak_tflops(device_kind, dtype, tf32=tf32)
+    if not peak or time_s <= 0:
+        return None
+    return round(100.0 * (flops / time_s / 1e12) / peak, 3)
+
+
+def check_blocks(blocks: dict[str, dict[str, Any]], where: str) -> list:
+    """OBS-001 findings for a ledger's cost_analysis blocks (keyed by
+    entry label): each block whose books disagree with the hand model.
+    Imported lazily by the selftest — attribution itself must not pull
+    the analysis package in."""
+    from tpu_matmul_bench_torch.analysis.findings import Finding
+
+    findings = []
+    for label, block in sorted((blocks or {}).items()):
+        if not isinstance(block, dict) or block.get("agrees", True):
+            continue
+        findings.append(Finding(
+            "OBS-001", f"{where}:{label}",
+            f"compiler attributes {block.get('flops'):.0f} flops but the "
+            f"hand model says {block.get('hand_model_flops'):.0f} "
+            f"(ratio {block.get('flops_ratio')}, tolerance "
+            f"{block.get('tolerance_pct')}%)",
+            details=dict(block)))
+    return findings

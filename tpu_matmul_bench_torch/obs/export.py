@@ -3,8 +3,9 @@
 Port of `tpu_matmul_bench/obs/export.py`, on the port's registry, run
 context and torn-tail repair.
 
-An instrumented entrypoint (serve bench/selftest with ``--obs-dir``)
-attaches a `SnapshotExporter` to the process-global registry. A daemon thread wakes every ``interval_s`` and writes:
+An instrumented entrypoint (serve bench/selftest with ``--obs-dir``, a
+campaign run) attaches a `SnapshotExporter` to the process-global
+registry. A daemon thread wakes every ``interval_s`` and writes:
 
 - ``<dir>/obs_snapshot.jsonl`` — one appended, fsynced JSON line per
   tick (``record_type: "obs_snapshot"``, the run_id, a sequence number,
@@ -17,10 +18,14 @@ attaches a `SnapshotExporter` to the process-global registry. A daemon thread wa
   with quantile labels), atomically replaced each tick so a scraper
   never reads a torn file.
 
-The exporter is also usable one-shot (`write_once`): the tests drive it
-that way for determinism. The JAX module's loopback HTTP scrape surface
-(`start_http`, /metrics, /healthz, /readyz) serves `obs status`, which
-comes with ROADMAP A14, and is not here.
+The exporter is also usable one-shot (`write_once`) — `obs selftest`
+and the tests drive it that way for determinism.
+
+`start_http` optionally serves the scrape surface over loopback HTTP:
+``/metrics`` (the prom text), ``/healthz`` (liveness: the process can
+answer), and ``/readyz`` (readiness: the snapshot thread is alive AND
+the last flush is younger than ``ready_max_age_s`` — a wedged exporter
+must fail its probe even though the process still answers).
 """
 
 from __future__ import annotations
@@ -42,6 +47,14 @@ PROM_NAME = "metrics.prom"
 OBS_SNAPSHOT_RECORD_TYPE = "obs_snapshot"
 
 DEFAULT_INTERVAL_S = 0.25
+
+HEALTHZ_PATH = "/healthz"
+READYZ_PATH = "/readyz"
+METRICS_PATH = "/metrics"
+#: readiness flush-age bound = max(this floor, factor × interval) — a
+#: tick or two may slip under load without flapping the probe
+READY_MIN_AGE_S = 2.0
+READY_AGE_FACTOR = 10.0
 
 def snapshot_record(registry: MetricsRegistry | None = None, *,
                     run_id: str | None = None, seq: int = 0) -> dict[str, Any]:
@@ -147,11 +160,15 @@ class SnapshotExporter:
         # of restarting at 1
         self._seq = int(seq_start)
         self._stop = threading.Event()
-        # guards the state the exporter loop writes: _seq and the _thread
-        # handle. Held only around field access — the fsync and file
-        # replace run outside it.
+        # guards the state the exporter loop writes and the http
+        # thread's readiness probe reads: _seq, _last_flush_unix, and
+        # the _thread handle. Held only around field access — the fsync
+        # and file replace run outside it.
         self._state_lock = threading.Lock()
         self._thread: threading.Thread | None = None
+        self._last_flush_unix: float | None = None
+        self._http: Any = None
+        self._http_thread: threading.Thread | None = None
 
     @property
     def snapshots_written(self) -> int:
@@ -175,6 +192,8 @@ class SnapshotExporter:
         tmp = self.prom_path.with_suffix(".prom.tmp")
         tmp.write_text(prometheus_text(snap, exemplars=self._exemplars))
         os.replace(tmp, self.prom_path)
+        with self._state_lock:
+            self._last_flush_unix = time.time()
         return snap
 
     def _loop(self) -> None:
@@ -204,12 +223,99 @@ class SnapshotExporter:
         with self._state_lock:
             self._thread = None
         self.write_once()
+        self.stop_http()
 
     def __enter__(self) -> "SnapshotExporter":
         return self.start()
 
     def __exit__(self, *exc: Any) -> None:
         self.stop()
+
+    # ------------------------------------------------------ health probes
+
+    def readiness(self) -> tuple[bool, str]:
+        """(ready?, reason). Ready = the snapshot thread is alive and the
+        last flush is recent; one-shot callers (write_once without
+        start()) count as ready while their flushes stay fresh — probes
+        measure the data path, not the threading choice."""
+        with self._state_lock:
+            t = self._thread
+            last = self._last_flush_unix
+        alive = t is not None and t.is_alive()
+        if last is None:
+            return False, "no snapshot flushed yet"
+        age = time.time() - last
+        bound = max(READY_MIN_AGE_S, READY_AGE_FACTOR * self._interval_s)
+        if age > bound:
+            state = "thread alive" if alive else "thread dead"
+            return False, (f"last flush {age:.1f}s ago exceeds the "
+                           f"{bound:.1f}s bound ({state})")
+        if not alive and t is not None:
+            return False, "snapshot thread died"
+        return True, f"flushed {age:.1f}s ago"
+
+    def start_http(self, port: int = 0,
+                   host: str = "127.0.0.1") -> int:
+        """Serve /metrics, /healthz, /readyz on loopback; returns the
+        bound port (port=0 picks a free one)."""
+        if self._http is not None:
+            return int(self._http.server_address[1])
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        exporter = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def _reply(self, code: int, body: str,
+                       ctype: str = "text/plain; charset=utf-8") -> None:
+                payload = body.encode()
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
+
+            def do_GET(self) -> None:  # noqa: N802 (http.server API)
+                path = self.path.split("?", 1)[0]
+                if path == HEALTHZ_PATH:
+                    self._reply(200, "ok\n")
+                elif path == READYZ_PATH:
+                    ready, reason = exporter.readiness()
+                    self._reply(200 if ready else 503,
+                                ("ready: " if ready else "not ready: ")
+                                + reason + "\n")
+                elif path == METRICS_PATH:
+                    try:
+                        text = exporter.prom_path.read_text()
+                    except OSError:
+                        text = prometheus_text(
+                            snapshot_record(
+                                exporter._registry,
+                                run_id=exporter._run_id,
+                                seq=exporter.snapshots_written),
+                            exemplars=exporter._exemplars)
+                    self._reply(200, text,
+                                ctype="text/plain; version=0.0.4")
+                else:
+                    self._reply(404, "not found\n")
+
+            def log_message(self, *args: Any) -> None:
+                pass  # probes are high-frequency; stderr stays quiet
+
+        self._http = ThreadingHTTPServer((host, port), Handler)
+        self._http_thread = threading.Thread(
+            target=self._http.serve_forever, name="obs-http", daemon=True)
+        self._http_thread.start()
+        return int(self._http.server_address[1])
+
+    def stop_http(self) -> None:
+        if self._http is None:
+            return
+        self._http.shutdown()
+        self._http.server_close()
+        if self._http_thread is not None:
+            self._http_thread.join(timeout=5.0)
+            self._http_thread = None
+        self._http = None
 
 
 def read_snapshots(path: str | Path) -> list[dict[str, Any]]:
@@ -230,3 +336,24 @@ def read_snapshots(path: str | Path) -> list[dict[str, Any]]:
                 and d.get("record_type") == OBS_SNAPSHOT_RECORD_TYPE:
             out.append(d)
     return out
+
+
+def find_snapshot_file(path: str | Path) -> Path | None:
+    """Resolve a user-given path to the snapshot file: the file itself,
+    a directory holding one, or a campaign/serve dir with an ``obs/``
+    subdirectory."""
+    p = Path(path)
+    if p.is_file():
+        return p
+    for candidate in (p / SNAPSHOT_NAME, p / "obs" / SNAPSHOT_NAME):
+        if candidate.is_file():
+            return candidate
+    return None
+
+
+def latest_snapshot(path: str | Path) -> dict[str, Any] | None:
+    f = find_snapshot_file(path)
+    if f is None:
+        return None
+    snaps = read_snapshots(f)
+    return snaps[-1] if snaps else None

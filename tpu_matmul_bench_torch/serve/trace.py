@@ -312,6 +312,63 @@ def reconciles(d: dict[str, Any]) -> tuple[bool, float]:
 
 
 # ---------------------------------------------------------------------------
+# tail attribution (read by obs/history.py's serve_tail series)
+
+#: the tail the attribution report distills: requests at or above this
+#: wall-latency quantile
+TAIL_QUANTILE = 0.95
+
+#: attribution components, in causal-path order; the `cache` span maps
+#: onto `compile` (a tail request's cache phase is its capture, or its
+#: kernel library's import — warm lookups are ~µs)
+TAIL_COMPONENTS = ("queue_wait", "batch_wait", "compile", "execute")
+
+_COMPONENT_BY_SPAN = {"queue_wait": "queue_wait",
+                      "batch_wait": "batch_wait",
+                      "cache": "compile",
+                      "execute": "execute"}
+
+
+def tail_attribution(records: Sequence[dict[str, Any]], *,
+                     quantile: float = TAIL_QUANTILE,
+                     ) -> dict[str, Any] | None:
+    """Where the p95+ tail's latency went: per-component share of the
+    tail requests' summed wall time. Deterministic from the span
+    records alone, so history points derived from committed ledgers are
+    reproducible byte-for-byte. None when no complete records exist."""
+    completes = [d for d in records
+                 if d.get("state") == "complete"
+                 and isinstance(d.get("wall_ms"), (int, float))]
+    if not completes:
+        return None
+    walls = sorted(float(d["wall_ms"]) for d in completes)
+    n = len(walls)
+    pos = quantile * (n - 1)
+    lo = int(pos)
+    hi = min(lo + 1, n - 1)
+    frac = pos - lo
+    threshold = walls[lo] * (1 - frac) + walls[hi] * frac
+    tail = [d for d in completes if float(d["wall_ms"]) >= threshold]
+    comp = {c: 0.0 for c in TAIL_COMPONENTS}
+    wall_sum = 0.0
+    for d in tail:
+        wall_sum += float(d["wall_ms"])
+        for s in d.get("spans", []):
+            c = _COMPONENT_BY_SPAN.get(s.get("name"))
+            if c is not None:
+                comp[c] += float(s.get("ms", 0.0))
+    return {
+        "quantile": quantile,
+        "threshold_ms": round(threshold, 4),
+        "tail_count": len(tail),
+        "total_count": n,
+        "wall_ms_sum": round(wall_sum, 4),
+        "shares": {c: round(100.0 * v / wall_sum, 2) if wall_sum > 0
+                   else 0.0 for c, v in comp.items()},
+    }
+
+
+# ---------------------------------------------------------------------------
 # ledger reading + `serve explain`
 
 
