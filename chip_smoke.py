@@ -223,7 +223,21 @@ The paths:
   campaign against the copy, where every job must find its round-1
   baseline. With `--keep-ledgers DIR` the campaign's job ledgers and the
   selftest's serve ledger are copied into DIR, unedited but for their
-  names (`.ndjson`, as the card's committed ledgers are).
+  names (`.ndjson`, as the card's committed ledgers are);
+- the contract auditor (the `lint` phase): `lint --fail-on error
+  --json-out` in process over 8 ranks that share the card, exit 0, its
+  findings by group, rule and severity and each group's seconds, K1's and
+  K1b's launches by route (counted from 0 just before it, at least one
+  each), K1 and K1b at the `impls` group's shapes held to their plain
+  versions; a mode's compute with an added `.item()` firing PURE-001 in
+  the recorder and under the sync debug mode, and a fused chain that
+  clones its operands firing DONATE-001; the live-bytes walk's peak of
+  each mode at 4 and 8 ranks within LINT_WALK_BAND of the allocator's peak
+  in the same call; SMEM_PER_BLOCK against the card's opt-in limit;
+  `parallel hier selftest` on the card (exit 0, its stream's pickups on
+  K1); and the campaign's lint gate, two processes: `campaign run --lint --dry-run` of CAMPAIGN_SPEC (exit 0, no job)
+  and a copy with an unknown key in one [[job]] table (a nonzero exit
+  before any job); the two run on the CPU beside the campaign phase.
 
 Standard output is one JSON object per line: one per phase, the
 `seconds` line (each stretch's seconds), then the `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
@@ -389,7 +403,11 @@ SERVE_MIX = "1024x4096x4096:1,2048x4096x16384:1,8192:0.25"
 SERVE_QPS, SERVE_DURATION, SERVE_CONCURRENCY, SERVE_EXPLORE = 500, 4, 8, 0.05
 SERVE_INT8_MIX, SERVE_INT8_QPS = "1024:1,2048:1,4096:1", 200
 SERVE_REPLAYS = 20
-SERVE_TRACES = 2
+# traces a bucket's replays (or a load window) may take when one comes back
+# short of its K1 kernels: the profiler lost 1 of 20 int8 K1 records once,
+# 6 of 20 in both of two traces of one bucket, and 9 of 12268 in a pod window
+# (NVIDIA H100 80GB HBM3, 700 W); each trace's count is held exactly
+SERVE_TRACES = 4
 # the pod cells (slice 16): SERVE_MIX over POD_RANKS ranks that share the
 # card, in POD_GROUPS replica groups of POD_MESH (each group `ici:4`) and of
 # POD_QUANT_MESH (each group `dcn:2,ici:2`, its dcn gathers on POD_QUANT);
@@ -3962,10 +3980,40 @@ def serve_summary(label: str, run: dict, kind: str, signatures: dict,
         if k1_a_request is not None and len(k1) != want:
             problems.append(f"{label}: {len(k1)} K1 kernels in the window, {want} for the "
                             f"requests of K1 buckets ({k1_a_request} a request)")
+        # fewer K1 kernels than requests, nowhere more: records the profiler
+        # lost, or requests that ran no kernel (serve_traced runs such a
+        # window again; a program at fault stays short)
+        counts = [(b["k1_kernels"], b["requests"]) for b in by_bucket.values()
+                  if b["k1_kernels"] is not None]
+        if k1_a_request is not None:
+            counts.append((len(k1), want))
         window.update(k1_kernels=len(k1), k1_by_bucket=by_bucket,
+                      k1_short=any(got < n for got, n in counts)
+                      and all(got <= n for got, n in counts),
                       device_busy_share=sum(k[2] for k in kernels) / (s["wall_s"] * 1e6))
     return {"seconds": run["seconds"], "rc": run["rc"], "launches": run["launches"],
             "launches_by_route": run["launches_by_route"], "windows": windows}, problems
+
+
+def serve_traced(label: str, argv: list[str], out_dir: str, kind: str, signatures: dict,
+                 traced: bool = True, pod: bool = False, **summary_kw
+                 ) -> tuple[dict, dict, list]:
+    """`serve_run` then `serve_summary`. The profiler can lose a graph
+    replay's kernel record (9 of 12268 K1 records in one pod window on an
+    H100): a traced window whose only problems are K1 counts short of its
+    requests, never above them, is run and traced again, up to
+    SERVE_TRACES times, and each run's counts are held exactly. Returns
+    (run, summary, problems) of the last run; the summary's `runs` says how
+    many were made."""
+    for attempt in range(1, SERVE_TRACES + 1):
+        run = serve_run(label, argv, out_dir, traced=traced, pod=pod)
+        summary, found = serve_summary(label, run, kind, signatures, **summary_kw)
+        shortfall = all("K1 kernels" in p for p in found) and any(
+            w.get("k1_short") for w in summary["windows"])
+        if not (found and shortfall and traced):
+            break
+    summary["runs"] = attempt
+    return run, summary, found
 
 
 def ab_run(label: str, argv: list[str]) -> tuple[dict, list]:
@@ -4061,8 +4109,8 @@ def serve_phase(card: str, out_dir: str) -> dict:
     for label, argv in {**argvs, **bare}.items():
         if label == "closed_cuda_ledger":
             argv = [*argv, "--json-out", f"{out_dir}/serve-{label}.jsonl"]
-        runs[label] = serve_run(label, argv, out_dir, traced=label not in bare)
-        summaries[label], found = serve_summary(label, runs[label], kind, signatures)
+        runs[label], summaries[label], found = serve_traced(
+            label, argv, out_dir, kind, signatures, traced=label not in bare)
         problems += found
         if runs[label]["rc"]:
             problems.append(f"{label}: exit {runs[label]['rc']}")
@@ -4444,11 +4492,10 @@ def pod_phase(card: str, out_dir: str) -> dict:
             traced = label != "pod_cold_cuda"
             if label == "pod_quant_cuda":
                 wire_run = dict(collectives.WIRE_CALLS)
-            runs[label] = serve_run(label, argv, out_dir, traced=traced, pod=True)
             # the quantized window's trace holds ~15 wire kernels a K1 kernel,
             # and lost 4 of 7496 K1 records in one call: it is read, not counted
-            summaries[label], found = serve_summary(
-                label, runs[label], kind, {},
+            runs[label], summaries[label], found = serve_traced(
+                label, argv, out_dir, kind, {}, traced=traced, pod=True,
                 k1_a_request=None if label == "pod_quant_cuda" else POD_K1_A_REQUEST,
                 prewarmed=traced)
             problems += found
@@ -4565,12 +4612,14 @@ def alive(pid: int) -> bool:
         return False
 
 
-def start_port(argv: list[str], log: str) -> subprocess.Popen:
+def start_port(argv: list[str], log: str, env: dict | None = None) -> subprocess.Popen:
     """`python -m tpu_matmul_bench_torch ARGV` as a child in a session of
-    its own, its output to `log`."""
+    its own, its output to `log` (`env`: its environment, else this
+    process's)."""
     with open(log, "w") as fh:
         return subprocess.Popen([sys.executable, "-m", "tpu_matmul_bench_torch", *argv],
-                                stdout=fh, stderr=subprocess.STDOUT, start_new_session=True)
+                                stdout=fh, stderr=subprocess.STDOUT, start_new_session=True,
+                                env=env)
 
 
 def finish_port(proc: subprocess.Popen, log: str, timeout: float) -> tuple[int, str]:
@@ -5271,6 +5320,232 @@ def obs_phase(card: str, out_dir: str, tail: dict, keep_ledgers: str | None) -> 
     return result
 
 
+# the `lint` phase (slice 19): the lint on the card in process, seeded
+# PURE-001 and DONATE-001, the live-bytes walk against the allocator, the
+# shared memory a block may opt into, `parallel hier selftest` and the
+# campaign's lint gate. LINT_WALK_BAND is the walk's peak over the
+# allocator's in the same call, stated in PERF.md before the first run
+LINT_RANKS = 8
+LINT_WALK_BAND = (0.90, 1.00)
+LINT_IMPLS = [("cuda", "bfloat16"), ("cuda", "float32"), ("cuda", "int8"),
+              ("cuda_ksplit", "bfloat16"), ("cuda_ksplit", "float32")]
+LINT_GATE_TIMEOUT_S = 300
+
+
+def lint_gate_children(out_dir: str) -> dict:
+    """`campaign run CAMPAIGN_SPEC --lint --dry-run` and a copy of the spec
+    with an unknown key in one [[job]] table under `--lint --no-hlo` (no
+    dry run, and no card visible: were the gate to pass, its jobs could
+    not reach the card), each a process of its own: {label: (process,
+    log, campaign dir)}."""
+    import shutil
+
+    work = os.path.join(out_dir, "lint_gate")
+    os.makedirs(work, exist_ok=True)
+    bad = os.path.join(work, "card_bad.toml")
+    shutil.copyfile(CAMPAIGN_SPEC, bad)
+    with open(bad) as fh:
+        text = fh.read()
+    with open(bad, "w") as fh:  # the first [[job]] table gains a typo'd key
+        fh.write(text.replace("[[job]]\n", "[[job]]\ntimout_s = 60\n", 1))
+    runs = {}
+    # two intra-op threads each: the lint in this process shares the cores
+    quiet = {**os.environ, "OMP_NUM_THREADS": "2"}
+    for label, argv, env in (
+            ("ok", ["campaign", "run", CAMPAIGN_SPEC, "--lint", "--dry-run", "--dir",
+                    os.path.join(work, "ok")], quiet),
+            ("bad", ["campaign", "run", bad, "--lint", "--no-hlo", "--dir",
+                     os.path.join(work, "bad")], {**quiet, "CUDA_VISIBLE_DEVICES": ""})):
+        log = os.path.join(work, f"{label}.log")
+        runs[label] = (start_port(argv, log, env=env), log, os.path.join(work, label))
+    return runs
+
+
+def lint_gate_result(runs: dict) -> tuple[dict, list]:
+    out, problems = {}, []
+    for label, (proc, log, campaign_dir) in runs.items():
+        rc, text = finish_port(proc, log, LINT_GATE_TIMEOUT_S)
+        jobs = os.path.join(campaign_dir, "jobs")
+        started = os.path.isdir(jobs) and bool(os.listdir(jobs))
+        out[label] = {"rc": rc, "jobs_started": started,
+                      "gate_failed": "lint gate failed" in text,
+                      "lint": [ln for ln in text.splitlines() if ln.startswith("lint: ")]}
+        if started:
+            problems.append(f"gate[{label}]: a job started ({jobs})")
+    if out["ok"]["rc"] != 0 or out["ok"]["gate_failed"]:
+        problems.append(f"gate[ok] exit {out['ok']['rc']}: {out['ok']['lint']}")
+    if out["bad"]["rc"] == 0 or not out["bad"]["gate_failed"]:
+        problems.append(f"gate[bad] exit {out['bad']['rc']}, the seeded key did not "
+                        "stop it")
+    return out, problems
+
+
+def lint_walk_vs_allocator() -> tuple[dict, list]:
+    """Each mode's full program at each audit world: the live-bytes walk's
+    peak beside the allocator's peak over its baseline in the same call."""
+    import torch
+
+    from tpu_matmul_bench_torch.analysis import auditor
+    from tpu_matmul_bench_torch.analysis.memory_model import MEM_WORLDS, estimate_peak_bytes
+    from tpu_matmul_bench_torch.parallel.mesh import make_mesh
+
+    devices = auditor.audit_devices("cuda")
+    config = auditor._audit_config("bfloat16", auditor.AUDIT_IMPL, devices[0])
+    rows, problems = {}, []
+    for world in MEM_WORLDS:
+        mesh = make_mesh(devices[:world])
+        for mode, builder in sorted(auditor._all_modes().items()):
+            setup = builder(config, mesh, auditor.AUDIT_SIZE)
+            fn = setup.full if setup.full is not None else setup.compute
+            fn(*setup.operands)  # first call: anything made lazily
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            walk = estimate_peak_bytes(fn, *setup.operands)
+            torch.cuda.synchronize()
+            alloc = torch.cuda.max_memory_allocated() - base
+            ratio = walk / alloc if alloc else 0.0
+            rows[f"{mode}@d{world}"] = {"walk_bytes": walk, "allocator_bytes": alloc,
+                                        "ratio": ratio}
+            if not LINT_WALK_BAND[0] <= ratio <= LINT_WALK_BAND[1]:
+                problems.append(f"walk {mode}@d{world}: {walk} B over the allocator's "
+                                f"{alloc} B = {ratio:.4f}, outside {LINT_WALK_BAND}")
+            del setup, fn
+    return rows, problems
+
+
+def lint_seeded() -> tuple[dict, list]:
+    """The card path can fire: a mode's compute with an added `.item()`
+    (PURE-001, the recorder's and the sync debug mode's both) and a fused
+    chain that clones its operands (DONATE-001)."""
+    import torch
+
+    from tpu_matmul_bench_torch.analysis import auditor
+    from tpu_matmul_bench_torch.parallel.mesh import make_mesh
+    from tpu_matmul_bench_torch.utils import timing
+
+    devices = auditor.audit_devices("cuda")
+    config = auditor._audit_config("bfloat16", auditor.AUDIT_IMPL, devices[0])
+    setup = auditor._all_modes()["batch_parallel"](config, make_mesh(devices[:4]),
+                                                   auditor.AUDIT_SIZE)
+
+    def compute_with_item(x, y):
+        out = setup.compute(x, y)
+        out[0].float().sum().item()
+        return out
+
+    rec = auditor.run_recorded(compute_with_item, *setup.operands, card=True)
+    pure = auditor._purity_findings(rec, "seeded:batch_parallel/compute+item")
+    real = timing._chain
+
+    def cloning_chain(ops, src):
+        real([timing._clone(op) for op in ops], src)
+
+    timing._chain = cloning_chain
+    try:
+        donate = auditor.audit_donation(devices)
+    finally:
+        timing._chain = real
+    torch.cuda.synchronize()
+    out = {"pure": [f.rule for f in pure], "host_syncs": rec.host_syncs,
+           "sync_debug_raised": any(h.startswith("sync debug mode") for h in rec.host_syncs),
+           "donate": [(f.rule, f.where) for f in donate]}
+    problems = []
+    if out["pure"] != ["PURE-001"] or "item" not in rec.host_syncs \
+            or not out["sync_debug_raised"]:
+        problems.append(f"seeded .item() did not fire PURE-001 both ways: {out}")
+    if not any(rule == "DONATE-001" and "chains operand 0" in where
+               for rule, where in out["donate"]):
+        problems.append(f"seeded cloning chain did not fire DONATE-001: {out['donate']}")
+    return out, problems
+
+
+def lint_phase(card: str, out_dir: str, gate: dict) -> dict:
+    """The contract auditor on the card (slice 19): `lint --fail-on error
+    --json-out` in process, exit 0, its findings by group, rule and
+    severity, each group's seconds and K1's and K1b's launches by route
+    (counted from 0 just before it); the `impls` products of K1 and K1b
+    against their plain versions; seeded PURE-001 and DONATE-001; the walk
+    against the allocator; SMEM_PER_BLOCK against the card's opt-in limit;
+    `parallel hier selftest` on the card; the campaign's lint gate (`gate`,
+    the two processes `lint_gate_children` started beside the campaign)."""
+    import torch
+
+    from tpu_matmul_bench_torch.analysis import auditor
+    from tpu_matmul_bench_torch.analysis import cli as lint_cli
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.parallel import cli as parallel_cli
+
+    t0 = time.perf_counter()
+    result = {"phase": "lint", "card": card}
+    problems = []
+    ledger = os.path.join(out_dir, "lint.jsonl")
+    with ranks_per_card(LINT_RANKS):
+        for name in cm.ROUTES:
+            cm.LAUNCHES_BY_ROUTE[name] = 0
+        cm.LAUNCHES = cm.REDUCE_LAUNCHES = cm.ACC_LAUNCHES = 0
+        t1 = time.perf_counter()
+        rc, report_text = in_process(lint_cli.main, ["--device", "cuda", "--fail-on", "error",
+                                                     "--json-out", ledger])
+        result["lint_s"] = time.perf_counter() - t1
+        k1b = cm.REDUCE_LAUNCHES
+        by_route = dict(cm.LAUNCHES_BY_ROUTE)
+        result["launches"] = {"k1_by_route": by_route, "k1": sum(by_route.values()) - k1b,
+                              "k1b": k1b, "pickups": cm.ACC_LAUNCHES}
+        result["rc"] = rc
+        recs = [json.loads(line) for line in open(ledger)] if os.path.exists(ledger) else []
+        manifest = recs[0] if recs else {}
+        result["groups"] = manifest.get("lint", {}).get("groups")
+        result["summary"] = recs[-1] if recs else None
+        result["peak_memory"] = manifest.get("lint", {}).get("peak_memory")
+        if rc != 0:
+            problems.append(f"lint exit {rc}: {report_text[-1500:]}")
+        if result["launches"]["k1"] < 1 or k1b < 1:
+            problems.append(f"lint launched K1 {result['launches']['k1']} and K1b {k1b} times")
+        # K1 and K1b at the impls group's operands against their plain versions
+        impls = {}
+        plain = {"cuda": cm.matmul_plain,
+                 "cuda_ksplit": lambda a, b: cm.matmul_ksplit_plain(a, b, splits=2)}
+        for impl, dtype_name in LINT_IMPLS:
+            res = compare(dtype_name, (auditor.AUDIT_SIZE,) * 3,
+                          lambda x, y, f=auditor._impl_fn(impl): f(x, y), plain[impl])
+            impls[f"{impl}/{dtype_name}"] = res
+            if not res["ok"]:
+                problems.append(f"impls {impl}/{dtype_name}: {res}")
+        result["impls"] = impls
+        t1 = time.perf_counter()
+        result["seeded"], found = lint_seeded()
+        problems += found
+        result["walk"], found = lint_walk_vs_allocator()
+        problems += found
+        result["seeded_walk_s"] = time.perf_counter() - t1
+        optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+        result["smem"] = {"SMEM_PER_BLOCK": cm.SMEM_PER_BLOCK, "optin": optin}
+        if cm.SMEM_PER_BLOCK > optin:
+            problems.append(f"SMEM_PER_BLOCK {cm.SMEM_PER_BLOCK} > the card's opt-in {optin}")
+        t1 = time.perf_counter()
+        before = routes()
+        acc = cm.ACC_LAUNCHES
+        rc, text = in_process(parallel_cli.main, ["hier", "selftest", "--device", "cuda"])
+        result["hier_selftest"] = {"rc": rc, "s": time.perf_counter() - t1,
+                                   "pickups": cm.ACC_LAUNCHES - acc,
+                                   "routes": routes_since(before),
+                                   "lines": [ln for ln in text.splitlines()
+                                             if ln.startswith(("hier", "mem gate", "stream"))]}
+        if rc != 0 or "hier selftest: OK" not in text:
+            problems.append(f"parallel hier selftest exit {rc}: {text[-1000:]}")
+    t1 = time.perf_counter()
+    result["gate"], found = lint_gate_result(gate)
+    result["gate_wait_s"] = time.perf_counter() - t1
+    problems += found
+    result["seconds"] = time.perf_counter() - t0
+    result["ok"] = not problems
+    emit(result)
+    if problems:
+        fail("lint", "; ".join(problems))
+    return result
+
+
 def residency_probe(cap: int, l2: int, runs: int = 20) -> dict:
     """K6 and K2 through their wrappers at half the fused ring's cap, at
     the cap and at twice it, bf16 over RING_WORLD ranks on the card: ms and
@@ -5495,6 +5770,9 @@ def main(keep_ledgers: str | None = None) -> None:
         # jobs and cells are child processes that own the card in turn
         torch.cuda.empty_cache()
         beside, tail = start_faults_beside(out_dir), {}
+        # the lint phase's campaign gate (slice 19): two CPU processes that
+        # never touch the card, beside the campaign as the faults smoke is
+        gate = lint_gate_children(out_dir)
         try:
             campaign = campaign_phase(card, fused["tflops"], out_dir, beside, tail)
             lap("campaign")
@@ -5504,8 +5782,13 @@ def main(keep_ledgers: str | None = None) -> None:
             # campaign, the selftest on the card, the history and its gate
             obs = obs_phase(card, out_dir, tail, keep_ledgers)
             lap("obs")
+            # the contract auditor (slice 19)
+            torch.cuda.empty_cache()
+            lint = lint_phase(card, out_dir, gate)
+            lap("lint")
         finally:
             stop_faults_beside(beside)
+            stop_faults_beside(gate)
             stop_obs_tail(tail)
 
     # 5. the plain version's time at the headline shape
@@ -5659,6 +5942,13 @@ def main(keep_ledgers: str | None = None) -> None:
                     "bound_ms", "bound_by")},
                 "cuda_job_point": obs["history"]["cuda_job_point"],
                 "gate": [r for r in obs["gate"]["rows"] if r["job"] == CAMPAIGN_DOCTORED_JOB]},
+        # the lint phase: its in-process lint's K1 launches by route (counted
+        # from 0 just before it), and K1 at the impls group's operands
+        "lint": {"launches": lint["launches"]["k1"],
+                 "launches_by_route": lint["launches"]["k1_by_route"],
+                 "seconds": lint["lint_s"],
+                 "impls": {k: v for k, v in lint["impls"].items() if k.startswith("cuda/")},
+                 "hier_selftest_pickups": lint["hier_selftest"]["pickups"]},
         "stream": {"kernel": "cuda_matmul_acc (tmb_matmul_acc)",
                    "shape": [STREAM_SIZE, STREAM_SIZE // STREAM_PANELS, STREAM_SIZE],
                    "launches": stream["cuda"]["acc_launches"],
@@ -5680,6 +5970,10 @@ def main(keep_ledgers: str | None = None) -> None:
                      "job_tflops": campaign["jobs"]["tune_ksplit"]["tflops"]},
         # the obs phase ingests and gates that job's ledger; it runs nothing
         "obs": {"gate": [r for r in obs["gate"]["rows"] if r["job"] == "tune_ksplit"]},
+        # the lint phase's impls group: K1b (S = 2) at 256³, bf16 and fp32
+        "lint": {"launches": lint["launches"]["k1b"],
+                 "impls": {k: v for k, v in lint["impls"].items()
+                           if k.startswith("cuda_ksplit/")}},
     }, {
         "name": "ring_allgather_matmul",
         "source": "tpu_matmul_bench_torch/ops/cuda_ring.py",

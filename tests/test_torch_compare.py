@@ -53,7 +53,8 @@ def test_main_registry_has_the_five_programs():
     assert port_main._PROGRAMS["campaign"] == "tpu_matmul_bench_torch.campaign.cli"
     assert port_main._PROGRAMS["faults"] == "tpu_matmul_bench_torch.faults.cli"
     assert port_main._PROGRAMS["obs"] == "tpu_matmul_bench_torch.obs.cli"
-    assert len(port_main._PROGRAMS) == 18
+    assert port_main._PROGRAMS["lint"] == "tpu_matmul_bench_torch.analysis.cli"
+    assert len(port_main._PROGRAMS) == 19
 
 
 # ------------------------------------------------------------- the renderers

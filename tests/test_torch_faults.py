@@ -333,7 +333,7 @@ def test_seeded_fixtures_trip_as_jax(tmp_path, source, rules):
 
 def test_stale_registry_entry_trips_fault_002(tmp_path):
     # a registered writer the tree does not hold (analysis/spec_lint.py
-    # waits for ROADMAP A15)
+    # reads specs and fsyncs nothing)
     stale = "analysis/spec_lint.py"
     found = audit.static_findings(tmp_path, spawn_allowlist={},
                                   writer_registry={stale: "not ported"})

@@ -54,6 +54,10 @@ _PROGRAMS = {
     # metric-history store with its drift verdicts and report: `obs
     # {status,selftest,ingest,history,detect,report}` (obs/cli.py)
     "obs": "tpu_matmul_bench_torch.obs.cli",
+    # the contract auditor: every impl x mode run once and recorded against
+    # the comms model and its dtype, purity, reuse and tile contracts, plus
+    # offline spec validation (analysis/cli.py)
+    "lint": "tpu_matmul_bench_torch.analysis.cli",
 }
 
 

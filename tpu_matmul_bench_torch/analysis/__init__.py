@@ -1,1 +1,1 @@
-"""Static models of the port's programs (the JAX package's `analysis/`)."""
+"""The contract auditor and its models (the JAX package's `analysis/`)."""

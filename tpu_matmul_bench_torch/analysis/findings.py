@@ -1,15 +1,17 @@
 """Findings: a stable rule ID, where it fired, and the evidence.
 
-The `Finding` dataclass of `tpu_matmul_bench/analysis/findings.py`, with
-the rules the port's audits fire today: the flight recorder's span-coverage
-audit (`serve/trace.py trace_findings`, TRACE-001/002/003), the pod
-layer's audit (`serve/pod.py pod_findings`, POD-001/002/003), the fault
-subsystem's static audits (`faults/audit.py static_findings`,
-FAULT-001/002), the chaos matrix's lint (`faults/audit.py
-lint_chaos_data`, SPEC-001/002), the observatory's bus checks (`obs
-selftest`, OBS-001/002) and its drift verdicts (`obs/detect.py`,
-HIST-001..004), with the findings ledger `obs detect --json-out` writes.
-The other rule families come with ROADMAP A15.
+The `Finding` dataclass and the findings ledger of
+`tpu_matmul_bench/analysis/findings.py`, with the rules of every audit the
+port runs: the `lint` program's groups (`analysis/auditor.py`: DTYPE,
+COLL, PURE, DONATE, PALLAS, REG, TUNE, ART, OBS, COLL-Q, DTYPE-Q, COLL-H,
+TRAIN, MEM, FAULT, TRACE, POD) and its spec lint (`analysis/spec_lint.py`,
+SPEC-001..010), and the observatory's drift verdicts (`obs/detect.py`,
+HIST-001..004). Rule IDs never change meaning: where the port's object
+differs from JAX's (a recorded run in place of a jaxpr, a Hopper tile in
+place of a Pallas block, the card's memory in place of a TPU's), the rule
+keeps its ID and its words say what the port checks. The SCHED, DRIFT,
+CONC and SCHEMA families are not here: the first two have no torch form
+yet, the last two come with ROADMAP A15b.
 """
 
 from __future__ import annotations
@@ -24,9 +26,99 @@ SEVERITIES = ("info", "warn", "error")
 
 #: rule id -> (default severity, one-line description), the JAX package's
 RULES: dict[str, tuple[Severity, str]] = {
+    "DTYPE-001": ("error", "more than one float downcast a rank in a matmul "
+                           "program, products and collectives counted as "
+                           "one primitive each (stray round-trip breaks "
+                           "single-downcast accumulation discipline)"),
+    "DTYPE-002": ("error", "downcast/upcast round-trip: a value is narrowed "
+                           "then widened again, losing precision for free"),
+    "COLL-001": ("error", "collective inventory mismatch: recorded "
+                          "collectives differ in kind or count from the "
+                          "analytic comms model for the mode"),
+    "COLL-002": ("error", "collective byte-volume mismatch vs the analytic "
+                          "comms model"),
+    "COLL-003": ("error", "collective inside a compute-only program "
+                          "(compute legs must be comm-free or the "
+                          "compute/comm split is meaningless)"),
+    "PURE-001": ("error", "host round trip inside a timed program (.item(), "
+                          "a copy to the host, torch.cuda.synchronize, or "
+                          "what the card's sync debug mode refuses): host "
+                          "round-trips corrupt timing"),
+    "DONATE-001": ("error", "buffer declared reusable is not written in "
+                            "place: the chained operand or the given `out` "
+                            "changed storage, or was left unwritten"),
+    "PALLAS-001": ("error", "Hopper tile named by the tuning surface (table, "
+                            "DB cell or default) is not an instantiated "
+                            "tile of csrc/matmul.cu, so effective_blocks "
+                            "would quietly run another"),
+    "PALLAS-002": ("error", "wgmma geometry broken: a consumer warpgroup's "
+                            "rows not a multiple of 64, its columns not a "
+                            "multiple of 8 or above 256, bk not a multiple "
+                            "of 16, or A's swizzle not 32, 64 or 128 bytes"),
+    "PALLAS-003": ("error", "a tile plan's dynamic shared memory exceeds "
+                            "SMEM_PER_BLOCK (or the card's opt-in limit)"),
     "SPEC-001": ("error", "spec failed to parse/validate"),
     "SPEC-002": ("error", "unknown key in a spec table (silently ignored at "
                           "run time — almost always a typo)"),
+    "SPEC-003": ("warn", "sharded size not divisible by the device count "
+                         "it will run under"),
+    "SPEC-004": ("error", "job fingerprint collision: two distinct jobs "
+                          "would share a resume/ledger identity"),
+    "SPEC-005": ("error", "invalid tenant definition: weight/priority/SLO "
+                          "bounds violated, bad traffic profile, or "
+                          "unparseable mix in a [tenants.*] block"),
+    "SPEC-006": ("error", "duplicate tenant id: two [tenants.*] blocks "
+                          "collide after case/whitespace normalization "
+                          "(one tenant's traffic would be billed to the "
+                          "other's share)"),
+    "REG-001": ("warn", "impl-registry tier routes to a kernel citing no "
+                        "measurement artifact"),
+    "REG-002": ("info", "impl-registry tier extrapolated by tie policy with "
+                        "no tuning-DB cell behind it (promote a cell citing "
+                        "a measured artifact or an explicit analytic prior "
+                        "— tune promote / tune.regen)"),
+    "MEM-001": ("error", "peak live bytes of the live-bytes walk exceed the "
+                         "per-device memory budget"),
+    "MEM-002": ("warn", "peak live bytes inconsistent with the comms "
+                        "model's per-shard payloads (walk or program shape "
+                        "self-check failed)"),
+    "TUNE-001": ("error", "impl_select route resolves to no tuning-DB cell "
+                          "and no declared fallback (a table tier citing a "
+                          "committed artifact) — the routing decision has "
+                          "no evidence"),
+    "TUNE-002": ("warn", "impl_select route resolves to a stale tuning-DB "
+                         "cell (torch version moved or the routed program's "
+                         "digest drifted) — re-measure or re-promote the "
+                         "cell"),
+    "COLL-Q-001": ("error", "quantized payload travels without its scale "
+                            "side-channel: a wire-dtype collective is not "
+                            "paired with a matching fp32 scale collective "
+                            "(dequantization downstream is impossible or "
+                            "wrong)"),
+    "COLL-Q-002": ("error", "quantized collective inventory mismatch: the "
+                            "recorded wire-format program's collectives "
+                            "differ in kind, count, or payload bytes from "
+                            "the analytic wire model "
+                            "(comms_model.wire_collectives)"),
+    "COLL-Q-003": ("error", "predicted payload-byte reduction below the "
+                            "2x floor for a 1-byte wire format vs the "
+                            "bf16 baseline (the wire format fails its "
+                            "reason to exist)"),
+    "DTYPE-Q-001": ("error", "quantized program breaks the one-downcast "
+                             "contract: non-wire float downcasts exceed "
+                             "the exact program's count by more than the "
+                             "format's budget, or a new fp32 round-trip "
+                             "appeared (dequant must stay in the fp32 "
+                             "accumulator until the single final "
+                             "downcast)"),
+    "DTYPE-Q-002": ("error", "inert short-circuit broken: a world-1 or "
+                             "integer-operand program under --comm-quant "
+                             "is not identical to the exact program "
+                             "(quantization must vanish, not degrade)"),
+    "SPEC-007": ("error", "invalid --comm-quant value in a spec's job "
+                          "flags: not in the wire-format grammar, or a "
+                          "block size that does not divide the payload "
+                          "width implied by --sizes/--num-devices"),
     "OBS-001": ("error", "the kernels' cost books disagree with the hand "
                          "FLOPs model (utils.metrics.matmul_flops) beyond "
                          "tolerance — reported TFLOP/s are computed from "
@@ -44,6 +136,21 @@ RULES: dict[str, tuple[Severity, str]] = {
                            "registered in faults/audit.WRITER_REGISTRY — "
                            "crash-consistency certification does not know "
                            "this artifact exists"),
+    "ART-001": ("error", "artifact store integrity violation: a shipped "
+                         "exec_artifact's key does not recompute from its "
+                         "own fields, its blob is missing, or the blob "
+                         "does not hash to its recorded digest — the "
+                         "store would load something other than what was "
+                         "certified"),
+    "ART-002": ("warn", "stale kernel library: the artifact's torch version "
+                        "or recomputed program digest drifted from the "
+                        "store's record — the key mismatch makes it dead "
+                        "weight (serving will rebuild past it); re-export "
+                        "or prune"),
+    "TUNE-003": ("error", "measured-online tuning cell cites no serve "
+                          "ledger (.jsonl) — an online promotion must "
+                          "reference the shadow-traffic stream that "
+                          "measured it"),
     "HIST-001": ("error", "metric-history regression: the latest ingest "
                           "round's best reading fell beyond the noise "
                           "band vs the series' last-known-good "
@@ -60,6 +167,30 @@ RULES: dict[str, tuple[Severity, str]] = {
                           "moved beyond noise for a (mode × wire-format "
                           "× shape) cell — the compute+comm model "
                           "stopped explaining the machine"),
+    "COLL-H-001": ("error", "per-axis collective inventory mismatch on a "
+                            "factorized mesh: a recorded program's "
+                            "(kind, axis) multiset differs from the "
+                            "two-level comms model — a collective moved "
+                            "to the wrong link class"),
+    "COLL-H-002": ("error", "per-axis collective payload mismatch on a "
+                            "factorized mesh: right (kind, axis), wrong "
+                            "bytes vs the two-level comms model's "
+                            "prediction"),
+    "COLL-H-003": ("error", "per-link wire-format routing broken: a "
+                            "quantized wire dtype appears on an axis whose "
+                            "link class the --comm-quant spec left exact, "
+                            "or the quantized link's collectives carry no "
+                            "wire dtype at all"),
+    "MEM-003": ("error", "K-streaming resident window exceeds the "
+                         "per-device budget: the analytic window bytes "
+                         "(accumulator + staged panel pairs) do not fit "
+                         "--mem-budget-gib — the out-of-core mode's one "
+                         "job is to bound this"),
+    "SPEC-008": ("error", "invalid hierarchical-mesh flag in a spec's job "
+                          "flags: --mesh not in the dcn:R,ici:C grammar or "
+                          "not covering --num-devices, a malformed "
+                          "per-link --comm-quant, or a non-positive "
+                          "--stream-k / --mem-budget-gib"),
     "TRACE-001": ("error", "scheduler shed/breaker raise site with no "
                            "adjacent flight-recorder terminal emission — "
                            "a refused request would vanish from the "
@@ -74,6 +205,44 @@ RULES: dict[str, tuple[Severity, str]] = {
                            "EXEMPLAR_LIMIT bound, or the limit is outside "
                            "its sane range — trace-id retention behind "
                            "tail quantiles must stay small"),
+    "TRAIN-001": ("error", "train-step collective inventory mismatch: a "
+                           "recorded full-step program's (kind, axis) "
+                           "multiset differs from the closed-form "
+                           "gradient-collective model "
+                           "(comms_model.train_expected_collectives) — a "
+                           "collective appeared in fwd/bwd, vanished from "
+                           "the sync, or moved to the wrong axis"),
+    "TRAIN-002": ("error", "train-step collective payload mismatch: right "
+                           "(kind, axis), wrong bytes vs the gradient-"
+                           "collective model — the wire format rewrote "
+                           "the wrong collective (the ZeRO parameter "
+                           "allgather must travel exact) or sized a "
+                           "chunk wrong"),
+    "TRAIN-003": ("error", "ZeRO shard-ownership violation: the per-"
+                           "replica updated weight-row shards do not "
+                           "tile the parameter disjointly (reduce_scatter "
+                           "chunk, owned update slice, and allgather "
+                           "reassembly disagree about who owns which "
+                           "rows)"),
+    "TRAIN-004": ("error", "train-step downcast budget exceeded: the "
+                           "quantized-wire step performs more non-wire "
+                           "float downcasts than the exact step — "
+                           "dequantized gradients must ride the fp32 "
+                           "accumulator into the update's single final "
+                           "downcast"),
+    "TRAIN-005": ("error", "impure train step: a host round trip (.item(), "
+                           "a copy to the host, a synchronize) inside the "
+                           "timed optimizer step — the step must be a pure "
+                           "function of (x, w) or the timing split and "
+                           "drift series measure the host"),
+    "SPEC-009": ("error", "invalid train flag in a spec's job flags: "
+                          "--grad-quant not in the wire-format grammar "
+                          "(or the legacy control tier, which has no "
+                          "reduce_scatter half), a per-link value with "
+                          "no factorized --mesh, --zero outside {0,1}, "
+                          "--steps < 2 when a drift series is measured, "
+                          "or a (mode, mesh) pair the collective model "
+                          "rejects"),
     "POD-001": ("error", "replica-group partition does not cover the mesh "
                          "disjointly: a device belongs to zero or to more "
                          "than one group, or a group claims a device "
@@ -92,6 +261,12 @@ RULES: dict[str, tuple[Severity, str]] = {
                          "outside its own group mesh — one replica "
                          "group's request would synchronize with another "
                          "group's devices, destroying replica isolation"),
+    "SPEC-010": ("error", "invalid pod flag in a serve spec's job flags: "
+                          "--replica-groups not a positive integer "
+                          "dividing the outer axis of --mesh, pod flags "
+                          "with no factorized --mesh, --mesh not covering "
+                          "--num-devices, or a per-link --comm-quant the "
+                          "pod collective model rejects"),
 }
 
 
@@ -140,13 +315,15 @@ def should_fail(findings: list[Finding], fail_on: Severity) -> bool:
 
 
 def write_ledger(path: str, findings: list[Finding], *,
-                 extra: dict[str, Any] | None = None) -> None:
+                 extra: dict[str, Any] | None = None,
+                 device: str = "cpu") -> None:
     """Write the findings ledger: manifest + findings + summary trailer.
-    The manifest describes the host (`device="cpu"`): a findings ledger
-    reads files, never the card."""
+    The manifest describes `device`, where the findings were made: the
+    host for a ledger that reads files (`obs detect`), the lint's device
+    for `lint`."""
     from tpu_matmul_bench_torch.utils.telemetry import build_manifest
 
-    manifest = build_manifest(device="cpu", extra={"lint": extra or {}})
+    manifest = build_manifest(device=device, extra={"lint": extra or {}})
     with open(path, "w") as fh:
         fh.write(json.dumps(manifest) + "\n")
         for f in findings:

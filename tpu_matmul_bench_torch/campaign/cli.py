@@ -10,9 +10,11 @@ The parent process never initializes CUDA — the job children own the card
 — so reporting is forced on (the same parent-off-the-device contract as
 `compare --isolate`).
 
-One flag waits for modules the port does not have yet, and is refused by
-name (exit 2): `run --lint` (the static contract auditor, ROADMAP A15).
-`gate --history` gates against the port's metric-history store
+`run --lint` runs the contract auditor before any job, as a child on the
+CPU (`python -m tpu_matmul_bench_torch lint --device cpu --fail-on error
+--specs SPEC`, with no card visible to it), so that the campaign's parent
+holds no device; a finding stops the campaign. `--no-hlo` with it skips
+the lint's `memory` group. `gate --history` gates against the port's metric-history store
 (`obs/history.py`, ``measurements/torch/history.jsonl``).
 
 Exit codes: `run`/`resume` exit 1 if any job failed; `gate` exits 0 on
@@ -30,10 +32,6 @@ from tpu_matmul_bench_torch.campaign import executor, gate as gate_mod, state
 from tpu_matmul_bench_torch.campaign.spec import CampaignSpecError, load_spec
 from tpu_matmul_bench_torch.campaign.store import CampaignStore
 from tpu_matmul_bench_torch.utils import telemetry
-
-#: the exit code of a flag refused by name (argparse's usage-error code)
-EXIT_REFUSED = 2
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -56,11 +54,12 @@ def build_parser() -> argparse.ArgumentParser:
                      help="campaign-level Chrome-trace span timeline "
                           "('-' for stdout)")
     run.add_argument("--lint", action="store_true",
-                     help="the static contract auditor before executing: "
-                          "not ported yet (ROADMAP A15), refused")
+                     help="run the contract auditor (`lint --device cpu "
+                          "--fail-on error --specs SPEC`, a CPU child) before "
+                          "any job; a finding stops the campaign")
     run.add_argument("--no-hlo", action="store_true",
-                     help="with --lint: not ported yet (ROADMAP A15), "
-                          "refused")
+                     help="with --lint: skip the lint's memory group, which "
+                          "runs every mode for its live bytes")
 
     res = sub.add_parser("resume", help="finish an interrupted campaign")
     res.add_argument("campaign_dir")
@@ -101,15 +100,28 @@ def _load_spec_or_exit(path: str):
         raise SystemExit(f"campaign: bad spec: {e}")
 
 
-#: `campaign run --lint` waits for the static contract auditor
-LINT_NOT_PORTED = ("campaign run --lint: not ported yet; it waits for "
-                   "ROADMAP A15 (analysis/ and the `lint` program)")
+def pre_campaign_lint(spec_path: str, no_hlo: bool = False) -> None:
+    """The --lint gate: audit the spec and the code in a CPU child before
+    any job spends card time. A child keeps the campaign's parent off the
+    device (the executor's children must be able to claim the card), and
+    it sees no card at all. A finding (or a crash) stops the campaign."""
+    import os
+    import subprocess
+
+    env = dict(executor._campaign_env(None), CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "tpu_matmul_bench_torch", "lint", "--device", "cpu",
+           "--fail-on", "error", "--specs", os.path.abspath(spec_path)]
+    if no_hlo:
+        cmd.append("--no-hlo")
+    proc = subprocess.run(cmd, env=env)
+    if proc.returncode:
+        raise SystemExit("campaign: lint gate failed (run `python -m "
+                         "tpu_matmul_bench_torch lint --device cpu` for details)")
 
 
 def _cmd_run(args: argparse.Namespace) -> int:
-    if getattr(args, "lint", False) or getattr(args, "no_hlo", False):
-        print(LINT_NOT_PORTED, file=sys.stderr)
-        return EXIT_REFUSED
+    if getattr(args, "lint", False):
+        pre_campaign_lint(args.spec, no_hlo=getattr(args, "no_hlo", False))
     spec = _load_spec_or_exit(args.spec)
     if args.dry_run:
         for job in spec.jobs:

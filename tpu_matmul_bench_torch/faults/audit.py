@@ -15,8 +15,8 @@ duplicated units, no lost units, no torn tail, and every intermediate
 torn-tolerant readers. A durability story that only survives the crashes
 its unit tests thought of is a story; this runs the crashes.
 
-Two static audits ride along (the `lint` program that also runs them in
-the JAX package comes with ROADMAP A15):
+Two static audits ride along (the `lint` program's `faults` group runs
+them too):
 
 - **FAULT-001** — a subprocess spawn site outside
   `faults/supervisor.supervised_run` and not on its `SPAWN_ALLOWLIST`.

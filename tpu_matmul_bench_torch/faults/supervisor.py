@@ -45,6 +45,9 @@ _POLL_S = 0.05
 SPAWN_ALLOWLIST = {
     "faults/supervisor.py":
         "the supervisor itself — every managed spawn bottoms out here",
+    "campaign/cli.py":
+        "pre-campaign lint gate: short-lived `lint` child that inherits "
+        "stdio so the operator sees findings; no workload, self-bounded",
     "utils/telemetry.py":
         "one-shot `git rev-parse` provenance probe with its own 10 s "
         "timeout; runs at manifest build, never inside a workload",

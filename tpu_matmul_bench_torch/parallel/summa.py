@@ -139,6 +139,12 @@ def summa_programs(mesh: Mesh, impl: str = "torch",
         for t in range(s):
             a_pan, b_pan = step_panels(mesh, a, b, t, psum if with_comm else None)
             for acc_r, ap, bp in zip(acc, a_pan, b_pan):
+                if ap.dtype != bp.dtype:
+                    # a per-link wire dequantizes one broadcast to fp32 and
+                    # leaves the other exact: the product promotes, as
+                    # jnp.matmul does
+                    wide = torch.promote_types(ap.dtype, bp.dtype)
+                    ap, bp = ap.to(wide), bp.to(wide)
                 acc_r.add_(mm(ap, bp).to(out_dtype))
             del a_pan, b_pan
         return Sharded(acc, (i_ax, j_ax), mesh.shape)

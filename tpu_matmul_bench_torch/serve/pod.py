@@ -825,15 +825,15 @@ def pod_collective_scope_problems(
             f"{sorted(allowed)}" for kind, axis, _ in log if axis not in allowed]
 
 
-def pod_findings(devices: Sequence[Any]) -> list[Any]:
+def pod_findings(devices: Sequence[Any], impl: str = "torch") -> list[Any]:
     """The POD-001/002/003 audit over 8 ranks (`devices`, one entry a
-    rank).
+    rank), each group's products under `impl` (the lint runs K1).
 
     For each transposed factorization of the 8-rank world: check the
     replica-group partition covers the mesh disjointly (POD-001), run every
     group's program at the audit size under the exact and the pinned
     quantized per-link wire spec while its collectives are recorded
-    (`train/audit.py record_collectives`), and diff the log against
+    (`analysis/recording.py record_collectives`), and diff the log against
     `comms_model.pod_expected_collectives`, once an axis group (POD-002);
     and ban any collective over an axis outside the group's own mesh
     (POD-003)."""
@@ -841,7 +841,7 @@ def pod_findings(devices: Sequence[Any]) -> list[Any]:
     from tpu_matmul_bench_torch.analysis.findings import Finding
     from tpu_matmul_bench_torch.ops.matmul import random_operands
     from tpu_matmul_bench_torch.parallel.mesh import mesh_device_kind, shard_tensor
-    from tpu_matmul_bench_torch.train.audit import record_collectives
+    from tpu_matmul_bench_torch.analysis.recording import record_collectives
 
     findings: list[Finding] = []
     world = max(mesh_world(spec) for spec, _g in _POD_FACTORIZATIONS)
@@ -865,7 +865,7 @@ def pod_findings(devices: Sequence[Any]) -> list[Any]:
             spec_a, spec_b = pod_operand_specs(mesh)
             ops = shard_tensor(a, spec_a, mesh), shard_tensor(b, spec_b, mesh)
             for quant in (None, _POD_QUANT):
-                program = pod_group_program(mesh, "torch", None, kind, quant)
+                program = pod_group_program(mesh, impl, None, kind, quant)
                 with record_collectives() as log:
                     program(*ops)
                 want: collections.Counter = collections.Counter()

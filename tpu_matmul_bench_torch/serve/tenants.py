@@ -33,6 +33,13 @@ from typing import Any, Mapping
 
 DEFAULT_TENANT_ID = "default"
 
+# every key a [tenants.<id>] table may hold (the spec lint's SPEC-002
+# vocabulary; the loader ignores others)
+TENANT_KEYS = frozenset({
+    "weight", "priority", "slo_ms", "mix", "share", "ramp",
+    "burst_x", "burst_every_s", "burst_for_s",
+})
+
 
 class TenantSpecError(ValueError):
     """A malformed tenant definition (bad bounds, duplicate ids, bad mix)."""

@@ -1,35 +1,33 @@
-"""The train step's contract, checked from a recorded call log.
+"""The train step's contract, checked from a recorded run.
 
 Port of JAX's `analysis/auditor.py audit_train` (`:1183-1249`), which
 audits a traced jaxpr. PyTorch runs eagerly, so the port records what one
-full step calls instead:
-
-- `record_collectives`: every exact collective and wire hop the step
-  makes (the doors of `parallel/collectives.py`, wrapped while the block
-  runs), as (kind, axis, per-rank payload bytes), one entry per axis group;
-- `record_downcasts`: every float operation whose result is narrower than
-  its widest float input (a `TorchFunctionMode`), wire dtypes aside.
+full step does (`analysis/recording.py record`): its collectives, as
+(kind, axis, per-rank payload bytes), one entry per axis group; its float
+downcasts, wire dtypes aside; and its host round trips.
 
 `audit_train` holds these to the comms model for the flat dp mesh and both
 transposed dcn×ici factorizations, at zero 0 and 1, exact and quantized:
 the per-axis inventory and payloads against `train_expected_collectives`
-(JAX's TRAIN-001/002), the ZeRO rows' disjoint tiling (TRAIN-003), and the
-downcasts (TRAIN-004): the quantized step makes no more than the exact
-one, and the update makes exactly one a rank. JAX's TRAIN-005 (no host
-callback inside the step) has no eager counterpart.
+(JAX's TRAIN-001/002), the ZeRO rows' disjoint tiling (TRAIN-003), the
+downcasts (TRAIN-004: the quantized step makes no more than the exact
+one, and the update makes exactly one a rank), and no host round trip
+inside the step (TRAIN-005: an `.item()`, a copy to the host or a
+synchronize, where JAX looks for a host callback primitive).
 """
 
 from __future__ import annotations
 
 import collections
-import contextlib
-from typing import Iterator
 
 import torch
-from torch.overrides import TorchFunctionMode
 
-from tpu_matmul_bench_torch.parallel import collectives
-from tpu_matmul_bench_torch.parallel.mesh import Mesh, make_factorized_mesh, make_mesh
+from tpu_matmul_bench_torch.analysis.recording import (  # noqa: F401 (re-exported)
+    record,
+    record_collectives,
+    record_downcasts,
+)
+from tpu_matmul_bench_torch.parallel.mesh import make_factorized_mesh, make_mesh
 
 AUDIT_SIZE = 256
 AUDIT_BATCH = 4
@@ -39,76 +37,6 @@ HIER_FACTORIZATIONS = ("dcn:2,ici:4", "dcn:4,ici:2")
 HIER_QUANT = "dcn=fp8-block:32,ici=none"
 FLAT_QUANT = "fp8-block:32"
 TRAIN_CELLS = (("dp", None),) + tuple(("hybrid", s) for s in HIER_FACTORIZATIONS)
-
-_WIRE_DTYPES = {torch.int8, torch.float8_e4m3fn}
-
-
-def _nbytes(shards) -> int:
-    return shards[0].numel() * shards[0].element_size()
-
-
-@contextlib.contextmanager
-def record_collectives() -> Iterator[list[tuple[str, str, int]]]:
-    """While the block runs, log each collective as (kind, axis, per-rank
-    payload bytes): the exact all_reduce, reduce_scatter and all_gather,
-    and each wire hop (ppermute) and wire gather, whose doors the wire
-    formats call too."""
-    log: list[tuple[str, str, int]] = []
-    saved = {name: getattr(collectives, name) for name in
-             ("psum_over", "psum_scatter_over", "all_gather_over", "ppermute")}
-
-    def door(kind: str, make):
-        def wrapped(mesh: Mesh, **kw):
-            inner = make(mesh, **kw)
-
-            def fn(shards):
-                log.append((kind, mesh.axis, _nbytes(shards)))
-                return inner(shards)
-            return fn
-        return wrapped
-
-    def ppermute(mesh: Mesh, shards, perm):
-        log.append(("ppermute", mesh.axis, _nbytes(shards)))
-        return saved["ppermute"](mesh, shards, perm)
-
-    collectives.psum_over = door("all_reduce", saved["psum_over"])
-    collectives.psum_scatter_over = door("reduce_scatter", saved["psum_scatter_over"])
-    collectives.all_gather_over = door("all_gather", saved["all_gather_over"])
-    collectives.ppermute = ppermute
-    try:
-        yield log
-    finally:
-        for name, fn in saved.items():
-            setattr(collectives, name, fn)
-
-
-class _Downcasts(TorchFunctionMode):
-    """Logs (source, result) float dtypes of every operation whose result
-    is narrower than its widest float input, wire dtypes aside."""
-
-    def __init__(self) -> None:
-        super().__init__()
-        self.log: list[tuple[str, str]] = []
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        ins = [a for a in list(args) + list((kwargs or {}).values())
-               if isinstance(a, torch.Tensor) and a.is_floating_point()]
-        if isinstance(out, torch.Tensor) and out.is_floating_point() and ins:
-            widest = max(ins, key=lambda t: t.element_size()).dtype
-            if (out.element_size() < widest.itemsize
-                    and not {out.dtype, widest} & _WIRE_DTYPES):
-                self.log.append((str(widest).removeprefix("torch."),
-                                 str(out.dtype).removeprefix("torch.")))
-        return out
-
-
-@contextlib.contextmanager
-def record_downcasts() -> Iterator[list[tuple[str, str]]]:
-    """While the block runs, log each float downcast (see `_Downcasts`)."""
-    mode = _Downcasts()
-    with mode:
-        yield mode.log
 
 
 def audit_train(devices: list[torch.device]) -> list[str]:
@@ -134,8 +62,13 @@ def audit_train(devices: list[torch.device]) -> list[str]:
                 setup = make_train_setup(mesh, mode, AUDIT_SIZE, torch.bfloat16,
                                          batch=AUDIT_BATCH, zero=zero, grad_quant=gq)
                 x, w = setup.operands
-                with record_collectives() as log, record_downcasts() as down:
+                with record() as rec:
                     setup.step(x, w)
+                log, down = rec.log, rec.downcasts
+                if rec.host_syncs:
+                    problems.append(f"TRAIN-005 {where}: host round trip(s) "
+                                    f"{sorted(set(rec.host_syncs))} inside the "
+                                    "timed optimizer step")
                 want = collections.Counter()
                 for kind, axis, payload in train_expected_collectives(
                         mode, spec, mesh.size, AUDIT_SIZE, torch.bfloat16, gq,
