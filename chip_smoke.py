@@ -237,7 +237,21 @@ The paths:
   `parallel hier selftest` on the card (exit 0, its stream's pickups on
   K1); and the campaign's lint gate, two processes: `campaign run --lint --dry-run` of CAMPAIGN_SPEC (exit 0, no job)
   and a copy with an unknown key in one [[job]] table (a nonzero exit
-  before any job); the two run on the CPU beside the campaign phase.
+  before any job); the two run on the CPU beside the campaign phase. The
+  lint must report every group (`auditor.audit_groups()`: JAX's 19 and
+  `specs`) with no finding in any. Then the last four groups on the card
+  (slice 20): `sched`'s programs and the fingerprint inventory run on the
+  card with K1's and K1b's launches counted from 0 and held to the count
+  of products the recorder saw (`schedule.PRIMITIVES_RUN`); the card's
+  fingerprints equal the golden written on the CPU key by key; each
+  program's recorded schedule on the card equals the CPU's (canonical
+  form); an `overlap` StepProgram whose sum waits on its own step's
+  products fires SCHED-001 on the card; `lint conc selftest` and `lint
+  schema selftest` exit 0 as child processes; and the executable cache's
+  capture under a pod's capture lock waits for no card-wide sync
+  (`capture_lock_check`, CONC-004): it returns while a kernel of about a
+  second still runs on another stream, holds the lock for a small share of
+  that, and calls no `torch.cuda.synchronize` with the lock held.
 
 Standard output is one JSON object per line: one per phase, the
 `seconds` line (each stretch's seconds), then the `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
@@ -261,6 +275,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 SIZE = 16384  # the headline: bf16 16384^3 on one device
@@ -5460,6 +5475,163 @@ def lint_seeded() -> tuple[dict, list]:
     return out, problems
 
 
+# cycles of the busy kernel of `capture_lock_check`: about a second at an
+# H100's SM clock
+CAPTURE_BUSY_CYCLES = 2_000_000_000
+
+
+class _TimedLock:
+    """A lock that sums the seconds it was held."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.held_s = 0.0
+
+    def locked(self) -> bool:
+        return self._lock.locked()
+
+    def __enter__(self):
+        self._lock.acquire()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.held_s += time.perf_counter() - self._t0
+        self._lock.release()
+
+
+def capture_lock_check() -> tuple[dict, list]:
+    """`serve/cache.py capture` of a K1 product under a capture lock, as a
+    pod's drain thread captures a miss, while a kernel of about a second
+    (`torch.cuda._sleep`) runs on a stream of the other priority pool (so
+    neither the side stream nor the capture stream is that stream): the
+    capture must return while that kernel still runs, hold the lock for
+    under a tenth of the busy kernel's time, call `torch.cuda.synchronize`
+    never with the lock held, and its graph's replay must equal an eager
+    K1 call. One capture runs first, untimed: a process's first capture
+    may load a kernel module lazily (CUDA's lazy loading), which
+    synchronises the context once, whatever the lock."""
+    import torch
+
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.serve import cache
+
+    problems = []
+    from tpu_matmul_bench_torch.ops.matmul import random_operands
+
+    (a,) = random_operands(1, (1024, 1024), torch.bfloat16, device="cuda", count=1)
+    (b,) = random_operands(2, (1024, 1024), torch.bfloat16, device="cuda", count=1)
+    want = cm.cuda_matmul(a, b)
+    product = lambda x, y, out: cm.cuda_matmul(x, y, out=out)  # noqa: E731
+    cache.capture(product, a, b, lock=threading.Lock())
+    lock, synced = _TimedLock(), []
+    real_sync = torch.cuda.synchronize
+
+    def spy(*args, **kw):
+        synced.append(lock.locked())
+        return real_sync(*args, **kw)
+
+    busy = torch.cuda.Stream(priority=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.cuda.stream(busy):
+        torch.cuda._sleep(CAPTURE_BUSY_CYCLES)
+    busy_done = torch.cuda.Event()
+    busy_done.record(busy)
+    torch.cuda.synchronize = spy
+    try:
+        exe = cache.capture(product, a, b, lock=lock)
+    finally:
+        torch.cuda.synchronize = real_sync
+    capture_s = time.perf_counter() - t0
+    still_busy = not busy_done.query()
+    busy_done.synchronize()
+    busy_s = time.perf_counter() - t0
+    exe(a, b)
+    exe.wait()
+    same = bool(torch.equal(exe.out, want))
+    result = {"capture_s": capture_s, "lock_held_s": lock.held_s, "busy_s": busy_s,
+              "returned_while_busy": still_busy, "syncs_under_lock": sum(synced),
+              "replay_equals_eager": same}
+    if not still_busy or lock.held_s > busy_s / 10 or any(synced) or not same:
+        problems.append(f"capture under the lock waited for the card or differs: {result}")
+    return result, problems
+
+
+def lint_last_groups() -> tuple[dict, list]:
+    """The slice-20 groups on the card (see the module docstring): the
+    `sched` and `fingerprint` programs with K1's and K1b's launches counted
+    from 0 and held to the recorded products, the card's fingerprints
+    against the golden, its schedules against the CPU's, the seeded
+    SCHED-001, and the source certifiers' selftests as children (started
+    first, read last). Call it with the lint's ranks on the card."""
+    from tpu_matmul_bench_torch.analysis import auditor
+    from tpu_matmul_bench_torch.analysis import fingerprint as fp
+    from tpu_matmul_bench_torch.analysis import schedule as sc
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+
+    problems = []
+    children = {fam: subprocess.Popen(
+        [sys.executable, "-m", "tpu_matmul_bench_torch", "lint", fam, "selftest"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True) for fam in ("conc", "schema")}
+    card = auditor.audit_devices("cuda")
+    for name in cm.ROUTES:
+        cm.LAUNCHES_BY_ROUTE[name] = 0
+    cm.LAUNCHES = cm.REDUCE_LAUNCHES = 0
+    sc.PRIMITIVES_RUN.clear()
+    t0 = time.perf_counter()
+    runs = sc.run_inventory(card)
+    sched = sc.audit_sched(card, runs=runs)
+    t1 = time.perf_counter()
+    fingerprints = fp.current_fingerprints(card)
+    t2 = time.perf_counter()
+    launches = {"k1": cm.LAUNCHES, "k1b": cm.REDUCE_LAUNCHES,
+                "k1_by_route": dict(cm.LAUNCHES_BY_ROUTE)}
+    recorded = sc.PRIMITIVES_RUN
+    ksplits = recorded["cuda_matmul_ksplit"]
+    expected = {"k1": recorded["cuda_matmul"] + ksplits,
+                "k1b": ksplits if cm.effective_ksplit(fp.IMPL_SIZE, 2) > 1 else 0}
+    if [launches["k1"], launches["k1b"]] != [expected["k1"], expected["k1b"]]:
+        problems.append(f"sched+fingerprint launched K1 {launches['k1']} and K1b "
+                        f"{launches['k1b']} times, the recorded products say {expected}")
+    if not expected["k1"] or not expected["k1b"]:
+        problems.append(f"sched+fingerprint recorded no K1 or no K1b product: {expected}")
+    golden = fp.load_golden() or {}
+    matched = sorted(k for k, v in fingerprints.items() if golden.get(k) == v)
+    moved = sorted(set(golden) ^ set(fingerprints) | set(fingerprints) - set(matched))
+    if moved or not matched:
+        problems.append(f"fingerprints off the golden on the card: {moved}")
+    cpu_runs = sc.run_inventory(auditor.audit_devices("cpu"))
+    same = sorted(k for k in runs if sc.canonical(runs[k].log.entries)
+                  == sc.canonical(cpu_runs[k].log.entries))
+    if len(same) != len(runs) or set(runs) != set(cpu_runs):
+        problems.append(f"schedules differing from the CPU's: {sorted(set(runs) - set(same))}")
+    if sched:
+        problems.append(f"sched findings on the card: {[f.to_record() for f in sched]}")
+    seeded = sorted({f.rule for f in sc.seeded_serialized_overlap(card)})
+    if seeded != ["SCHED-001"]:
+        problems.append(f"seeded serialized overlap fired {seeded}, not SCHED-001")
+    selftests = {}
+    for fam, proc in children.items():
+        try:
+            text, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            text, _ = proc.communicate()
+        selftests[fam] = {"rc": proc.returncode, "last": text.strip().splitlines()[-1:]}
+        if proc.returncode != 0:
+            problems.append(f"lint {fam} selftest exit {proc.returncode}: {text[-800:]}")
+    capture_lock, found = capture_lock_check()
+    problems += found
+    return {"sched_s": t1 - t0, "fingerprint_s": t2 - t1, "launches": launches,
+            "expected_launches": expected, "programs": len(runs),
+            "fingerprints_matched": len(matched), "golden_keys": len(golden),
+            "fingerprints_moved": moved, "schedules_equal_cpu": len(same),
+            "sched_findings": len(sched), "seeded_sched": seeded,
+            "selftests": selftests, "capture_lock": capture_lock}, problems
+
+
 def lint_phase(card: str, out_dir: str, gate: dict) -> dict:
     """The contract auditor on the card (slice 19): `lint --fail-on error
     --json-out` in process, exit 0, its findings by group, rule and
@@ -5468,7 +5640,8 @@ def lint_phase(card: str, out_dir: str, gate: dict) -> dict:
     against their plain versions; seeded PURE-001 and DONATE-001; the walk
     against the allocator; SMEM_PER_BLOCK against the card's opt-in limit;
     `parallel hier selftest` on the card; the campaign's lint gate (`gate`,
-    the two processes `lint_gate_children` started beside the campaign)."""
+    the two processes `lint_gate_children` started beside the campaign);
+    and the slice-20 groups (`lint_last_groups`)."""
     import torch
 
     from tpu_matmul_bench_torch.analysis import auditor
@@ -5500,6 +5673,12 @@ def lint_phase(card: str, out_dir: str, gate: dict) -> dict:
         result["peak_memory"] = manifest.get("lint", {}).get("peak_memory")
         if rc != 0:
             problems.append(f"lint exit {rc}: {report_text[-1500:]}")
+        groups = result["groups"] or {}
+        if list(groups) != list(auditor.audit_groups()):
+            problems.append(f"lint groups {list(groups)} != {list(auditor.audit_groups())}")
+        found = {g: v["findings"] for g, v in groups.items() if v["findings"]}
+        if found:
+            problems.append(f"lint findings by group: {found}")
         if result["launches"]["k1"] < 1 or k1b < 1:
             problems.append(f"lint launched K1 {result['launches']['k1']} and K1b {k1b} times")
         # K1 and K1b at the impls group's operands against their plain versions
@@ -5534,6 +5713,10 @@ def lint_phase(card: str, out_dir: str, gate: dict) -> dict:
                                              if ln.startswith(("hier", "mem gate", "stream"))]}
         if rc != 0 or "hier selftest: OK" not in text:
             problems.append(f"parallel hier selftest exit {rc}: {text[-1000:]}")
+        t1 = time.perf_counter()
+        result["last_groups"], found = lint_last_groups()
+        result["last_groups_s"] = time.perf_counter() - t1
+        problems += found
     t1 = time.perf_counter()
     result["gate"], found = lint_gate_result(gate)
     result["gate_wait_s"] = time.perf_counter() - t1
@@ -5946,6 +6129,8 @@ def main(keep_ledgers: str | None = None) -> None:
         # from 0 just before it), and K1 at the impls group's operands
         "lint": {"launches": lint["launches"]["k1"],
                  "launches_by_route": lint["launches"]["k1_by_route"],
+                 # sched's and fingerprint's programs alone (slice 20)
+                 "sched_fingerprint_launches": lint["last_groups"]["launches"],
                  "seconds": lint["lint_s"],
                  "impls": {k: v for k, v in lint["impls"].items() if k.startswith("cuda/")},
                  "hier_selftest_pickups": lint["hier_selftest"]["pickups"]},

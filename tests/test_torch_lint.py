@@ -100,9 +100,10 @@ def test_every_ported_rule_keeps_jax_severity():
               "COLL-H-001", "COLL-H-002", "COLL-H-003", "MEM-001", "MEM-002", "MEM-003",
               "TRAIN-001", "TRAIN-002", "TRAIN-003", "TRAIN-004", "TRAIN-005"} | {
         f"SPEC-{i:03d}" for i in range(1, 11)}
+    ported |= {f"SCHED-{i:03d}" for i in range(1, 5)} | {"DRIFT-001", "DRIFT-002"} | {
+        f"{family}-{i:03d}" for family in ("CONC", "SCHEMA") for i in range(1, 6)}
     assert ported <= set(findings.RULES)
-    assert not {r for r in findings.RULES if r.split("-")[0] in ("SCHED", "DRIFT", "CONC",
-                                                                  "SCHEMA")}
+    assert set(findings.RULES) == set(jax_findings.RULES)
 
 
 def test_without_a_card_lint_exits_2(capsys):
@@ -112,18 +113,38 @@ def test_without_a_card_lint_exits_2(capsys):
 
 
 @pytest.mark.parametrize("family", ["conc", "schema"])
-def test_source_certifiers_exit_2_naming_a15b(capsys, family):
-    with pytest.raises(SystemExit) as e:
-        cli.main([family, "selftest"])
-    assert e.value.code == 2 and "A15b" in capsys.readouterr().err
+def test_source_certifiers_exit_2_naming_a15b(family):
+    # the source certifiers' selftests run, exit 0, and import no torch
+    code = ("import runpy, sys\n"
+            f"sys.argv = ['tpu_matmul_bench_torch', 'lint', '{family}', 'selftest']\n"
+            "try:\n"
+            "    runpy.run_module('tpu_matmul_bench_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert not e.code, e.code\n"
+            "assert 'torch' not in sys.modules, 'the selftest imported torch'\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert f"{family} selftest ok" in out.stdout
+
+
+def test_no_hlo_skips_exactly_jax_s_hlo_family(tmp_path):
+    ledger = tmp_path / "lint.jsonl"
+    assert cli.main(["--device", "cpu", "--no-hlo", "--quiet", "--json-out",
+                     str(ledger), "--skip", "comm_quant", "train"]) == []
+    lint = json.loads(ledger.read_text().splitlines()[0])["lint"]
+    assert lint["skipped"] == ["comm_quant", "train", "sched", "memory", "fingerprint"]
+    assert list(lint["groups"]) == [g for g in aud.audit_groups()
+                                    if g not in lint["skipped"]]
 
 
 def test_skip_choices_are_the_audit_registry():
     parser = cli.build_parser()
     skip = next(a for a in parser._actions if "--skip" in a.option_strings)
     assert tuple(skip.choices) == aud.audit_groups()
-    assert {"conc", "schema", "sched", "fingerprint", "pallas"}.isdisjoint(skip.choices)
-    assert aud.WALK_AUDITS == ("memory",)
+    assert {"conc", "schema", "sched", "fingerprint"} <= set(skip.choices)
+    assert "pallas" not in skip.choices
+    assert aud.HLO_AUDITS == ("sched", "memory", "fingerprint")
 
 
 def test_campaign_lint_gate_stops_a_seeded_spec_before_any_job(tmp_path):

@@ -13,7 +13,6 @@ bidirectional guards, the memory rows, the default mode, fused timing, and
 the streams' event order (the write-after-read hazard of the step rings).
 """
 
-import contextlib
 import functools
 import json
 
@@ -31,6 +30,7 @@ from tpu_matmul_bench.parallel import mesh as jax_mesh
 from tpu_matmul_bench.parallel import modes as jax_modes
 from tpu_matmul_bench.parallel import overlap as jax_ovl
 from tpu_matmul_bench.utils.config import parse_config as jax_parse_config
+from tpu_matmul_bench_torch.analysis.recording import record_schedule
 from tpu_matmul_bench_torch.benchmarks import matmul_overlap_benchmark as overlap_bench
 from tpu_matmul_bench_torch.ops import cuda_ring as cr
 from tpu_matmul_bench_torch.parallel import mesh, modes
@@ -531,57 +531,35 @@ def test_fused_variants_share_one_set_of_clones():
 
 # -------------------------------------------- the streams' order of events
 
-class _Recorder(cr._Schedule):
-    """A schedule that runs every launch at once (as on the CPU) and logs,
-    in issue order, which stream each launch went to, its marks and its
-    waits."""
-
-    def __init__(self, mesh_):
-        super().__init__(mesh_, None)
-        self.log: list[tuple] = []
-        self.marks = 0
-
-    def on(self, r, which):
-        self.log.append(("launch", r, which))
-        return contextlib.nullcontext()
-
-    def mark(self, r, which):
-        self.marks += 1
-        token = ("event", r, which, self.marks)
-        self.log.append(("mark", r, which, token))
-        return token
-
-    def wait(self, r, which, *events):
-        self.log.append(("wait", r, which, {e for e in events if e is not None}))
-
-
 def _record_steps(variant: str, d: int = 2, steps: int = STEPS):
+    """The schedule log (`analysis/recording.record_schedule`) of one call:
+    every launch runs at once, as on the CPU, and the log keeps, in issue
+    order, which stream each launch went to, its marks and its waits."""
     pmesh = port_mesh(d)
     nbuf = NBUF[variant.removesuffix("_nocomm")]
     a_np, b_np = _numpy(51, (d * nbuf, 8, 8), "float32"), _numpy(52, (d * nbuf, 8, 8), "float32")
     a, b = shard_from_numpy(a_np, ROWS, pmesh), shard_from_numpy(b_np, ROWS, pmesh)
     ops = [a, b] if nbuf == 1 else [a, b, ovl.fill_ring(pmesh, nbuf)(a, b)]
     prog = ovl.StepProgram(pmesh, variant, steps)
-    rec = _Recorder(pmesh)
-    prog._schedule = lambda card: rec
-    prog(*ops)
-    return rec.log
+    with record_schedule() as log:
+        prog(*ops)
+    return log.entries
 
 
 def _events(log, r, which):
-    """The tokens of stream (r, which)'s marks, in order, and the waits
-    that came before each of its launches."""
+    """For each launch on stream (r, which), in order: the event marked
+    right after it (None when nothing marks it), and the events waited on
+    before it."""
     tokens, waits, pending = [], [], set()
     for entry in log:
-        if entry[1:3] != (r, which):
-            continue
-        if entry[0] == "wait":
-            pending |= entry[3]
-        elif entry[0] == "launch":
+        if entry[0] == "launch" and entry[2:4] == (r, which):
+            tokens.append(None)
             waits.append(pending)
             pending = set()
-        elif entry[0] == "mark":
-            tokens.append(entry[3])
+        elif entry[0] == "wait" and entry[1:3] == (r, which):
+            pending |= set(entry[3])
+        elif entry[0] == "mark" and entry[1:3] == (r, which) and not entry[4]:
+            tokens[-1] = entry[3]
     return tokens, waits
 
 
@@ -592,9 +570,11 @@ def test_ring_steps_wait_on_the_sum_that_read_their_slot(ranks8, variant):
     log = _record_steps(variant)
     sums, sum_waits = _events(log, 0, ovl._COMM)
     assert len(sums) == STEPS
+    assert None not in sums  # every sum is marked
     for r in range(2):
         products, product_waits = _events(log, r, cr._COMPUTE)
         assert len(products) == STEPS
+        assert None not in products  # every product is marked
         for i in range(STEPS):
             # write-after-read: product i overwrites slot i mod (k+1), read
             # by the sum of step i−1; it must not wait on this step's sum

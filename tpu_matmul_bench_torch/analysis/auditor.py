@@ -12,11 +12,14 @@ are K1's own, with no cuBLAS workspace in them, and on the CPU K1's plain
 version runs.
 
 Each `audit_*` function takes the ranks' devices (`audit_devices`) and
-returns a list of `Finding`s. `AUDITS` lists the groups in JAX's order,
-without the families that have no torch form (`sched`, `fingerprint`) and
-the certifiers that come with ROADMAP A15b (`conc`, `schema`); JAX's
-`pallas` group is `cuda` here. `run_groups` and `run_all` are the CLI's
-entry points.
+returns a list of `Finding`s. `AUDITS` lists every one of JAX's groups in
+JAX's order; JAX's `pallas` group is `cuda` here. `sched` reads the
+recorded stream schedule where JAX reads optimized HLO
+(`analysis/schedule.py`), `fingerprint` digests recorded runs where JAX
+digests jaxprs (`analysis/fingerprint.py`), and `conc` and `schema` are
+the source certifiers, which parse the port's own tree
+(`analysis/concurrency.py`, `analysis/schema_flow.py`). `run_groups` and
+`run_all` are the CLI's entry points.
 """
 
 from __future__ import annotations
@@ -979,6 +982,34 @@ def _audit_memory(devices: Sequence[torch.device],
     return audit_memory(devices, budget_gib=budget_gib, impl=AUDIT_IMPL)
 
 
+def _audit_sched(devices: Sequence[torch.device]) -> list[Finding]:
+    """SCHED-001..004 (`analysis/schedule.py audit_sched`)."""
+    from tpu_matmul_bench_torch.analysis.schedule import audit_sched
+
+    return audit_sched(devices)
+
+
+def _audit_fingerprint(devices: Sequence[torch.device]) -> list[Finding]:
+    """DRIFT-001/002 (`analysis/fingerprint.py audit_fingerprints`)."""
+    from tpu_matmul_bench_torch.analysis.fingerprint import audit_fingerprints
+
+    return audit_fingerprints(devices)
+
+
+def audit_conc(devices: Sequence[torch.device] = ()) -> list[Finding]:
+    """CONC-001..005 (`analysis/concurrency.py conc_findings`)."""
+    from tpu_matmul_bench_torch.analysis.concurrency import conc_findings
+
+    return conc_findings()
+
+
+def audit_schema(devices: Sequence[torch.device] = ()) -> list[Finding]:
+    """SCHEMA-001..005 (`analysis/schema_flow.py schema_findings`)."""
+    from tpu_matmul_bench_torch.analysis.schema_flow import schema_findings
+
+    return schema_findings()
+
+
 AUDITS: dict[str, Callable[[Sequence[torch.device]], list[Finding]]] = {
     "modes": audit_modes,
     "impls": audit_impls,
@@ -991,15 +1022,20 @@ AUDITS: dict[str, Callable[[Sequence[torch.device]], list[Finding]]] = {
     "comm_quant": audit_comm_quant,
     "hier": audit_hier,
     "train": audit_train,
+    "sched": _audit_sched,
     "memory": _audit_memory,
+    "fingerprint": _audit_fingerprint,
     "faults": audit_faults,
     "trace": audit_trace,
     "pod": audit_pod,
+    "conc": audit_conc,
+    "schema": audit_schema,
 }
 
-#: the groups that run every mode for its live bytes: what `lint --no-hlo`
-#: skips (JAX's HLO pass family)
-WALK_AUDITS = ("memory",)
+#: JAX's HLO pass family, the groups that run every program of their
+#: inventory once more (its schedule, its live bytes, its fingerprint):
+#: what `lint --no-hlo` skips
+HLO_AUDITS = ("sched", "memory", "fingerprint")
 
 
 def audit_groups() -> tuple[str, ...]:

@@ -14,11 +14,14 @@ Deviations, on purpose:
   its lint to the CPU, where it only traces.
 - The audit worlds of 4 and 8 ranks share one device: the CLI sets
   `TMB_RANKS_PER_CARD` to 8 when it is unset (JAX forces 8 host devices).
-- `--no-hlo` skips `memory`, the group that runs every mode for its live
-  bytes (JAX's HLO family; the port has no compiled HLO to walk).
+- `--no-hlo` skips JAX's HLO pass family, `sched`, `memory` and
+  `fingerprint`, the groups that run their programs once more for their
+  schedule, live bytes and fingerprint (the port has no compiled HLO).
 - The default specs are the port's card specs, `specs/torch/*.toml`.
-- `lint conc selftest` and `lint schema selftest`, the source certifiers,
-  are not ported yet: they exit 2 naming ROADMAP A15b.
+
+`lint conc selftest` and `lint schema selftest`, the source certifiers'
+self-checks, dispatch before torch is imported, as JAX's dispatch before
+jax: they parse the tree and never run it.
 """
 
 from __future__ import annotations
@@ -33,10 +36,6 @@ from typing import Iterator
 
 #: the exit code of a refused subcommand (argparse's usage-error code)
 EXIT_REFUSED = 2
-
-#: `lint conc|schema selftest` wait for the source certifiers
-NOT_PORTED = ("lint {} selftest: not ported yet; the {} certifier waits for "
-              "ROADMAP A15b")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,8 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "registry — every registered group is skippable, "
                              "nothing else is)")
     parser.add_argument("--no-hlo", action="store_true",
-                        help="skip the memory group, which runs every mode "
-                             "for its live bytes (JAX's HLO pass family)")
+                        help="skip the sched, memory and fingerprint groups, "
+                             "which run their programs once more (JAX's HLO "
+                             "pass family)")
     parser.add_argument("--mem-budget-gib", type=float, default=None,
                         help="per-device budget for the MEM-001 gate "
                              "(default: the device's own memory)")
@@ -99,15 +99,28 @@ def audit_ranks() -> Iterator[None]:
 
 def main(argv: list[str] | None = None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv[:1] in (["conc"], ["schema"]):
-        name = {"conc": "concurrency", "schema": "schema-flow"}[argv[0]]
-        print(NOT_PORTED.format(argv[0], name), file=sys.stderr)
-        raise SystemExit(EXIT_REFUSED)
+    # the source certifiers' self-checks (real tree clean, seeded rules
+    # fire, deterministic findings, live declaration tables): torch-free,
+    # so they dispatch before torch is imported
+    if argv[:1] == ["conc"]:
+        if argv[1:] != ["selftest"]:
+            print("usage: lint conc selftest", file=sys.stderr)
+            raise SystemExit(EXIT_REFUSED)
+        from tpu_matmul_bench_torch.analysis.concurrency import run_conc_selftest
+
+        return run_conc_selftest()
+    if argv[:1] == ["schema"]:
+        if argv[1:] != ["selftest"]:
+            print("usage: lint schema selftest", file=sys.stderr)
+            raise SystemExit(EXIT_REFUSED)
+        from tpu_matmul_bench_torch.analysis.schema_flow import run_schema_selftest
+
+        return run_schema_selftest()
     args = build_parser().parse_args(argv)
 
     import torch
 
-    from tpu_matmul_bench_torch.analysis.auditor import WALK_AUDITS, audit_devices, run_groups
+    from tpu_matmul_bench_torch.analysis.auditor import HLO_AUDITS, audit_devices, run_groups
     from tpu_matmul_bench_torch.analysis.findings import should_fail, summarize, write_ledger
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -116,7 +129,7 @@ def main(argv: list[str] | None = None):
         raise SystemExit(EXIT_REFUSED)
     skip = list(args.skip)
     if args.no_hlo:
-        skip.extend(g for g in WALK_AUDITS if g not in skip)
+        skip.extend(g for g in HLO_AUDITS if g not in skip)
     spec_paths = args.specs if args.specs is not None else default_specs()
     with audit_ranks():
         devices = audit_devices(args.device)

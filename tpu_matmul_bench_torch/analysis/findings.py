@@ -4,14 +4,13 @@ The `Finding` dataclass and the findings ledger of
 `tpu_matmul_bench/analysis/findings.py`, with the rules of every audit the
 port runs: the `lint` program's groups (`analysis/auditor.py`: DTYPE,
 COLL, PURE, DONATE, PALLAS, REG, TUNE, ART, OBS, COLL-Q, DTYPE-Q, COLL-H,
-TRAIN, MEM, FAULT, TRACE, POD) and its spec lint (`analysis/spec_lint.py`,
-SPEC-001..010), and the observatory's drift verdicts (`obs/detect.py`,
-HIST-001..004). Rule IDs never change meaning: where the port's object
-differs from JAX's (a recorded run in place of a jaxpr, a Hopper tile in
-place of a Pallas block, the card's memory in place of a TPU's), the rule
-keeps its ID and its words say what the port checks. The SCHED, DRIFT,
-CONC and SCHEMA families are not here: the first two have no torch form
-yet, the last two come with ROADMAP A15b.
+TRAIN, SCHED, MEM, DRIFT, FAULT, TRACE, POD, CONC, SCHEMA) and its spec lint
+(`analysis/spec_lint.py`, SPEC-001..010), and the observatory's drift
+verdicts (`obs/detect.py`, HIST-001..004). Rule IDs never change meaning:
+where the port's object differs from JAX's (a recorded run in place of a
+jaxpr, a recorded stream schedule in place of optimized HLO, a Hopper tile
+in place of a Pallas block, the card's memory in place of a TPU's), the
+rule keeps its ID and its words say what the port checks.
 """
 
 from __future__ import annotations
@@ -77,11 +76,37 @@ RULES: dict[str, tuple[Severity, str]] = {
                         "no tuning-DB cell behind it (promote a cell citing "
                         "a measured artifact or an explicit analytic prior "
                         "— tune promote / tune.regen)"),
+    "SCHED-001": ("error", "forced serialization: a collective transitively "
+                           "consumes the same step's matmul product in the "
+                           "recorded stream schedule (required on no_overlap "
+                           "and the serialized ring baselines, fatal on "
+                           "overlap paths — no stream may hide it)"),
+    "SCHED-002": ("error", "matmul/collective mutual independence broken in "
+                           "an overlap step — a product waits on its own "
+                           "step's sum, or the step has no product: the "
+                           "precondition for the two streams to overlap is "
+                           "gone"),
+    "SCHED-003": ("error", "ring schedule broken: hop or product count a "
+                           "rank, or hop independence, no longer matches "
+                           "the ring contract"),
+    "SCHED-004": ("error", "event mark/wait pairing broken in the recorded "
+                           "schedule (a wait on an event never marked, a "
+                           "rank stream the exit barrier does not join, or "
+                           "no product issued between a sum's mark and the "
+                           "wait that consumes it)"),
     "MEM-001": ("error", "peak live bytes of the live-bytes walk exceed the "
                          "per-device memory budget"),
     "MEM-002": ("warn", "peak live bytes inconsistent with the comms "
                         "model's per-shard payloads (walk or program shape "
                         "self-check failed)"),
+    "DRIFT-001": ("error", "program fingerprint drifted from the golden "
+                           "baseline — recorded structure changed without a "
+                           "baseline regen (python -m tpu_matmul_bench_torch."
+                           "analysis.regen_golden)"),
+    "DRIFT-002": ("warn", "fingerprint baseline incomplete or stale for a "
+                          "recorded program (regen "
+                          "tpu_matmul_bench_torch/analysis/golden/"
+                          "program_fingerprints.json)"),
     "TUNE-001": ("error", "impl_select route resolves to no tuning-DB cell "
                           "and no declared fallback (a table tier citing a "
                           "committed artifact) — the routing decision has "
@@ -267,6 +292,52 @@ RULES: dict[str, tuple[Severity, str]] = {
                           "with no factorized --mesh, --mesh not covering "
                           "--num-devices, or a per-link --comm-quant the "
                           "pod collective model rejects"),
+    "CONC-001": ("error", "shared mutable attribute or module global "
+                          "written from two or more thread roots with no "
+                          "common guarding lock — a lost-update / torn-"
+                          "read race under any interleaving the GIL "
+                          "happens not to serialize"),
+    "CONC-002": ("error", "lock-order cycle: two code paths acquire the "
+                          "same locks in opposite orders — two threads "
+                          "interleaving those paths deadlock"),
+    "CONC-003": ("error", "appender surface touched from a thread role "
+                          "other than its declared sole toucher "
+                          "(analysis/concurrency.THREAD_ROLES), or an "
+                          "appender-shaped method shipped with no "
+                          "declaration at all — the one-writer-per-"
+                          "ledger contract behind FlightRecorder and the "
+                          "FAULT-002 writer registry, statically checked"),
+    "CONC-004": ("error", "blocking call (fsync, subprocess, time.sleep, a "
+                          "CUDA-graph capture, a synchronize of the card, a "
+                          "stream or an event, an nvcc build, a kernel-"
+                          "library import or export) while holding a lock "
+                          "— every thread contending that lock stalls "
+                          "behind it on the serve hot path"),
+    "CONC-005": ("error", "wall-clock or unseeded-randomness call "
+                          "reachable from a fault-plan replay root — the "
+                          "chaos certifier's converged-state verdict "
+                          "assumes replay is a pure function of "
+                          "(plan, seed)"),
+    "SCHEMA-001": ("error", "record key read by a declared consumer that "
+                            "no declared producer writes (and not on the "
+                            "family's historical allowlist) — a KeyError "
+                            "or silent None waiting for the next ledger"),
+    "SCHEMA-002": ("error", "a family's validator does not mention every "
+                            "key its schema-scoped producers statically "
+                            "write — the validator lags the producer, so "
+                            "torn or drifted records pass the gate"),
+    "SCHEMA-003": ("warn", "record key written but read by no declared "
+                           "consumer anywhere and not on the family's "
+                           "OUTPUT_ONLY allowlist with a reviewed reason "
+                           "— dead weight in every ledger line"),
+    "SCHEMA-004": ("error", "one record key written with structurally "
+                            "incompatible value shapes (scalar vs dict "
+                            "vs list) across producers of one family — "
+                            "consumers cannot branch on luck"),
+    "SCHEMA-005": ("error", "record family with a durable writer but no "
+                            "declared obs/history.py ingest route and no "
+                            "NON_HISTORY reason — the observatory's "
+                            "coverage contract made mechanical"),
 }
 
 

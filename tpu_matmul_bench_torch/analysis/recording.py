@@ -37,14 +37,21 @@ it does:
 - **storage identity** (DONATE-001): `storage_state` and `written_in_place`
   say whether a tensor was written in place (the same storage, its version
   counter moved) rather than replaced.
+- **the stream schedule** (`record_schedule`, SCHED-001..004 and the
+  fingerprints' schedule): the launches, event marks and waits and the
+  entry and exit barriers of the rank-stream programs
+  (`parallel/overlap.py`), in issue order (`ScheduleLog`). JAX infers from
+  optimized HLO whether XLA may overlap a collective with a product; the
+  port writes its schedule down, so the contract is read off the record.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import weakref
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, Sequence
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -60,6 +67,15 @@ DOORS = {"psum_over": "all_reduce", "pmean_over": "all_reduce",
 #: the kernels' plain versions (`ops/cuda_matmul.py`), each one primitive
 #: under `record(opaque=True)`
 PLAIN_PRODUCTS = ("matmul_plain", "matmul_acc_plain", "matmul_ksplit_plain")
+
+#: what runs a kernel or the library on the card and a plain version on
+#: the CPU, each one primitive under `record(opaque=True)` for a program
+#: built inside the block, so its record does not depend on the device:
+#: (module, function) — K1 and K1b's wrappers, the library product, a hop
+PRODUCT_ENTRIES = (("tpu_matmul_bench_torch.ops.cuda_matmul", "cuda_matmul"),
+                   ("tpu_matmul_bench_torch.ops.cuda_matmul", "cuda_matmul_ksplit"),
+                   ("tpu_matmul_bench_torch.ops.matmul", "_library"),
+                   ("tpu_matmul_bench_torch.ops.cuda_ring", "_hop"))
 
 # dtypes that only ever appear on a quantized wire
 _WIRE_DTYPES = {torch.int8, torch.float8_e4m3fn}
@@ -103,7 +119,17 @@ class Recording:
     host_syncs: list[str] = dataclasses.field(default_factory=list)
     # the names of the operations that made tensors, in order
     ops: list[str] = dataclasses.field(default_factory=list)
+    # the primitives (doors, products, hops) called outside any other, in
+    # order, under `record(opaque=True)`
+    primitives: list[str] = dataclasses.field(default_factory=list)
     opaque: int = 0  # depth of primitives running now
+
+    def reset(self) -> None:
+        """Forget what was recorded so far (a program built inside the
+        block, whose build is not part of its record)."""
+        for f in dataclasses.fields(self):
+            if f.name != "opaque":
+                getattr(self, f.name).clear()
 
     def add_collective(self, kind: str, mesh: Any, shards: Any) -> None:
         with torch._C.DisableTorchFunction():  # the recorder's own reads
@@ -166,14 +192,16 @@ def _door(rec: Recording, kind: str, make: Callable, opaque: bool) -> Callable:
 
         def fn(shards):
             rec.add_collective(kind, mesh, shards)
-            with _primitive(rec, opaque):
+            with _primitive(rec, opaque, kind):
                 return inner(shards)
         return fn
     return wrapped
 
 
 @contextlib.contextmanager
-def _primitive(rec: Recording, opaque: bool) -> Iterator[None]:
+def _primitive(rec: Recording, opaque: bool, name: str) -> Iterator[None]:
+    if opaque and not rec.opaque:
+        rec.primitives.append(name)
     rec.opaque += opaque
     try:
         yield
@@ -186,8 +214,9 @@ def record(*, collectives: bool = True, dtypes: bool = True,
            opaque: bool = False) -> Iterator[Recording]:
     """Record the block (see the module docstring): its collectives, its
     float downcasts, round trips and wire casts, and its host round trips.
-    `opaque`: collectives and the kernels' plain versions are primitives,
-    whose own casts are not logged."""
+    `opaque`: collectives, the kernels' plain versions and the
+    `PRODUCT_ENTRIES` are primitives, whose own casts and operations are
+    not logged; each is logged once in `primitives`."""
     from tpu_matmul_bench_torch.ops import cuda_matmul
     from tpu_matmul_bench_torch.parallel import collectives as coll
 
@@ -205,15 +234,17 @@ def record(*, collectives: bool = True, dtypes: bool = True,
 
         def ppermute(mesh, shards, perm):
             rec.add_collective("ppermute", mesh, shards)
-            with _primitive(rec, opaque):
+            with _primitive(rec, opaque, "ppermute"):
                 return real_ppermute(mesh, shards, perm)
         patch(coll, "ppermute", ppermute)
     if opaque:
-        for name in PLAIN_PRODUCTS:
-            def product(*a, _real=getattr(cuda_matmul, name), **kw):
-                with _primitive(rec, True):
+        entries = [(cuda_matmul, name) for name in PLAIN_PRODUCTS]
+        entries += [(importlib.import_module(m), name) for m, name in PRODUCT_ENTRIES]
+        for module, name in entries:
+            def product(*a, _real=getattr(module, name), _name=name, **kw):
+                with _primitive(rec, True, _name):
                     return _real(*a, **kw)
-            patch(cuda_matmul, name, product)
+            patch(module, name, product)
     real_sync = torch.cuda.synchronize
 
     def synchronize(*a, **kw):
@@ -329,3 +360,82 @@ def written_in_place(before: tuple[int, int], t: torch.Tensor) -> bool:
     (`storage_state`): the same address, and a version counter that moved."""
     ptr, version = storage_state(t)
     return ptr == before[0] and version > before[1]
+
+
+# ---------------------------------------------------------------------------
+# the stream schedule (SCHED-*, and the schedule part of a fingerprint)
+# ---------------------------------------------------------------------------
+
+class ScheduleEvent:
+    """A marked event where no CUDA event exists (on the CPU): its number
+    in the log."""
+
+    def __init__(self, eid: int) -> None:
+        self.eid = eid
+
+
+class ScheduleLog:
+    """What the rank-stream programs issued, in issue order, while
+    `record_schedule` was active (`ops/cuda_ring.py _Schedule`, which logs
+    a launch where its `on` puts work on a stream):
+
+    - ("enter",) and ("leave",): the call's entry and exit barriers;
+    - ("launch", kind, rank, stream, step): a launch on rank `rank`'s
+      stream `stream` (`cuda_ring.CALLER` for the caller's own, whose
+      launches follow one another in issue order) at step `step`, of
+      kind "product" (the program's `matmul_2d`, K1 under `cuda`), "sum"
+      (the psum door), "hop" (`cuda_ring._hop`), "add" (the
+      reduce-scatter ring's accumulation), "gather" or "scatter" (a
+      serialized baseline's collective) or "copy";
+    - ("mark", rank, stream, eid, leaving): an event marked on that stream,
+      numbered in mark order; `leaving` for the marks of the exit barrier;
+    - ("wait", rank, stream, eids, reuse): that stream waits on the events
+      (-1 for one this log never marked); `reuse` when the wait guards a
+      buffer's reuse (a write after a read), not data the next launch
+      consumes.
+
+    The log is the same on the CPU, where the schedule has no streams and
+    every launch runs at once, as on the card: event numbers replace the
+    card's events, and nothing in it depends on a pointer or a time."""
+
+    def __init__(self) -> None:
+        self.entries: list[tuple] = []
+        self._eids: dict[int, int] = {}
+        self._held: list[Any] = []  # the marked events, kept alive for their ids
+        self._leaving = False
+
+    def launch(self, kind: str, rank: int, stream: int, step: int) -> None:
+        self.entries.append(("launch", kind, rank, stream, step))
+
+    def mark(self, rank: int, stream: int, event: Any) -> Any:
+        eid = len(self._held)
+        if event is None:
+            event = ScheduleEvent(eid)
+        self._eids[id(event)] = eid
+        self._held.append(event)
+        self.entries.append(("mark", rank, stream, eid, self._leaving))
+        return event
+
+    def wait(self, rank: int, stream: int, events: Sequence[Any], reuse: bool) -> None:
+        # a marked event is held, so no other live object shares its id
+        eids = tuple(self._eids.get(id(e), -1) for e in events)
+        self.entries.append(("wait", rank, stream, eids, reuse))
+
+    def barrier(self, name: str) -> None:
+        self._leaving = name == "leave"
+        self.entries.append((name,))
+
+
+@contextlib.contextmanager
+def record_schedule() -> Iterator[ScheduleLog]:
+    """While the block runs, every rank-stream program logs its schedule
+    (see `ScheduleLog`): the log is handed to the schedules made meanwhile
+    (`cuda_ring._Schedule.recorder`)."""
+    from tpu_matmul_bench_torch.ops.cuda_ring import _Schedule
+
+    log = ScheduleLog()
+    saved, _Schedule.recorder = _Schedule.recorder, log
+    try:
+        yield log
+    finally:
+        _Schedule.recorder = saved

@@ -14,7 +14,7 @@ The parent process never initializes CUDA — the job children own the card
 CPU (`python -m tpu_matmul_bench_torch lint --device cpu --fail-on error
 --specs SPEC`, with no card visible to it), so that the campaign's parent
 holds no device; a finding stops the campaign. `--no-hlo` with it skips
-the lint's `memory` group. `gate --history` gates against the port's metric-history store
+the lint's `sched`, `memory` and `fingerprint` groups. `gate --history` gates against the port's metric-history store
 (`obs/history.py`, ``measurements/torch/history.jsonl``).
 
 Exit codes: `run`/`resume` exit 1 if any job failed; `gate` exits 0 on

@@ -158,6 +158,8 @@ def ag_transfer(mesh: Mesh) -> str:
 # a rank's streams: products, hops (the right-going ones in K4 and K5), and
 # the left-going hops of K4 and K5; the copy streams only where the ring hops
 _COMPUTE, _COPY, _COPY_BACK = 0, 1, 2
+#: the caller's own stream, where a serialized baseline issues its work
+CALLER = -1
 
 
 class _Way(NamedTuple):
@@ -195,35 +197,63 @@ def rank_streams(mesh: Mesh, per_rank: int) -> list[tuple[Any, ...]]:
 
 class _Schedule:
     """The streams and events of one ring call on the card; on the CPU
-    every method is a no-op and each step runs at once, in issue order."""
+    every method is a no-op and each step runs at once, in issue order.
+    While a schedule recorder runs (`analysis/recording.record_schedule`,
+    which sets `recorder`), every launch (where `on` puts work on a
+    stream), mark, wait and barrier is also logged, the same on the CPU
+    (where a mark is a numbered event of the log) as on the card; `step`
+    is the step the program is at, and `per_rank` the streams a rank has
+    where there are none (the CPU)."""
 
-    def __init__(self, mesh: Mesh, streams: list[tuple[Any, ...]] | None):
+    #: the log of the schedule recorder running now, if any
+    recorder: Any = None
+
+    def __init__(self, mesh: Mesh, streams: list[tuple[Any, ...]] | None,
+                 per_rank: int = 0):
         self.mesh = mesh
         self.streams = streams
+        self.log = _Schedule.recorder
+        self.per_rank = per_rank
+        self.step = 0
 
     def stream(self, r: int, which: int):
         return self.streams[r][which]
 
-    def on(self, r: int, which: int):
-        if self.streams is None:
+    def on(self, r: int, which: int, kind: str):
+        """The block puts a launch of `kind` on rank r's stream `which`
+        (`CALLER`: the caller's own)."""
+        if self.log is not None:
+            self.log.launch(kind, r, which, self.step)
+        if self.streams is None or which == CALLER:
             return contextlib.nullcontext()
         return torch.cuda.stream(self.stream(r, which))
 
-    def mark(self, r: int, which: int) -> torch.cuda.Event | None:
-        if self.streams is None:
-            return None
-        event = torch.cuda.Event()
-        event.record(self.stream(r, which))
+    def mark(self, r: int, which: int) -> Any:
+        event = None
+        if self.streams is not None:
+            event = torch.cuda.Event()
+            event.record(self.stream(r, which))
+        if self.log is not None:
+            event = self.log.mark(r, which, event)
         return event
 
-    def wait(self, r: int, which: int, *events: torch.cuda.Event | None) -> None:
+    def wait(self, r: int, which: int, *events: Any, reuse: bool = False) -> None:
+        """Rank r's stream `which` waits on the events (None: nothing to
+        wait for). `reuse`: the wait guards a buffer's reuse (the next
+        launch overwrites what the marked one read), not data it reads."""
+        events = tuple(e for e in events if e is not None)
+        if self.log is not None and events:
+            self.log.wait(r, which, events, reuse)
+        if self.streams is None:
+            return
         for event in events:
-            if event is not None:
-                self.stream(r, which).wait_event(event)
+            self.stream(r, which).wait_event(event)
 
     def enter(self) -> None:
         """Every rank stream waits on the caller's current stream of every
         card (the entry barrier)."""
+        if self.log is not None:
+            self.log.barrier("enter")
         if self.streams is None:
             return
         marks = []
@@ -239,10 +269,15 @@ class _Schedule:
     def leave(self) -> None:
         """The caller's current stream of every card waits on every rank
         stream."""
+        if self.streams is None and self.log is None:
+            return
+        if self.log is not None:
+            self.log.barrier("leave")
+        lanes = [len(s) for s in self.streams] if self.streams is not None \
+            else [self.per_rank] * len(self.mesh.ranks)
+        ends = [self.mark(r, which) for r, n in enumerate(lanes) for which in range(n)]
         if self.streams is None:
             return
-        ends = [self.mark(r, which) for r, rank_streams in enumerate(self.streams)
-                for which in range(len(rank_streams))]
         for card in self.mesh.cards:
             current = torch.cuda.current_stream(card)
             for event in ends:
@@ -272,10 +307,11 @@ def _hop(sched: _Schedule, r: int, dst: torch.Tensor, src: torch.Tensor,
     if not (dst.is_contiguous() and src.is_contiguous()):
         raise ValueError("a hop copies whole contiguous chunks")
     if src.device.type == "cpu":
-        dst.copy_(src)
+        with sched.on(r, which, "hop"):
+            dst.copy_(src)
         return
     lib = _ring_lib()
-    with torch.cuda.device(src.device):
+    with sched.on(r, which, "hop"), torch.cuda.device(src.device):
         rc = lib.tmb_ring_hop(dst.data_ptr(), src.data_ptr(),
                               src.numel() * src.element_size(), dst.device.index,
                               src.device.index, sched.stream(r, which).cuda_stream)
@@ -381,7 +417,7 @@ class RingMatmul:
         """dest = a·w (+ accin, the pickup) on rank r's compute stream: K1
         for the all-gather rings that hop, `cm.cuda_matmul_rs` for the
         reduce-scatter rings; returns the event after it."""
-        with sched.on(r, _COMPUTE):
+        with sched.on(r, _COMPUTE, "product"):
             if self.reduce_scatter:
                 cm.cuda_matmul_rs(a, w, accin, dest, blocks=self.blocks)
             else:
@@ -394,7 +430,7 @@ class RingMatmul:
         """dest = a·w on rank r's compute stream, and a copied into the
         reader's slot `fwd` (None at the last step) by the same launch
         (`cm.cuda_matmul_ag`). Returns the event after it."""
-        with sched.on(r, _COMPUTE):
+        with sched.on(r, _COMPUTE, "product"):
             cm.cuda_matmul_ag(a, w, dest, fwd, blocks=self.blocks)
         _count_step(a.device)
         return sched.mark(r, _COMPUTE)

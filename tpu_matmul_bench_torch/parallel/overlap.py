@@ -44,10 +44,11 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from tpu_matmul_bench_torch.ops import cuda_ring
 from tpu_matmul_bench_torch.ops.cuda_ring import (
     _COMPUTE,
     _COPY,
-    _hop,
+    CALLER,
     _Schedule,
     rank_streams,
     ring_ways,
@@ -90,15 +91,16 @@ _COMM = _COPY
 
 
 class _SerialSchedule(_Schedule):
-    """`_Schedule` that synchronises the card after every launch it marks
-    (each product, sum and hop is followed by a mark before another stream
-    gets work): the programs' launches then run one at a time, in issue
-    order. The race checks' reference (`serial=True` on a program)."""
+    """`_Schedule` that synchronises the card after every launch (as its
+    `on` block ends, before another stream gets work, whatever the program
+    marks): the programs' launches then run one at a time, in issue order.
+    The race checks' reference (`serial=True` on a program)."""
 
-    def mark(self, r: int, which: int) -> torch.cuda.Event | None:
-        event = super().mark(r, which)
+    @contextlib.contextmanager
+    def on(self, r: int, which: int, kind: str):
+        with super().on(r, which, kind):
+            yield
         torch.cuda.synchronize(self.mesh.devices[r])
-        return event
 
 
 class _RankStreamProgram:
@@ -116,7 +118,7 @@ class _RankStreamProgram:
 
     def _schedule(self, card: bool) -> _Schedule:
         if not card:
-            return _Schedule(self.mesh, None)
+            return _Schedule(self.mesh, None, self.per_rank)
         if self._streams is None:
             self._streams = rank_streams(self.mesh, self.per_rank)
         return (_SerialSchedule if self.serial else _Schedule)(self.mesh, self._streams)
@@ -191,7 +193,7 @@ class StepProgram(_RankStreamProgram):
 
     def _product(self, sched: _Schedule, r: int, a: torch.Tensor, b: torch.Tensor,
                  dest: torch.Tensor) -> torch.cuda.Event | None:
-        with sched.on(r, _COMPUTE):
+        with sched.on(r, _COMPUTE, "product"):
             self.mm(a, b, out=dest)
         return sched.mark(r, _COMPUTE)
 
@@ -205,7 +207,7 @@ class StepProgram(_RankStreamProgram):
             sched.wait(r, _COMM, *ready)
         with contextlib.ExitStack() as stack:
             for r in self._leads:
-                stack.enter_context(sched.on(r, _COMM))
+                stack.enter_context(sched.on(r, _COMM, "sum" if comm else "copy"))
             sums = self.psum(src) if comm else src
             for o, s in zip(outs, sums):
                 o[i].copy_(s[0, 0])
@@ -215,13 +217,14 @@ class StepProgram(_RankStreamProgram):
         d = len(self.mesh.ranks)
         summed: list = []
         for i in range(self.steps):
+            sched.step = i
             made = []
             for r in range(d):
                 # no_overlap: the product overwrites what the last sum read
-                sched.wait(r, _COMPUTE, *summed)
+                sched.wait(r, _COMPUTE, *summed, reuse=True)
                 made.append(self._product(sched, r, a[r][0], b[r][0], prod[r]))
                 if self.variant == "compute_only":
-                    with sched.on(r, _COMPUTE):
+                    with sched.on(r, _COMPUTE, "copy"):
                         outs[r][i].copy_(prod[r][0, 0])
             if self.variant == "no_overlap":
                 summed = self._sum(sched, i, prod, made, outs)
@@ -234,6 +237,7 @@ class StepProgram(_RankStreamProgram):
         made: dict[int, list] = {}
         summed: dict[int, list] = {}
         for i in range(self.steps):
+            sched.step = i
             slot = i % k
             if i < k:
                 src, ready = [ring0[r][slot] for r in range(d)], []
@@ -243,7 +247,7 @@ class StepProgram(_RankStreamProgram):
             made[i] = []
             for r in range(d):
                 if i > k:  # slot i mod (k+1) held product i−k−1, read at step i−1
-                    sched.wait(r, _COMPUTE, *summed[i - 1])
+                    sched.wait(r, _COMPUTE, *summed[i - 1], reuse=True)
                 made[i].append(self._product(sched, r, a[r][slot % nbuf], b[r][slot % nbuf],
                                              slots[r][i % (k + 1)]))
 
@@ -380,10 +384,11 @@ class CollectiveMatmul(_RankStreamProgram):
         reads: dict[tuple[str, int, int], tuple] = {}
         sched.enter()
         for t in range(d):
+            sched.step = t
             for r in range(d):
                 whole = self.bidir and t == 0  # the own chunk, in one product
                 if whole:
-                    with sched.on(r, _COMPUTE):
+                    with sched.on(r, _COMPUTE, "product"):
                         self.mm(x[r], w[r], out=y[r][r * mshard:(r + 1) * mshard])
                     product = sched.mark(r, _COMPUTE)
                 for way in ways:
@@ -393,15 +398,18 @@ class CollectiveMatmul(_RankStreamProgram):
                     if not whole:
                         row0 = (r - way.step * t) % d * mshard
                         sched.wait(r, _COMPUTE, arrived)
-                        with sched.on(r, _COMPUTE):
+                        with sched.on(r, _COMPUTE, "product"):
                             self.mm(chunk, w[r], out=y[r][row0 + way.lo:row0 + way.hi])
                         product = sched.mark(r, _COMPUTE)
                     if t + 1 < d:
                         # free_sem: the reader read its slot (t+1) mod 2 at
                         # step t−1 (a slot from t−1 = 1 on)
                         freed = reads[(way.name, reader, t - 1)] if t >= 2 else ()
-                        sched.wait(r, way.copy, arrived, *freed)
-                        _hop(sched, r, slots[way.name][reader][(t + 1) % 2], chunk, way.copy)
+                        sched.wait(r, way.copy, arrived)
+                        sched.wait(r, way.copy, *freed, reuse=True)
+                        # through the module, where a recorder's patch sees it
+                        cuda_ring._hop(sched, r, slots[way.name][reader][(t + 1) % 2], chunk,
+                                       way.copy)
                         hop_done[(way.name, r, t)] = sched.mark(r, way.copy)
                     reads[(way.name, r, t)] = (product, hop_done.get((way.name, r, t)))
         sched.leave()
@@ -419,6 +427,7 @@ class CollectiveMatmul(_RankStreamProgram):
         summed: dict[tuple[str, int, int], Any] = {}
         sched.enter()
         for t in range(d):
+            sched.step = t
             last = t + 1 == d
             for r in range(d):
                 for way in ways:
@@ -426,23 +435,29 @@ class CollectiveMatmul(_RankStreamProgram):
                     row0 = (r - way.step * (1 + t)) % d * mshard
                     rows = x[r][row0 + way.lo:row0 + way.hi]
                     dest = y[r][way.lo:way.hi] if last else stage[way.name][r][t % 2]
-                    with sched.on(r, _COMPUTE):
-                        if t == 0:  # acc = 0 + rows·w
+                    if t == 0:  # acc = 0 + rows·w
+                        with sched.on(r, _COMPUTE, "product"):
                             self.mm(rows, w[r], out=dest)
-                        else:
+                    else:
+                        with sched.on(r, _COMPUTE, "product"):
                             part = self.mm(rows, w[r])
-                            # recv_sem of this step's accumulator; the hop
-                            # that last read this staging slot, two steps ago
-                            sched.wait(r, _COMPUTE, hop_done[(way.name, writer, t - 1)],
-                                       hop_done.get((way.name, r, t - 2)))
+                        # recv_sem of this step's accumulator; the hop that
+                        # last read this staging slot, two steps ago
+                        sched.wait(r, _COMPUTE, hop_done[(way.name, writer, t - 1)])
+                        sched.wait(r, _COMPUTE, hop_done.get((way.name, r, t - 2)),
+                                   reuse=True)
+                        with sched.on(r, _COMPUTE, "add"):
                             torch.add(recv[way.name][r][t % 2], part, out=dest)
                     summed[(way.name, r, t)] = sched.mark(r, _COMPUTE)
                     if not last:
                         # free_sem: the reader's sum read its slot (t+1) mod
                         # 2 at step t−1 (a slot from t−1 = 1 on)
-                        sched.wait(r, way.copy, summed[(way.name, r, t)],
-                                   summed[(way.name, reader, t - 1)] if t >= 2 else None)
-                        _hop(sched, r, recv[way.name][reader][(t + 1) % 2], dest, way.copy)
+                        sched.wait(r, way.copy, summed[(way.name, r, t)])
+                        sched.wait(r, way.copy,
+                                   summed[(way.name, reader, t - 1)] if t >= 2 else None,
+                                   reuse=True)
+                        cuda_ring._hop(sched, r, recv[way.name][reader][(t + 1) % 2], dest,
+                                       way.copy)
                         hop_done[(way.name, r, t)] = sched.mark(r, way.copy)
         sched.leave()
         return Sharded(y, ROWS)
@@ -461,8 +476,16 @@ def collective_matmul_program(mesh: Mesh, overlap: bool = True,
     gather_x = all_gather_over(mesh, gather_axis=0)
 
     def program(x: Sharded, w: Sharded) -> Sharded:
-        x_full = gather_x(x)
-        return Sharded([mm(xf, wr) for xf, wr in zip(x_full, w)], COLS)
+        sched = _Schedule(mesh, None)  # the caller's stream, in issue order
+        with contextlib.ExitStack() as stack:
+            for r in range(len(x)):
+                stack.enter_context(sched.on(r, CALLER, "gather"))
+            x_full = gather_x(x)
+        ys = []
+        for r, (xf, wr) in enumerate(zip(x_full, w)):
+            with sched.on(r, CALLER, "product"):
+                ys.append(mm(xf, wr))
+        return Sharded(ys, COLS)
 
     return program
 
@@ -488,7 +511,16 @@ def collective_matmul_rs_program(mesh: Mesh, overlap: bool = True,
     scatter = psum_scatter_over(mesh, scatter_dimension=0)
 
     def program(x: Sharded, w: Sharded) -> Sharded:
-        return Sharded(scatter([mm(xr, wr) for xr, wr in zip(x, w)]), ROWS)
+        sched = _Schedule(mesh, None)  # the caller's stream, in issue order
+        parts = []
+        for r, (xr, wr) in enumerate(zip(x, w)):
+            with sched.on(r, CALLER, "product"):
+                parts.append(mm(xr, wr))
+        with contextlib.ExitStack() as stack:
+            for r in range(len(parts)):
+                stack.enter_context(sched.on(r, CALLER, "scatter"))
+            out = scatter(parts)
+        return Sharded(out, ROWS)
 
     return program
 

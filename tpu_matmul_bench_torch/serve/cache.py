@@ -23,7 +23,7 @@ call, checked against the key's shapes, with the same accounting.
   loads the built kernel library, runs `tmb_init` and creates the
   library's handles and workspaces, which a capture cannot), the capture
   (the kernel's tensor maps are encoded then and baked into the graph),
-  and a sync. Building the library with nvcc happens before any of this,
+  and a wait for the caller's stream. Building the library with nvcc happens before any of this,
   in the service's set-up, or in the preload when an artifact store is
   attached: it never lands in a request.
 - `warm_dispatch_s`: the second replay plus a wait, as the JAX package
@@ -43,8 +43,11 @@ A blob whose digest fails counts an `error` and the key is built from the
 sources; its bytes are never loaded.
 
 Replays from several threads (a pod's drain threads) each use the group's
-own stream; a capture then runs under the caches' shared lock in
-"thread_local" mode, so the other threads' replays go on.
+own stream; a capture's eager warm call and graph recording then run
+under the caches' shared lock, the recording in "thread_local" mode, so
+the other threads' replays go on, and its wait for the card runs after
+the lock is released, so a thread that misses waits for another's host
+work, never for the card (CONC-004, `analysis/concurrency.py`).
 
 A replay is one host call for the captured kernels, so a warm request pays
 the graph launch and the wait, not the wrappers' route checks and
@@ -170,39 +173,67 @@ class EagerExecutable:
         """Nothing to wait for: the CPU's product returned done."""
 
 
+_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream a card's graphs are recorded on, made at its first
+    capture and kept (as `torch.cuda.graph`'s own): a stream of the pool
+    made for each capture would, after the pool's 32, be one that another
+    thread replays on."""
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
 def capture(fn: Callable[..., Any], a: Any, b: Any, *,
             stream: torch.cuda.Stream | None = None,
-            thread_local: bool = False) -> GraphExecutable:
+            lock: threading.Lock | None = None) -> GraphExecutable:
     """`fn(a, b)` captured into a CUDA graph. A single product (plain
     tensors) writes an output the entry allocates; a group program (sharded
     operands) allocates its own inside the capture, from the graph's pool.
     A first eager call on a side stream sets up what the callee creates
     lazily (the kernel library and its `tmb_init`, cuBLAS's handle and
-    workspace), which a capture cannot; then the capture, then a sync.
-    `stream` is where the graph replays; `thread_local` captures in that
-    mode, so other threads' replays may run meanwhile (the caller
-    serialises captures)."""
-    device = _first(a).device
-    plain = isinstance(a, torch.Tensor)
-    out = torch.empty((a.shape[0], b.shape[1]), dtype=matmul_out_dtype(a.dtype),
-                      device=device) if plain else None
-    current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        if plain:
-            fn(a, b, out=out)
-        else:
-            fn(a, b)
-    current.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="thread_local" if thread_local
-                          else "global"):
-        if plain:
-            fn(a, b, out=out)
-        else:
-            out = fn(a, b)
-    torch.cuda.synchronize(device)
+    workspace), which a capture cannot; then the capture, on the card's
+    capture stream, then a wait for the caller's stream, where the
+    operands were made and the eager call joined. `stream` is where the
+    graph replays. With a `lock` (shared by caches whose graphs replay
+    from several threads) everything that puts work on a stream runs under
+    it, the capture in "thread_local" mode, so no other thread's capture
+    sees that work; the wait, a host wait on an event marked under the
+    lock, runs after it. The recording is `CUDAGraph.capture_begin` and
+    `capture_end`, not `torch.cuda.graph`, whose entry synchronises the
+    whole card (and empties the cache) first. So a thread that takes the
+    lock waits for another's eager launches and recording, never for the
+    card."""
+    with lock or contextlib.nullcontext():
+        device = _first(a).device
+        plain = isinstance(a, torch.Tensor)
+        out = torch.empty((a.shape[0], b.shape[1]), dtype=matmul_out_dtype(a.dtype),
+                          device=device) if plain else None
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            if plain:
+                fn(a, b, out=out)
+            else:
+                fn(a, b)
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(_capture_stream(device)):
+            graph.capture_begin(capture_error_mode="thread_local" if lock is not None
+                                else "global")
+            try:
+                if plain:
+                    fn(a, b, out=out)
+                else:
+                    out = fn(a, b)
+            finally:
+                graph.capture_end()
+        settled = torch.cuda.Event()
+        settled.record(current)
+    settled.synchronize()
     return GraphExecutable(graph, a, b, out, stream)
 
 
@@ -236,7 +267,7 @@ class ExecutableCache:
     ArtifactMeta, or None for a key with no library to store) attach the
     store; ``stream`` is where this cache's graphs replay, and
     ``capture_lock``, shared by caches whose graphs replay from several
-    threads, serialises their captures (taken in "thread_local" mode).
+    threads, serialises their captures (`capture`).
     """
 
     def __init__(
@@ -416,9 +447,8 @@ class ExecutableCache:
             t0 = time.perf_counter()
             program = self._build(key)
             if _first(a).is_cuda:
-                with self._capture_lock or contextlib.nullcontext():
-                    compiled = capture(program.fn, a, b, stream=self._stream,
-                                       thread_local=self._capture_lock is not None)
+                compiled = capture(program.fn, a, b, stream=self._stream,
+                                   lock=self._capture_lock)
             else:
                 compiled = EagerExecutable(program.fn, a, b)
             cold_s = time.perf_counter() - t0

@@ -452,8 +452,9 @@ def _group_caches(config: Any, info: Any, meshes: Sequence[Any], base_pool: Any,
                   store: Any) -> tuple[list[_GroupOperandPool], list[Any]]:
     """Each group's operand view on the shared base pool, and its cache.
     On the card each group replays on a stream of its own, and one lock
-    serialises the groups' captures, taken in "thread_local" mode, so a
-    drain thread may capture a miss while the others replay."""
+    serialises the groups' captures (their warm calls and recordings, in
+    "thread_local" mode), so a drain thread may capture a miss while the
+    others replay; a capture's wait for the card runs outside the lock."""
     pool_lock, capture_lock = threading.Lock(), threading.Lock()
     gpools = [_GroupOperandPool(base_pool, mesh, pool_lock) for mesh in meshes]
     on_card = info.platform == "cuda"
