@@ -251,7 +251,23 @@ The paths:
   capture under a pod's capture lock waits for no card-wide sync
   (`capture_lock_check`, CONC-004): it returns while a kernel of about a
   second still runs on another stream, holds the lock for a small share of
-  that, and calls no `torch.cuda.synchronize` with the lock held.
+  that, and calls no `torch.cuda.synchronize` with the lock held;
+- `matmul` over every rank (the `matmul_all_ranks` phase): bf16 16384³
+  over MATMUL_RANKS ranks on the card, one product a rank a call, under K1
+  and the library with both protocols, `world` and cards held, K1's
+  launches MATMUL_RANKS × the protocol's calls, the per-card TFLOPS beside
+  the one-rank fused run's;
+- ranks as processes (the `processes` phase): `python -m
+  tpu_matmul_bench_torch.multihost` with PROCESSES processes of
+  PROCESS_RANKS ranks on the card (gloo through host memory), each in a
+  session killed whole afterwards: scaling `independent` at 16384 alone
+  (world, cards, validation, each process's K1 launches from its
+  `TMB_COUNTS_OUT` counts, the per-card TFLOPS beside the one-process
+  run's), then PROCESS_PROGRAMS at PROCESS_SIZE together, each
+  `validation_max_rel_err` equal to the one-process run's, and a fused
+  program that crosses processes, which must exit with its refusal; each
+  process's start-up seconds and a crossing's ms (host and loopback, not
+  the card's link).
 
 Standard output is one JSON object per line: one per phase, the
 `seconds` line (each stretch's seconds), then the `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
@@ -332,6 +348,17 @@ SCALING_RUNS = [("scaling", "independent"), ("scaling", "batch_parallel"),
                 ("scaling", "matrix_parallel"), ("distributed", "data_parallel"),
                 ("distributed", "model_parallel")]
 SCALING_ITERATIONS, SCALING_WARMUP = 10, 2
+# slice 21: `matmul` over MATMUL_RANKS ranks on the card (A4a), and ranks as
+# processes (A5a): the multihost launcher's PROCESSES processes on the card,
+# PROCESS_RANKS ranks each, over gloo through host memory; scaling
+# `independent` at SIZE, then PROCESS_PROGRAMS at PROCESS_SIZE, each with
+# --validate, beside the one-process world of as many ranks
+MATMUL_RANKS = 4
+PROCESSES, PROCESS_RANKS, PROCESS_SIZE = 2, 2, 2048
+PROCESS_PROGRAMS = [("scaling", "batch_parallel"), ("summa", "summa"),
+                    ("hybrid", "hybrid"), ("overlap", "collective_matmul_bidir"),
+                    ("overlap", "cuda_ring_hbm")]
+PROCESS_TIMEOUT_S = 150
 # rounds of the interleaved compute/full timing (utils/timing.py time_variants)
 VARIANT_ROUNDS = 3
 # ROADMAP C2: each efficiency mode's leg that its TFLOPS formula reads,
@@ -5729,6 +5756,290 @@ def lint_phase(card: str, out_dir: str, gate: dict) -> dict:
     return result
 
 
+def matmul_calls(timing: str) -> int:
+    """The `matmul` program's calls in one run of SCALING_ITERATIONS after
+    SCALING_WARMUP: the validation's, then dispatch's warmup and timed
+    calls, or fused's eager call and its captured chain (the replays launch
+    nothing from the host)."""
+    it, wu = SCALING_ITERATIONS, SCALING_WARMUP
+    return 1 + (1 + it if timing == "fused" else wu + it)
+
+
+def matmul_all_ranks_phase(k1_fused_tflops: float, out_dir: str) -> dict:
+    """`matmul` over MATMUL_RANKS ranks on the card (ROADMAP A4a, C8): one
+    independent product a rank a call, under K1 and the library, both
+    timing protocols, --validate. Each record must say `world`
+    MATMUL_RANKS on 1 card, its total MATMUL_RANKS products' TFLOPS, and
+    K1 must launch MATMUL_RANKS times a call, all on wgmma. The line prints
+    the per-card TFLOPS beside the one-rank fused run's (ROADMAP B3: K1 on
+    concurrent rank streams)."""
+    from tpu_matmul_bench_torch.benchmarks import matmul_benchmark
+    from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+    from tpu_matmul_bench_torch.utils.metrics import calculate_tflops
+
+    runs = {}
+    for impl in ("cuda", "torch"):
+        for timing in ("dispatch", "fused"):
+            phase = f"matmul_all_ranks[{impl},{timing}]"
+            path = f"{out_dir}/matmul-ranks-{impl}-{timing}.jsonl"
+            argv = ["--sizes", str(SIZE), "--dtype", "bfloat16",
+                    "--num-devices", str(MATMUL_RANKS), "--matmul-impl", impl,
+                    "--validate", "--iterations", str(SCALING_ITERATIONS),
+                    "--warmup", str(SCALING_WARMUP), "--timing", timing,
+                    "--json-out", path]
+            cm.LAUNCHES = 0
+            before = routes()
+            t0 = time.perf_counter()
+            with ranks_per_card(MATMUL_RANKS), contextlib.redirect_stdout(sys.stderr):
+                records = matmul_benchmark.main(argv)
+            seconds = time.perf_counter() - t0
+            launches, by_route = cm.LAUNCHES, routes_since(before)
+            if len(records) != 1:
+                fail(phase, f"expected one record, got {len(records)}")
+            rec, x = records[0], records[0].extras
+            want = MATMUL_RANKS * matmul_calls(timing) if impl == "cuda" else 0
+            summary = {"phase": phase, "world": rec.world, "cards": x.get("cards"),
+                       "ranks_per_card": x.get("ranks_per_card"),
+                       "avg_ms": rec.avg_time_s * 1e3, "tflops_total": rec.tflops_total,
+                       "tflops_per_device": rec.tflops_per_device,
+                       "validation": x.get("validation"),
+                       "validation_max_rel_err": x.get("validation_max_rel_err"),
+                       "timing": x.get("timing", "dispatch"), "chain": x.get("chain"),
+                       "k1_launches": launches, "expected_k1_launches": want,
+                       "launches_by_route": by_route, "seconds": seconds}
+            problems = []
+            if (rec.world, x.get("cards"), x.get("ranks_per_card")) != (
+                    MATMUL_RANKS, 1, MATMUL_RANKS):
+                problems.append(f"world {rec.world} on {x.get('cards')} cards, "
+                                f"{x.get('ranks_per_card')} a card")
+            if x.get("validation") != "ok":
+                problems.append("validation is not ok")
+            total = MATMUL_RANKS * calculate_tflops(SIZE, rec.avg_time_s)
+            if not math.isclose(rec.tflops_total, total, rel_tol=1e-9) or \
+                    rec.tflops_per_device != rec.tflops_total:
+                problems.append(f"tflops_total {rec.tflops_total} / per card "
+                                f"{rec.tflops_per_device}, not {total} on one card")
+            if launches != want or (impl == "cuda" and by_route != {"gemm:wgmma": want}) \
+                    or (impl == "torch" and by_route):
+                problems.append(f"{launches} K1 launches {by_route}, not {want} on wgmma")
+            if timing == "fused" and (x.get("timing"), x.get("chain")) != ("fused", None):
+                problems.append(f"timing {x.get('timing')}, chain {x.get('chain')}")
+            summary["ok"] = not problems
+            emit(summary)
+            if problems:
+                fail(phase, "; ".join(problems))
+            runs[f"{impl},{timing}"] = summary
+            torch_empty_cache()
+    emit({"phase": "matmul_all_ranks", "card": card_line(), "ranks": MATMUL_RANKS,
+          "per_card_tflops": {k: r["tflops_per_device"] for k, r in runs.items()},
+          "one_rank_fused_tflops": k1_fused_tflops,
+          "call_ms": {k: r["avg_ms"] for k, r in runs.items()},
+          "cuda_over_library": {t: runs[f"cuda,{t}"]["avg_ms"] / runs[f"torch,{t}"]["avg_ms"]
+                                for t in ("dispatch", "fused")},
+          "ok": True})
+    return runs
+
+
+def torch_empty_cache() -> None:
+    import torch
+
+    torch.cuda.empty_cache()
+
+
+def process_launches(mode: str, timing: str) -> int:
+    """One process's K1 launches in a launcher run of a scaling mode over
+    PROCESSES × PROCESS_RANKS ranks: its own ranks' products of every call
+    (`scaling_calls`) and its own single-device baseline."""
+    d = PROCESSES * PROCESS_RANKS
+    per_rank = max(4 // d, 1) if mode == "batch_parallel" else 1
+    baseline = 1 + (1 + SCALING_ITERATIONS if timing == "fused"
+                    else SCALING_WARMUP + SCALING_ITERATIONS)
+    return PROCESS_RANKS * per_rank * scaling_calls(mode, d, timing) + baseline
+
+
+def start_processes(program: str, mode: str, extra: list[str], out_dir: str,
+                    tag: str) -> dict:
+    """`python -m tpu_matmul_bench_torch.multihost PROCESSES MODE bfloat16`
+    on the card, PROCESS_RANKS ranks a process, in a session of its own;
+    `finish_processes` waits for it and kills its session."""
+    counts_dir = f"{out_dir}/counts-{tag}"
+    os.makedirs(counts_dir, exist_ok=True)
+    path, log = f"{out_dir}/processes-{tag}.jsonl", f"{out_dir}/processes-{tag}.log"
+    env = dict(os.environ, MULTIHOST_PROGRAM=program,
+               TMB_RANKS_PER_CARD=str(PROCESS_RANKS), TMB_COUNTS_OUT=counts_dir)
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_matmul_bench_torch.multihost", str(PROCESSES),
+             mode, "bfloat16", *extra, "--json-out", path],
+            stdout=fh, stderr=subprocess.STDOUT, start_new_session=True, env=env)
+    return {"proc": proc, "log": log, "path": path, "counts_dir": counts_dir,
+            "t0": time.perf_counter()}
+
+
+def finish_processes(run: dict) -> dict:
+    """A `start_processes` run's exit code, output, record and each
+    process's counters (`TMB_COUNTS_OUT`), its session killed whole."""
+    rc, text = finish_port(run["proc"], run["log"],
+                           max(PROCESS_TIMEOUT_S - (time.perf_counter() - run["t0"]), 1))
+    seconds = time.perf_counter() - run["t0"]
+    counts = []
+    for p in range(PROCESSES):
+        try:
+            with open(f"{run['counts_dir']}/counts.p{p}.json") as fh:
+                counts.append(json.load(fh))
+        except (OSError, ValueError):
+            counts.append(None)
+    record = None
+    if os.path.exists(run["path"]):
+        with open(run["path"]) as fh:
+            lines = [json.loads(line) for line in fh if line.strip()]
+        record = lines[-1] if len(lines) == 2 else None
+    startup = re.search(r"Process start-up \(s\): ([0-9., ]+)", text)
+    worker_logs = re.search(r"logs (?:kept )?in (\S+)", text)
+    tail = ""
+    if rc != 0 and worker_logs:
+        for f in sorted(glob.glob(f"{worker_logs.group(1)}/worker*.log")):
+            with open(f) as fh:
+                tail += fh.read()[-1500:]
+    return {"rc": rc, "text": text, "record": record, "counts": counts,
+            "seconds": seconds, "worker_tail": tail,
+            "startup_s": [float(t) for t in startup.group(1).split(",")] if startup else None}
+
+
+def one_process(program: str, argv: list[str]):
+    """The same program in this process over PROCESSES × PROCESS_RANKS
+    ranks on the card: its record."""
+    import importlib
+
+    from tpu_matmul_bench_torch.__main__ import _PROGRAMS
+
+    d = PROCESSES * PROCESS_RANKS
+    with ranks_per_card(d), contextlib.redirect_stdout(sys.stderr):
+        records = importlib.import_module(_PROGRAMS[program]).main(
+            argv + ["--num-devices", str(d)])
+    torch_empty_cache()
+    if len(records) != 1:
+        fail(f"processes[{program}]", f"the one-process run gave {len(records)} records")
+    return records[0]
+
+
+def crossing_ms(counts: list) -> list:
+    """Each process's crossings (host staging and gloo over loopback), from
+    its counters: the mean ms, which holds the waits for the peer, and the
+    quickest."""
+    return [{"mean": c["crossing_s"] * 1e3 / c["crossings"],
+             "min": c["crossing_min_s"] * 1e3} if c and c["crossings"] else None
+            for c in counts]
+
+
+def processes_phase(scaling: dict, out_dir: str) -> dict:
+    """Ranks as processes on the card (ROADMAP A5a): the launcher's
+    PROCESSES processes of PROCESS_RANKS ranks. Scaling `independent` at
+    SIZE under K1 must give world 4 on 1 card, validation ok and, in each
+    process, the K1 launches its own ranks and baseline make; its per-card
+    TFLOPS goes beside the one-process 4-rank run's (the processes
+    time-slice the card). Then PROCESS_PROGRAMS at PROCESS_SIZE under K1,
+    each with `validation_max_rel_err` equal to the one-process run's, and
+    a fused program that crosses processes must exit with its refusal. The
+    start-up seconds and a crossing's ms are the host's and loopback's,
+    not the card's link."""
+    torch_empty_cache()
+    runs = {}
+    common = ["--iterations", str(SCALING_ITERATIONS), "--warmup", str(SCALING_WARMUP),
+              "--validate", "--matmul-impl", "cuda"]
+
+    def check(tag: str, run: dict, world: int, want_launches: int | None,
+              one=None) -> dict:
+        phase = f"processes[{tag}]"
+        rec = run["record"] or {}
+        x = rec.get("extras", {})
+        summary = {"phase": phase, "rc": run["rc"], "seconds": run["seconds"],
+                   "world": rec.get("world"), "cards": x.get("cards"),
+                   "ranks_per_card": x.get("ranks_per_card"),
+                   "avg_ms": rec.get("avg_time_s", 0) * 1e3,
+                   "tflops_per_device": rec.get("tflops_per_device"),
+                   "validation": x.get("validation"),
+                   "validation_max_rel_err": x.get("validation_max_rel_err"),
+                   "k1_launches": [c and c["k1_launches"] for c in run["counts"]],
+                   "launches_by_route": [c and c["launches_by_route"] for c in run["counts"]],
+                   "cross_hops": [c and c["cross_hops"] for c in run["counts"]],
+                   "crossings": [c and c["crossings"] for c in run["counts"]],
+                   "crossing_ms": crossing_ms(run["counts"]),
+                   "startup_s": run["startup_s"]}
+        problems = []
+        if run["rc"] != 0:
+            problems.append(f"exit {run['rc']}: {run['text'][-1500:]} {run['worker_tail']}")
+        for line in (f"Number of devices: {world}",
+                     f"Processes: {PROCESSES} (this is process 0)"):
+            if line not in run["text"]:
+                problems.append(f"no {line!r} in the output")
+        if run["text"].count("Results for") != 1:
+            problems.append("not one results block")
+        if (rec.get("world"), x.get("cards"), x.get("ranks_per_card")) != (world, 1, world):
+            problems.append(f"world {rec.get('world')} on {x.get('cards')} cards")
+        if x.get("validation") != "ok":
+            problems.append("validation is not ok")
+        if want_launches is not None:
+            summary["expected_k1_launches"] = want_launches
+            for c in run["counts"]:
+                if not c or c["k1_launches"] != want_launches or \
+                        c["launches_by_route"] != {"wgmma": want_launches}:
+                    problems.append(f"a process's K1 {c and c['launches_by_route']}, "
+                                    f"not {want_launches} on wgmma")
+        if one is not None:
+            summary["one_process_validation_max_rel_err"] = \
+                one.extras.get("validation_max_rel_err")
+            summary["one_process_avg_ms"] = one.avg_time_s * 1e3
+            if x.get("validation_max_rel_err") != one.extras.get("validation_max_rel_err"):
+                problems.append("validation_max_rel_err differs from the one-process run's")
+        summary["ok"] = not problems
+        emit(summary)
+        if problems:
+            fail(phase, "; ".join(problems))
+        return summary
+
+    world = PROCESSES * PROCESS_RANKS
+    t0 = time.perf_counter()
+    # alone on the card: its per-card TFLOPS is read
+    run = finish_processes(start_processes(
+        "scaling", "independent", ["--sizes", str(SIZE), *common], out_dir, "independent"))
+    runs["independent"] = check("independent", run, world,
+                                process_launches("independent", "dispatch"))
+    one_ind = scaling["independent"]["cuda,dispatch"]
+    runs["independent"]["one_process_tflops_per_device"] = one_ind["tflops_per_device"]
+    # the programs at PROCESS_SIZE read only their bits: they run together
+    # (each launcher's group on its own port), and so does the refusal of a
+    # card-fused program whose calls cross processes (a CUDA graph cannot
+    # hold a gloo exchange); the one-process runs go meanwhile, here
+    flags = ["--sizes", str(PROCESS_SIZE), *common]
+    started = {mode: start_processes(program, mode, flags, out_dir, mode)
+               for program, mode in PROCESS_PROGRAMS}
+    started["fused-refusal"] = start_processes(
+        "scaling", "batch_parallel", [*flags, "--timing", "fused"], out_dir, "fused-refusal")
+    ones = {mode: one_process(program, ([] if program in ("summa", "hybrid")
+                                        else ["--mode", mode]) + flags + ["--dtype", "bfloat16"])
+            for program, mode in PROCESS_PROGRAMS}
+    for program, mode in PROCESS_PROGRAMS:
+        want = process_launches(mode, "dispatch") if program == "scaling" else None
+        runs[mode] = check(mode, finish_processes(started[mode]), world, want, ones[mode])
+    refused = finish_processes(started["fused-refusal"])
+    said = "exchanges data between processes" in refused["text"]
+    emit({"phase": "processes[fused_refusal]", "rc": refused["rc"], "refused": said,
+          "seconds": refused["seconds"], "ok": refused["rc"] != 0 and said})
+    if refused["rc"] == 0 or not said:
+        fail("processes[fused_refusal]", f"rc {refused['rc']}: {refused['text'][-1500:]}")
+    emit({"phase": "processes", "card": card_line(), "processes": PROCESSES,
+          "ranks_each": PROCESS_RANKS,
+          "independent_per_card_tflops": runs["independent"]["tflops_per_device"],
+          "one_process_independent_per_card_tflops": one_ind["tflops_per_device"],
+          "startup_s": runs["independent"]["startup_s"],
+          "crossing_ms": {k: r["crossing_ms"] for k, r in runs.items()},
+          "note": "start-up and crossing times are the host's and loopback's "
+                  "(gloo through host memory), not the card's link",
+          "seconds": time.perf_counter() - t0, "ok": True})
+    return runs
+
+
 def residency_probe(cap: int, l2: int, runs: int = 20) -> dict:
     """K6 and K2 through their wrappers at half the fused ring's cap, at
     the cap and at twice it, bf16 over RING_WORLD ranks on the card: ms and
@@ -5924,6 +6235,11 @@ def main(keep_ledgers: str | None = None) -> None:
         scaling = scaling_phase(out_dir)
         comm_quant_phase(scaling, out_dir)
         lap("scaling_comm_quant")
+        # slice 21: `matmul` over every rank, and ranks as processes
+        matmul_ranks = matmul_all_ranks_phase(fused["tflops"], out_dir)
+        lap("matmul_all_ranks")
+        processes = processes_phase(scaling, out_dir)
+        lap("processes")
         wire_phase(card)
         collectives_phase(card, out_dir)
         lap("wire_collectives")

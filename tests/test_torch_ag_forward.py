@@ -153,9 +153,9 @@ def test_hop_transfer_hops_every_chunk(devices, ranks8, monkeypatch, d, bidir):
     hops, forwarded = [], []
     real = cr._hop
 
-    def hop(sched, r, dst, src, which=cr._COPY):
+    def hop(sched, r, dst, src, which=cr._COPY, reader=None):
         hops.append((r, which))
-        real(sched, r, dst, src, which)
+        real(sched, r, dst, src, which, reader)
 
     def ag(*args, **kw):
         forwarded.append(args)

@@ -128,9 +128,9 @@ def test_hop_transfer_stages_and_hops_every_partial(ranks8, monkeypatch, d, bidi
     hops = []
     real = cr._hop
 
-    def hop(sched, r, dst, src, which=cr._COPY):
+    def hop(sched, r, dst, src, which=cr._COPY, reader=None):
         hops.append((r, which))
-        real(sched, r, dst, src, which)
+        real(sched, r, dst, src, which, reader)
 
     monkeypatch.setattr(cr, "_hop", hop)
     y = fn._reduce_scatter(fn._schedule(False), x, w, "hop")

@@ -33,8 +33,10 @@ from tpu_matmul_bench_torch.parallel.mesh import make_mesh
 from tpu_matmul_bench_torch.utils import telemetry
 from tpu_matmul_bench_torch.utils.config import BenchConfig, parse_config
 from tpu_matmul_bench_torch.utils.device import (
+    cluster_exit_barrier,
     collect_device_info,
     device_banner,
+    maybe_init_process_group,
     resolve_devices,
 )
 from tpu_matmul_bench_torch.utils.metrics import matrix_memory_gib
@@ -43,6 +45,7 @@ from tpu_matmul_bench_torch.utils.reporting import BenchmarkRecord, header, repo
 
 
 def run(config: BenchConfig) -> list[BenchmarkRecord]:
+    maybe_init_process_group()
     devices = resolve_devices(config.device, config.num_devices)
     if len(devices) < 2:
         report("ERROR: collective benchmark needs >= 2 devices "
@@ -93,6 +96,7 @@ def run(config: BenchConfig) -> list[BenchmarkRecord]:
                                   * info.ranks_per_card),
             memory_limit_gib=info.memory_gib,
         )
+    cluster_exit_barrier()
     report("\n" + "=" * 70, "Benchmark completed!", "=" * 70)
     return records
 

@@ -175,7 +175,7 @@ def _tune_ring(ring: str, candidates, config, devices, info,
     builder, kind = ring_matmul_builders()[ring]
     bidir = "bidir" in ring
     mesh = make_mesh(devices)
-    d, cards = len(mesh.ranks), len(mesh.cards)
+    d, cards = len(mesh.ranks), mesh.card_count
     x_spec, w_spec = (ROWS, COLS) if kind == "ag" else (COLS, ROWS)
     transfers = cr.AG_TRANSFERS if kind == "ag" else cr.RS_TRANSFERS
     records: list[BenchmarkRecord] = []

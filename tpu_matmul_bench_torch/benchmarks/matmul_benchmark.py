@@ -1,4 +1,4 @@
-"""Basic matmul benchmark on one device (reference `matmul_benchmark.py`).
+"""Basic matmul benchmark (reference `matmul_benchmark.py`).
 
 Port of `tpu_matmul_bench/benchmarks/matmul_benchmark.py`: C = A·B timed
 over the size sweep (or one rectangular --mkn problem) with TFLOPS and
@@ -6,6 +6,15 @@ peak-efficiency reporting, on the card unless --device cpu is given.
 A record of the hand-written kernel carries its cost books
 (`extras["cost_analysis"]`, `obs/attribution.py`); a record of the library
 product carries none.
+
+With more than one rank (`--num-devices`, `TMB_RANKS_PER_CARD`, or ranks
+as processes under torchrun or `python -m tpu_matmul_bench_torch.multihost`)
+every rank runs its own product, with no collective in the timed loop, as
+JAX's `_bench_all_devices` does (≙ every rank calling the reference's
+`benchmark_matmul` at once): `world` is the rank count, `tflops_total` the
+rank count times one product's TFLOPS, and `tflops_per_device` that total
+over the cards the ranks occupy (extras `cards`, `ranks_per_card`), the
+port's per-card count of the parallel modes.
 
 Run: python -m tpu_matmul_bench_torch matmul [--sizes ...]
 """
@@ -22,16 +31,27 @@ from tpu_matmul_bench_torch.obs import attribution
 from tpu_matmul_bench_torch.ops.cuda_matmul import launch_plan
 from tpu_matmul_bench_torch.ops.impl_select import auto_extras, select_impl
 from tpu_matmul_bench_torch.ops.matmul import make_matmul
+from tpu_matmul_bench_torch.parallel.mesh import (
+    ROWS,
+    Mesh,
+    make_mesh,
+    sharded_normal,
+    stacked_item,
+)
 from tpu_matmul_bench_torch.parallel.modes import (
     VALIDATION_CORNER,
+    _per_rank,
+    _stacked_mm,
     corner_validation,
     expected_corner,
 )
 from tpu_matmul_bench_torch.utils import telemetry
 from tpu_matmul_bench_torch.utils.config import BenchConfig
 from tpu_matmul_bench_torch.utils.device import (
+    cluster_exit_barrier,
     collect_device_info,
     device_banner,
+    maybe_init_process_group,
     precision_extras,
     resolve_devices,
 )
@@ -68,15 +88,16 @@ def _time(config: BenchConfig, fn, operands) -> Timing:
 
 
 def _extras(config: BenchConfig, t: Timing, mm, a, b, m: int, n: int,
-            k: int, device_kind: str) -> dict:
-    """Record extras shared by the square and rectangular runs; the
-    kernel's cost books only where the kernel ran (`_cost_extras`)."""
+            k: int, device_kind: str, cost_operands=None) -> dict:
+    """Record extras shared by the square, rectangular and all-rank runs;
+    the kernel's cost books only where the kernel ran (`_cost_extras`, of
+    one launch on `cost_operands`, default (a, b))."""
     extras = protocol_extras(config.timing, t)
     if config.repeats > 1:
         extras["repeats"] = config.repeats  # best-of-N provenance
     extras.update(auto_extras(config.matmul_impl, m, n, k, device_kind,
                               config.dtype))
-    extras.update(_cost_extras(config, a, b, device_kind))
+    extras.update(_cost_extras(config, *(cost_operands or (a, b)), device_kind))
     extras.update(precision_extras())
     if config.percentiles:
         extras["latency_ms"] = latency_percentiles_ms(mm, (a, b), config)
@@ -140,6 +161,48 @@ def _bench_single(config: BenchConfig, size: int, device_kind: str,
     )
 
 
+def _bench_all_ranks(config: BenchConfig, size: int, device_kind: str,
+                     mesh: Mesh) -> BenchmarkRecord:
+    """One independent product a rank (JAX `_bench_all_devices`,
+    `matmul_benchmark.py:164-212`): A and B stacked [d, size, size] and cut
+    by rows, so each rank multiplies its own pair through `make_matmul`
+    (K1 once a rank a call under `--matmul-impl cuda`); no collective in
+    the timed loop. --validate checks rank 0's corner against float64."""
+    d = mesh.size
+    a, b = sharded_normal(config.seed, (d, size, size), config.dtype, mesh, ROWS)
+    mm = _per_rank(_stacked_mm(make_matmul(config.matmul_impl, config.blocks,
+                                           device_kind)), ROWS)
+    verdict: dict = {}
+    if config.validate:  # before timing: a wrong kernel fails fast
+        got = stacked_item(mm(a, b), 0)[:VALIDATION_CORNER, :VALIDATION_CORNER]
+        verdict = corner_validation(
+            got, expected_corner(stacked_item(a, 0), stacked_item(b, 0)),
+            config.dtype)
+    t = _time(config, mm, (a, b))
+    # one launch's books: this process's first rank's operands
+    mine = next(i for i, r in enumerate(mesh.ranks) if r.local)
+    a0, b0 = a[mine][0], b[mine][0]
+    extras = _extras(config, t, mm, a, b, size, size, size, device_kind,
+                     cost_operands=(a0, b0))
+    extras.update(verdict)
+    extras.update(cards=mesh.card_count, ranks_per_card=mesh.ranks_per_card)
+    total = calculate_tflops(size, t.avg_s) * d  # each rank did one product a call
+    return BenchmarkRecord(
+        benchmark="matmul",
+        mode="single",
+        size=size,
+        dtype=config.dtype_name,
+        world=d,
+        iterations=t.iterations,
+        warmup=effective_warmup(config.timing, config.iterations, config.warmup),
+        avg_time_s=t.avg_s,
+        tflops_per_device=total / mesh.card_count,
+        tflops_total=total,
+        device_kind=device_kind,
+        extras=extras,
+    )
+
+
 def _bench_rect(config: BenchConfig, mkn: tuple[int, int, int],
                 device_kind: str, device: torch.device) -> BenchmarkRecord:
     """--mkn M K N: one rectangular matmul."""
@@ -164,6 +227,7 @@ def _bench_rect(config: BenchConfig, mkn: tuple[int, int, int],
 
 def run(config: BenchConfig, mkn: tuple[int, int, int] | None = None
         ) -> list[BenchmarkRecord]:
+    maybe_init_process_group()
     devices = resolve_devices(config.device, config.num_devices)
     info = collect_device_info(devices)
     report(device_banner(info))
@@ -183,6 +247,9 @@ def run(config: BenchConfig, mkn: tuple[int, int, int] | None = None
     device, kind = devices[0], info.device_kind
     traced = maybe_trace(config.profile_dir, cuda=info.platform == "cuda")
     if mkn is not None:
+        if len(devices) > 1:
+            raise SystemExit("--mkn is single-device (use --num-devices 1); "
+                             "the sharded modes are square-sweep programs")
         m, k, n = mkn
         wl = RectMatmulWorkload(m, k, n, config.dtype)
         # one "size" through the shared runner: the same memory guard, OOM
@@ -200,13 +267,23 @@ def run(config: BenchConfig, mkn: tuple[int, int, int] | None = None
                 ),
             )
     else:
+        mesh = make_mesh(devices)
+
+        def bench_one(size: int) -> BenchmarkRecord:
+            if len(devices) == 1:
+                return _bench_single(config, size, kind, device)
+            return _bench_all_ranks(config, size, kind, mesh)
+
         with telemetry.session(config.trace_out), traced:
             records = run_sizes(
                 config,
-                lambda size: _bench_single(config, size, kind, device),
-                memory_gib=lambda s: MatmulWorkload(s, config.dtype).memory_gib,
+                bench_one,
+                # the ranks that share a card share its memory
+                memory_gib=lambda s: (MatmulWorkload(s, config.dtype).memory_gib
+                                      * info.ranks_per_card),
                 memory_limit_gib=info.memory_gib,
             )
+    cluster_exit_barrier()
     report("\n" + "=" * 60, "Benchmark completed!", "=" * 60)
     return records
 

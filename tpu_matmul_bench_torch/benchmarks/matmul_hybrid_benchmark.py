@@ -23,8 +23,10 @@ from tpu_matmul_bench_torch.parallel.modes import estimate_memory_gib, run_mode_
 from tpu_matmul_bench_torch.utils import telemetry
 from tpu_matmul_bench_torch.utils.config import BenchConfig, build_parser, config_from_args
 from tpu_matmul_bench_torch.utils.device import (
+    cluster_exit_barrier,
     collect_device_info,
     device_banner,
+    maybe_init_process_group,
     resolve_devices,
 )
 from tpu_matmul_bench_torch.utils.profiling import maybe_trace
@@ -32,6 +34,7 @@ from tpu_matmul_bench_torch.utils.reporting import BenchmarkRecord, header, repo
 
 
 def run(config: BenchConfig, dp: int, batch: int) -> list[BenchmarkRecord]:
+    maybe_init_process_group()
     devices = resolve_devices(config.device, config.num_devices)
     info = collect_device_info(devices)
     if config.mesh:
@@ -77,6 +80,7 @@ def run(config: BenchConfig, dp: int, batch: int) -> list[BenchmarkRecord]:
                 * info.ranks_per_card),
             memory_limit_gib=info.memory_gib,
         )
+    cluster_exit_barrier()
     report("\n" + "=" * 70, "Benchmark completed!", "=" * 70)
     return records
 

@@ -8,7 +8,9 @@ scaling efficiency against a measured single-device baseline. `run` is the
 runner the distributed and overlap programs share: resolve the ranks, build
 the world, run the gate when there is more than one rank, then each size of
 the sweep through the mode's `ModeSetup` and `run_mode_benchmark`, inside a
-`torch.profiler` trace under --profile-dir.
+`torch.profiler` trace under --profile-dir. Under torchrun or the
+`multihost` launcher each process joins the group first and holds its
+share of the world's ranks, and every process waits at an exit barrier.
 
 Run: TMB_RANKS_PER_CARD=4 python -m tpu_matmul_bench_torch scaling \
         --mode batch_parallel --num-devices 4 --matmul-impl cuda ...
@@ -33,8 +35,10 @@ from tpu_matmul_bench_torch.parallel.modes import (
 from tpu_matmul_bench_torch.utils import telemetry
 from tpu_matmul_bench_torch.utils.config import BenchConfig, parse_config
 from tpu_matmul_bench_torch.utils.device import (
+    cluster_exit_barrier,
     collect_device_info,
     device_banner,
+    maybe_init_process_group,
     resolve_devices,
 )
 from tpu_matmul_bench_torch.utils.profiling import maybe_trace
@@ -57,8 +61,7 @@ def run(
     benchmark_name: str = "scaling",
     title: str = "Matrix Multiplication Scaling Benchmark (PyTorch/CUDA)",
 ) -> list[BenchmarkRecord]:
-    # processes on several cards (the JAX package's maybe_init_multihost
-    # and cluster_exit_barrier) wait for ROADMAP A5
+    maybe_init_process_group()
     devices = resolve_devices(config.device, config.num_devices)
     info = collect_device_info(devices)
     mesh = make_mesh(devices)
@@ -89,12 +92,13 @@ def run(
     def bench_one(size: int) -> BenchmarkRecord:
         rec = run_mode_benchmark(builder(config, mesh, size, benchmark=benchmark_name),
                                  config)
-        # efficiency against a measured single-device product on the card
-        # the first rank occupies (the reference's in-run formula compares
-        # ranks with each other)
+        # efficiency against a measured single-device product on this
+        # process's own card (the reference's in-run formula compares ranks
+        # with each other; JAX `:90-100` measures each process's local chip)
         if d > 1 and rec.mode in EFFICIENCY_MODES:
             attach_scaling_efficiency(
-                rec, _single_device_tflops(config, devices[0], info.device_kind, size))
+                rec, _single_device_tflops(config, mesh.first_local,
+                                           info.device_kind, size))
         return rec
 
     with telemetry.session(config.trace_out), \
@@ -107,6 +111,7 @@ def run(
                                   * info.ranks_per_card),
             memory_limit_gib=info.memory_gib,
         )
+    cluster_exit_barrier()
     report("\n" + "=" * 70, "Benchmark completed!", "=" * 70)
     return records
 

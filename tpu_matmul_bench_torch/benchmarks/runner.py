@@ -3,11 +3,15 @@
 Port of `tpu_matmul_bench/benchmarks/runner.py:31-106`: preamble → run →
 report/record for each size, skipping sizes that do not fit (before
 allocating, when the footprint and the device memory are known) or that
-run out of memory, and going on with the next.
+run out of memory, and going on with the next. In a process group a size
+that fails on any process ends the run on that process (its peers then
+fail on their next exchange, or at the launcher's reaping): a process that
+skipped a size while the others ran it would go on out of step.
 """
 
 from __future__ import annotations
 
+import sys
 import traceback
 from typing import Callable, Iterable
 
@@ -64,14 +68,16 @@ def run_sizes(
                 with telemetry.span(f"size:{size}", size=size):
                     rec = bench_one(size).finalize()
             except Exception as e:  # noqa: BLE001 — per-size resilience
+                if distributed_active():
+                    # every process says why, not only the reporting one
+                    what = ("cluster transport failure" if is_transport_error(e)
+                            else "failure in a process group")
+                    print(f"\n  FATAL: {what} at {size}x{size}: {e}",
+                          file=sys.stderr, flush=True)
+                    traceback.print_exc()
+                    raise
                 if is_oom_error(e):
                     report(f"\n  ERROR: Out of memory for {size}x{size} matrices")
-                elif is_transport_error(e) and distributed_active():
-                    # a dropped transport leaves the process group out of
-                    # step: fail the run rather than go on desynced
-                    report(f"\n  FATAL: cluster transport failure at "
-                           f"{size}x{size}: {e}")
-                    raise
                 else:
                     report(f"\n  ERROR: {e}")
                     report(traceback.format_exc())

@@ -9,8 +9,10 @@ through (`--matmul-impl cuda` puts every product on K1), and renders the
 per-count totals with the scaling efficiency against the measured
 one-device baseline.
 
-A count is the number of ranks in the one-process world (`parallel/
-mesh.py`); `TMB_RANKS_PER_CARD` ranks may share a card. The efficiency
+A count is the number of ranks in the world (`parallel/mesh.py`);
+`TMB_RANKS_PER_CARD` ranks may share a card. In a process group (torchrun,
+or `python -m tpu_matmul_bench_torch.multihost`) the default counts are
+multiples of the process count, and only process 0 writes the table. The efficiency
 counts cards, not ranks (`utils/reporting.py attach_scaling_efficiency`),
 and where the ranks of a row share cards the table says on how many they
 lie, so that "4 devices" on one card is not read as four cards.
@@ -30,7 +32,8 @@ from tpu_matmul_bench_torch.benchmarks import matmul_scaling_benchmark as scalin
 from tpu_matmul_bench_torch.parallel.modes import SCALING_MODES
 from tpu_matmul_bench_torch.utils import telemetry
 from tpu_matmul_bench_torch.utils.config import build_parser, config_from_args
-from tpu_matmul_bench_torch.utils.device import resolve_devices
+from tpu_matmul_bench_torch.parallel import group
+from tpu_matmul_bench_torch.utils.device import maybe_init_process_group, resolve_devices
 from tpu_matmul_bench_torch.utils.reporting import (
     BenchmarkRecord,
     JsonWriter,
@@ -109,12 +112,16 @@ def main(argv: Sequence[str] | None = None) -> list[BenchmarkRecord]:
                          "pass a single --sizes value")
     size = config.sizes[0]
 
-    # processes on several cards (JAX's maybe_init_multihost, and its
-    # counts in multiples of the process count) wait for ROADMAP A5
+    maybe_init_process_group()
     if args.device_counts is not None:
         counts = args.device_counts
     else:
-        counts = default_counts(len(resolve_devices(config.device, config.num_devices)))
+        world = len(resolve_devices(config.device, config.num_devices))
+        nprocs = group.process_count()
+        # in a process group every count keeps each process's share equal
+        # (resolve_devices refuses one that does not split), so the counts
+        # are multiples of the process count up to the world (JAX `:100-114`)
+        counts = [c * nprocs for c in default_counts(world // nprocs)]
 
     rows: list[tuple[int, BenchmarkRecord]] = []
     # one session over the whole sweep: scaling.run's own session call is

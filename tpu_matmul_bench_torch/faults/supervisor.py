@@ -56,6 +56,11 @@ SPAWN_ALLOWLIST = {
         "`--isolate` rows stream their report to the console with a "
         "per-row deadline, and a short backend probe child keeps the "
         "parent off the card; foreground only",
+    "multihost.py":
+        "the multi-process launcher (torchrun's role): the processes of "
+        "one process group, process 0 in the foreground, the others "
+        "reaped with TERM then KILL when it fails; a launcher, not a "
+        "workload",
     "ops/_build.py":
         "the kernel build: one nvcc a source, started together and "
         "awaited, plus the demangler over ptxas's kernel names; a "

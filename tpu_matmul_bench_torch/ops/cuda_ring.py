@@ -34,7 +34,10 @@ stores its partial sum there. A rank then has one stream and no hop
 | `free_sem`     | the compute stream waits on the reader's product of    |
 |                | step t−1, which read slot (t+1) mod 2 (from t = 2 on)  |
 
-Ranks on several cards keep the hop (`_hop`: one `tmb_ring_hop` of
+Ranks in several processes (`parallel/group.py`) hop too: a step's
+product is K1, and a hop into another process's slot crosses the group
+(`_cross`: host copy, gloo send and receive), the remote ranks' products
+being placeholders there. Ranks on several cards keep the hop (`_hop`: one `tmb_ring_hop` of
 `csrc/ring.cu`, cudaMemcpyPeerAsync on the sender's copy stream) and its
 events: a K2/K4 product is K1 of `csrc/matmul.cu`, and the chunk hops on
 the copy stream once it has arrived (`recv_sem`) and the reader has read
@@ -91,6 +94,7 @@ import torch
 
 from tpu_matmul_bench_torch.ops import _build
 from tpu_matmul_bench_torch.ops import cuda_matmul as cm
+from tpu_matmul_bench_torch.parallel import group
 from tpu_matmul_bench_torch.parallel.mesh import (
     COLS,
     ROWS,
@@ -112,6 +116,8 @@ from tpu_matmul_bench_torch.utils.metrics import matmul_out_dtype
 # (`rs_transfer`; `ag_transfer`, or "hop" where a step cannot forward).
 RING_STEPS = 0
 HOP_LAUNCHES = 0
+# hops between processes on the card (`_cross`): one a send or a receive
+CROSS_HOPS = 0
 RS_TRANSFERS = {"store": 0, "hop": 0}
 AG_TRANSFERS = {"forward": 0, "hop": 0}
 
@@ -140,19 +146,21 @@ def resolve_wres(wres: bool | None, d: int,
 
 def rs_transfer(mesh: Mesh) -> str:
     """How a reduce-scatter ring over `mesh` moves its partial sums, chosen
-    before the call: "store" when every rank shares one card (each step's
-    product is stored into the reader's receive slot), else "hop" (the sum
-    goes to a staging slot, and a copy moves it to the reader's card; a
+    before the call: "store" when every rank shares one card in one process
+    (each step's product is stored into the reader's receive slot), else
+    "hop" (the sum goes to a staging slot, and a copy moves it to the
+    reader's card, or through the process group to the reader's process; a
     store into a peer card's memory is later work)."""
-    return "store" if len(mesh.cards) == 1 else "hop"
+    return "store" if mesh.shared_card else "hop"
 
 
 def ag_transfer(mesh: Mesh) -> str:
     """How an all-gather ring over `mesh` moves its chunks, chosen before
-    the call: "forward" when every rank shares one card (each step's product
-    stores the chunk it loads into the reader's receive slot), else "hop"
-    (a copy moves the chunk to the reader's card after it has arrived)."""
-    return "forward" if len(mesh.cards) == 1 else "hop"
+    the call: "forward" when every rank shares one card in one process
+    (each step's product stores the chunk it loads into the reader's
+    receive slot), else "hop" (a copy, or a crossing between processes,
+    moves the chunk to the reader after it has arrived)."""
+    return "forward" if mesh.shared_card else "hop"
 
 
 # a rank's streams: products, hops (the right-going ones in K4 and K5), and
@@ -190,8 +198,13 @@ def ring_ways(rows: int, bidir: bool) -> list[_Way]:
 
 
 def rank_streams(mesh: Mesh, per_rank: int) -> list[tuple[Any, ...]]:
-    """`per_rank` new streams on each rank's card, in rank order."""
-    return [tuple(torch.cuda.Stream(device=dev) for _ in range(per_rank))
+    """`per_rank` new streams on each rank's card, in rank order. A rank of
+    another process gets streams on this process's card: its launches are
+    placeholders, but a hop from it into a local slot (a receive) runs on
+    its copy stream there, after the waits the schedule gives it."""
+    local = mesh.cards[0]
+    return [tuple(torch.cuda.Stream(device=dev if dev.type != "meta" else local)
+                  for _ in range(per_rank))
             for dev in mesh.devices]
 
 
@@ -297,15 +310,20 @@ def _ring_lib() -> ctypes.CDLL:
 
 
 def _hop(sched: _Schedule, r: int, dst: torch.Tensor, src: torch.Tensor,
-         which: int = _COPY) -> None:
+         which: int = _COPY, reader: int | None = None) -> None:
     """One hop: rank r copies `src` into a neighbour's slot `dst`, on its
-    copy stream `which` (on the CPU, at once)."""
+    copy stream `which` (on the CPU, at once). Where the neighbour (rank
+    `reader`) is in another process the hop crosses the process group
+    (`_cross`)."""
     global HOP_LAUNCHES
     if dst.shape != src.shape or dst.dtype != src.dtype:
         raise ValueError(f"hop of {tuple(src.shape)} {src.dtype} into "
                          f"{tuple(dst.shape)} {dst.dtype}")
     if not (dst.is_contiguous() and src.is_contiguous()):
         raise ValueError("a hop copies whole contiguous chunks")
+    if "meta" in (src.device.type, dst.device.type):
+        _cross(sched, r, reader, dst, src, which)
+        return
     if src.device.type == "cpu":
         with sched.on(r, which, "hop"):
             dst.copy_(src)
@@ -321,10 +339,40 @@ def _hop(sched: _Schedule, r: int, dst: torch.Tensor, src: torch.Tensor,
     HOP_LAUNCHES += 1
 
 
+def _cross(sched: _Schedule, r: int, reader: int | None, dst: torch.Tensor,
+           src: torch.Tensor, which: int) -> None:
+    """A hop between processes (`parallel/group.py`), on rank r's copy
+    stream `which` after the waits the schedule gave it: the sender copies
+    its chunk to host memory (which waits for that stream) and sends its
+    bytes; the receiver, on the writer's stream here, takes them and copies
+    them into its slot. Both processes issue every hop in the same order,
+    so each send meets its receive. A hop between two other processes is
+    nothing here."""
+    global CROSS_HOPS
+    if src.device.type == "meta" and dst.device.type == "meta":
+        return
+    if reader is None:
+        raise ValueError("a hop between processes needs its reader rank")
+    procs = [rank.process for rank in sched.mesh.ranks]
+    with sched.on(r, which, "hop"):
+        if src.device.type != "meta":
+            group.send_tensor(src, procs[reader])
+        else:
+            dst.copy_(group.recv_tensor(dst, procs[r]))
+    if dst.is_cuda or src.is_cuda:
+        CROSS_HOPS += 1
+
+
 def _count_step(device: torch.device) -> None:
     global RING_STEPS
     if device.type == "cuda":
         RING_STEPS += 1
+
+
+def on_card(shards: Sequence[torch.Tensor]) -> bool:
+    """Whether this process's shards are on the card (another process's
+    are placeholders on the meta device)."""
+    return any(s.is_cuda for s in shards)
 
 
 def check_shards(mesh: Mesh, x: Sequence[torch.Tensor], w: Sequence[torch.Tensor],
@@ -403,9 +451,10 @@ class RingMatmul:
         if not self.reduce_scatter:
             return self._allgather(x, w, ag_transfer(self.mesh))
         transfer = rs_transfer(self.mesh)
-        if x[0].is_cuda:
+        card = on_card(x)
+        if card:
             RS_TRANSFERS[transfer] += 1
-        return self._reduce_scatter(self._schedule(x[0].is_cuda, transfer), x, w, transfer)
+        return self._reduce_scatter(self._schedule(card, transfer), x, w, transfer)
 
     def _ways(self, rows: int) -> list[_Way]:
         """The ring's directions (`ring_ways`): one for K2 and K3, two for
@@ -418,7 +467,9 @@ class RingMatmul:
         for the all-gather rings that hop, `cm.cuda_matmul_rs` for the
         reduce-scatter rings; returns the event after it."""
         with sched.on(r, _COMPUTE, "product"):
-            if self.reduce_scatter:
+            if a.device.type == "meta":
+                pass  # a rank of another process: its product runs there
+            elif self.reduce_scatter:
                 cm.cuda_matmul_rs(a, w, accin, dest, blocks=self.blocks)
             else:
                 cm.cuda_matmul(a, w, blocks=self.blocks, out=dest)
@@ -480,7 +531,7 @@ class RingMatmul:
                     fwd = slots[way.name][reader][(t + 1) % 2] if t + 1 < d else None
                     steps.append((t, r, way, writer, reader, chunk,
                                   y[r][row0 + way.lo:row0 + way.hi], fwd))
-        card = x[0].is_cuda
+        card = on_card(x)
         if transfer == "forward" and card and not all(
                 fwd is None or cm.ag_forwards(chunk, w[r], dest, fwd, self.blocks)
                 for _, r, _, _, _, chunk, dest, fwd in steps):
@@ -507,7 +558,7 @@ class RingMatmul:
                 # (a slot from t−1 = 1 on; its step 0 read its own X)
                 freed = reads[(way.name, reader, t - 1)] if t >= 2 else ()
                 sched.wait(r, way.copy, arrived, *freed)
-                _hop(sched, r, fwd, chunk, way.copy)
+                _hop(sched, r, fwd, chunk, way.copy, reader)
                 hop_done[(way.name, r, t)] = sched.mark(r, way.copy)
             reads[(way.name, r, t)] = (product, hop_done.get((way.name, r, t)))
         sched.leave()
@@ -581,7 +632,8 @@ class RingMatmul:
                         # mod 2 at step t−1 (a slot from t−1 = 1 on)
                         freed = product[(way.name, reader, t - 1)] if t >= 2 else None
                         sched.wait(r, way.copy, product[(way.name, r, t)], freed)
-                        _hop(sched, r, recv[way.name][reader][(t + 1) % 2], dest, way.copy)
+                        _hop(sched, r, recv[way.name][reader][(t + 1) % 2], dest,
+                             way.copy, reader)
                         hop_done[(way.name, r, t)] = sched.mark(r, way.copy)
         sched.leave()
         return Sharded(y, ROWS)

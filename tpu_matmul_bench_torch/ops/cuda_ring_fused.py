@@ -124,6 +124,11 @@ class FusedRing:
         if d > FUSED_MAX_RANKS:
             raise ValueError(f"the fused ring takes at most {FUSED_MAX_RANKS} ranks "
                              f"in one launch, got {d}")
+        if mesh.spans_processes:
+            raise ValueError(
+                f"the fused ring (cuda_ring) runs every rank in one cooperative "
+                f"launch in one process; this world of {d} ranks spans processes "
+                f"{mesh.processes} (run it in one process, or take cuda_ring_hbm)")
         if len(mesh.cards) > 1:
             raise ValueError(
                 f"the fused ring runs every rank in one cooperative launch on one "

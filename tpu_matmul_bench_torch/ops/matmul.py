@@ -17,7 +17,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from tpu_matmul_bench_torch.utils.metrics import is_integer_dtype
+from tpu_matmul_bench_torch.utils.metrics import is_integer_dtype, matmul_out_dtype
 
 # C = A @ B; with `out=`, a contiguous m×n tensor of the output dtype that
 # receives C in place of a new tensor
@@ -49,7 +49,31 @@ def matmul_2d(impl: str = "torch", blocks: tuple[int, int, int] | None = None,
     of the device the operands live on, or, when the caller names none, of
     the first operand's device (the card's name, or "cpu"). An explicit
     `blocks` wins; otherwise a route through a tuning-DB cell runs the
-    cell's tile. The product takes `out=` (see `Matmul`)."""
+    cell's tile. The product takes `out=` (see `Matmul`). A rank of another
+    process (`parallel/group.py`: its operands placeholders on the meta
+    device) gets a placeholder of the product's shape and dtype, and
+    nothing runs (`_elsewhere`)."""
+    return _elsewhere(_matmul_2d(impl, blocks, device_kind))
+
+
+def _elsewhere(mm: Matmul) -> Matmul:
+    """`mm`, except on placeholders (meta tensors: the operands of a rank
+    that another process computes), where the product is a placeholder of
+    its shape and dtype, or `out` itself."""
+    def product(a: torch.Tensor, b: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+        if a.device.type != "meta":
+            return mm(a, b, out=out)
+        if out is not None:
+            return out
+        return torch.empty((a.shape[0], b.shape[1]), dtype=matmul_out_dtype(a.dtype),
+                           device="meta")
+
+    return product
+
+
+def _matmul_2d(impl: str, blocks: tuple[int, int, int] | None,
+               device_kind: str | None) -> Matmul:
     if impl == "auto":
         from tpu_matmul_bench_torch.ops.impl_select import select_impl
         from tpu_matmul_bench_torch.utils.device import device_kind_of
@@ -60,7 +84,7 @@ def matmul_2d(impl: str = "torch", blocks: tuple[int, int, int] | None = None,
             choice = select_impl(a.shape[0], b.shape[1], a.shape[1], kind,
                                  a.dtype)
             picked = blocks if blocks is not None else choice.blocks
-            return matmul_2d(choice.impl, picked)(a, b, out=out)
+            return _matmul_2d(choice.impl, picked, None)(a, b, out=out)
 
         return _auto
     if impl == "cuda":
@@ -106,13 +130,20 @@ def random_operands(seed: int, shape: tuple[int, ...], dtype: torch.dtype, *,
     """`count` random operands drawn in turn from one generator seeded with
     `seed` on `device`: standard normal for floats, small uniform integers
     for int8."""
+    return tuple(iter_random_operands(seed, shape, dtype, device=device, count=count))
+
+
+def iter_random_operands(seed: int, shape: tuple[int, ...], dtype: torch.dtype, *,
+                         device: torch.device | str, count: int = 2):
+    """`random_operands`, one operand at a time: the caller may drop each
+    before the next is drawn."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    if is_integer_dtype(dtype):
-        return tuple(torch.randint(-INT_OPERAND_BOUND, INT_OPERAND_BOUND, shape,
-                                   generator=gen, device=device, dtype=dtype)
-                     for _ in range(count))
-    return tuple(torch.randn(shape, generator=gen, device=device, dtype=dtype)
-                 for _ in range(count))
+    for _ in range(count):
+        if is_integer_dtype(dtype):
+            yield torch.randint(-INT_OPERAND_BOUND, INT_OPERAND_BOUND, shape,
+                                generator=gen, device=device, dtype=dtype)
+        else:
+            yield torch.randn(shape, generator=gen, device=device, dtype=dtype)
 
 
 def operands_from_numpy(*arrays: np.ndarray, device: torch.device | str

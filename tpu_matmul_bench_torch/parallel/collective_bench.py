@@ -211,5 +211,5 @@ def run_collective_benchmark(config: BenchConfig, mesh: Mesh, size: int,
         comm_time_s=t.avg_s,
         extras={"bus_factor": round(spec.bus_factor(d), 4),
                 **protocol_extras(config.timing, t), **verdict,
-                "cards": len(mesh.cards), "ranks_per_card": mesh.ranks_per_card},
+                "cards": mesh.card_count, "ranks_per_card": mesh.ranks_per_card},
     )

@@ -1,14 +1,21 @@
 """Collectives over the world of ranks (`parallel/mesh.py`), exact and on
 quantized wire formats.
 
-Port of `tpu_matmul_bench/parallel/collectives.py`. The ranks live in one
-process, so each collective is plain tensor copies and sums between the
-ranks' tensors, in the role XLA's collectives play in the JAX package.
-Every function takes and returns per-rank tensors in rank order; results
-lie on each rank's device. A collective over one axis of a 2-D mesh runs
-over each of that axis's groups, on its 1-D sub-mesh (`over_axis`). Ranks
-that are processes on several cards (NCCL process groups) are later work.
-Two halves:
+Port of `tpu_matmul_bench/parallel/collectives.py`. Each collective is
+plain tensor copies and sums between the ranks' tensors, in the role XLA's
+collectives play in the JAX package. Every function takes and returns
+per-rank tensors in rank order; results lie on each rank's device. A
+collective over one axis of a 2-D mesh runs over each of that axis's
+groups, on its 1-D sub-mesh (`over_axis`).
+
+Across processes (`parallel/group.py`) the exact collectives first fetch
+the bytes of the other processes' shards of the mesh (`_fetch`: one gloo
+all_gather; `ppermute`: sends and receives of the moved shards only), then
+run the one-process code, which computes the local ranks' results and
+placeholders for the others: the sums keep their fp32 rank-order
+accumulation and one rounding, so every result is the one-process world's
+bits. The wire formats do not cross processes yet: a quantized collective
+over a mesh that spans processes raises. Two halves:
 
 1. **Wire formats** (`--comm-quant`, JAX `:71-538`): `WireFormat` and its
    grammar, `wire_psum`, `wire_reduce_scatter` and `wire_all_gather`, the
@@ -36,6 +43,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from tpu_matmul_bench_torch.parallel import group
 from tpu_matmul_bench_torch.parallel.mesh import (
     LINK_CLASSES,
     Mesh,
@@ -51,6 +59,22 @@ Shards = Sequence[torch.Tensor]
 def _check(mesh: Mesh, shards: Shards) -> None:
     if len(shards) != len(mesh.ranks):
         raise ValueError(f"{len(shards)} shards for {len(mesh.ranks)} ranks")
+
+
+def _fetch(mesh: Mesh, shards: Shards) -> list[torch.Tensor]:
+    """The shards with every other process's placeholder replaced by its
+    bytes (host tensors), where the mesh spans processes; else as given."""
+    if not mesh.spans_processes:
+        return list(shards)
+    return group.all_gather_shards([r.process for r in mesh.ranks], shards)
+
+
+def _refuse_wire(mesh: Mesh, what: str) -> None:
+    if mesh.spans_processes:
+        raise ValueError(
+            f"--comm-quant: the quantized {what} over a mesh that spans "
+            f"processes {mesh.processes} is not ported; run it in one "
+            "process, or without --comm-quant")
 
 
 def _sum_on(shards: Shards, device: torch.device,
@@ -91,6 +115,7 @@ def psum_over(mesh: Mesh) -> Callable[[Shards], list[torch.Tensor]]:
     device get copies of it."""
     def fn(shards: Shards) -> list[torch.Tensor]:
         _check(mesh, shards)
+        shards = _fetch(mesh, shards)
         return _per_card(mesh, lambda d: _sum_on(shards, d))
     return fn
 
@@ -100,6 +125,7 @@ def pmean_over(mesh: Mesh) -> Callable[[Shards], list[torch.Tensor]]:
     each device as `psum_over` is."""
     def fn(shards: Shards) -> list[torch.Tensor]:
         _check(mesh, shards)
+        shards = _fetch(mesh, shards)
         n = len(shards)
         return _per_card(mesh, lambda d: (_sum_on(shards, d).float() / n)
                          .to(shards[0].dtype))
@@ -112,6 +138,7 @@ def all_gather_over(mesh: Mesh, *, gather_axis: int = 0
     along `gather_axis` (≙ `jax.lax.all_gather(..., tiled=True)`)."""
     def fn(shards: Shards) -> list[torch.Tensor]:
         _check(mesh, shards)
+        shards = _fetch(mesh, shards)
         return [torch.cat([s.to(d) for s in shards], dim=gather_axis)
                 for d in mesh.devices]
     return fn
@@ -130,6 +157,7 @@ def psum_scatter_over(mesh: Mesh, *, scatter_dimension: int = 0
             raise ValueError(f"dimension {scatter_dimension} ({size}) does not "
                              f"split into {d} blocks")
         block = size // d
+        shards = _fetch(mesh, shards)
         return [_sum_on(shards, rank.device,
                         lambda s, r=rank.index: s.narrow(scatter_dimension,
                                                          r * block, block))
@@ -142,6 +170,13 @@ def ppermute(mesh: Mesh, shards: Shards,
     """Rank dst receives the shard of rank src for each (src, dst) in
     `perm` (≙ `jax.lax.ppermute`); a rank that receives nothing gets None."""
     _check(mesh, shards)
+    shards = list(shards)
+    if mesh.spans_processes:
+        # only the moved shards cross, each from its holder to its reader
+        procs = [r.process for r in mesh.ranks]
+        moves = [(procs[src], procs[dst], shards[src]) for src, dst in perm]
+        for i, t in group.exchange_pairs(moves).items():
+            shards[perm[i][0]] = t
     out: list[torch.Tensor | None] = [None] * len(shards)
     for src, dst in perm:
         out[dst] = shards[src].to(mesh.devices[dst], copy=True)
@@ -162,6 +197,7 @@ def all_to_all_over(mesh: Mesh, *, split_axis: int = 0, concat_axis: int = 0
             raise ValueError(f"dimension {split_axis} ({size}) does not "
                              f"split into {d} blocks")
         block = size // d
+        shards = _fetch(mesh, shards)
         return [torch.cat([s.narrow(split_axis, r.index * block, block).to(r.device)
                            for s in shards], dim=concat_axis)
                 for r in mesh.ranks]
@@ -188,13 +224,17 @@ def verify_collectives(mesh: Mesh, *, verbose: bool = True) -> bool:
     """Startup check of the collectives the suite depends on, ≙ the JAX
     package's `verify_collectives` (reference `matmul_scaling_benchmark.py:
     26-57`): psum, pmean, all_gather and the ring shift, each PASSED or
-    FAILED. Returns True when every check passes."""
+    FAILED. Returns True when every check passes; each process checks its
+    own ranks, and the verdict is the AND over the processes (JAX
+    `:650-660`)."""
     n = len(mesh.ranks)
 
     def check(name: str, got: Sequence[torch.Tensor],
               expect: Callable[[int], object]) -> bool:
         good, detail = True, ""
         for r, g in enumerate(got):
+            if not mesh.ranks[r].local:
+                continue
             arr = g.detach().cpu().numpy()
             want = np.broadcast_to(np.asarray(expect(r), arr.dtype), arr.shape)
             if not np.allclose(arr, want, rtol=1e-3, atol=1e-3):
@@ -435,6 +475,7 @@ def quantized_ring(mesh: Mesh, shards: Shards, fmt: WireFormat) -> list[torch.Te
     (`ppermute`), dequantized there and added to that rank's chunk
     (r + 2D − 1 − t) mod D. After D − 1 hops rank r holds chunk r fully
     summed (fp32, [rows / D, cols])."""
+    _refuse_wire(mesh, "reduce-scatter ring")
     d = len(shards)
     rows = [s.reshape(-1, s.shape[-1]) for s in shards]
     chunk = rows[0].shape[0] // d
@@ -525,6 +566,7 @@ def wire_all_gather(mesh: Mesh, shards: Shards, fmt: WireFormat, axis: int = 0,
         return list(shards)  # fully inert: the exact program's
     res_dtype = out_dtype or shards[0].dtype
     ndim = shards[0].ndim
+    _refuse_wire(mesh, "all_gather")
     if ndim > 2:
         if axis != ndim - 1:
             raise ValueError(f"unsupported gather axis {axis} for rank {ndim}")

@@ -26,6 +26,7 @@ from tpu_matmul_bench_torch.parallel.collectives import (
 from tpu_matmul_bench_torch.parallel.mesh import (
     Mesh,
     Sharded,
+    first_local_shard,
     global_block,
     make_mesh,
     mesh_device_kind,
@@ -148,9 +149,11 @@ def hybrid_mode(config: BenchConfig, mesh: Mesh, size: int, batch: int = 4,
                      memory_gib_per_device=estimate_memory_gib(
                          "hybrid", config, world, size, batch=batch, dp=dp),
                      # the first logical [size, size] block of the out
-                     # spec P(('dp', 'tp')) is rank 0's copy of the output
+                     # spec P(('dp', 'tp')) is rank 0's copy of the output;
+                     # every rank holds the same, and this process reads its own
                      validate=make_corner_validate(
-                         lambda xx, ww: full(xx, ww)[0], (x, w), expected, config.dtype,
+                         lambda xx, ww: first_local_shard(full(xx, ww)), (x, w),
+                         expected, config.dtype,
                          comm_quant=config.comm_quant,
                          # dp psum hops + one gather rounding drive the error
                          world=dp + 1))

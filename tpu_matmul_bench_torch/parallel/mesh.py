@@ -24,6 +24,17 @@ count; rank r goes to card r // R. On one H100 with R = 4 the four ranks
 share the card: their ring copies go from device memory to device memory,
 not over NVLink, and the link classes 'dcn' and 'ici' of a factorized mesh
 are labels there.
+
+Processes: in a process group (`parallel/group.py`) a world mesh holds
+every rank of the world, each with its process and its card's identity
+(host and UUID, exchanged once at the rendezvous), and a rank of another
+process lies on the meta device: its shard is a placeholder of the right
+shape and dtype, so the per-rank code runs unchanged and computes nothing
+for it. `cards` are the local devices; `card_count` and `ranks_per_card`
+count physical cards across the world. Operands are made whole on every
+process with the one-process world's bits and cut to the local shards
+(`shard_tensor`); `gather`, `global_block` and `stacked_item` fetch what
+other processes hold through the group (≙ JAX `process_allgather`).
 """
 
 from __future__ import annotations
@@ -31,10 +42,12 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+
+from tpu_matmul_bench_torch.parallel import group
 
 AXIS = "x"
 # mesh-axis link classes, slowest first (JAX `parallel/mesh.py:44`): 'dcn'
@@ -63,7 +76,17 @@ def ranks_per_card() -> int:
 @dataclasses.dataclass(frozen=True)
 class Rank:
     index: int
-    device: torch.device
+    device: torch.device  # meta: the rank of another process
+    process: int = 0
+    card: str | None = None  # physical identity across processes; None: the device
+
+    @property
+    def local(self) -> bool:
+        return self.device.type != "meta"
+
+    @property
+    def card_key(self) -> str:
+        return self.card if self.card is not None else str(self.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,14 +130,41 @@ class Mesh:
 
     @property
     def cards(self) -> list[torch.device]:
-        """The distinct devices the ranks occupy, in order of first use."""
-        return list(dict.fromkeys(self.devices))
+        """The distinct devices this process's ranks occupy, in order of
+        first use (the other processes' ranks have none here)."""
+        return list(dict.fromkeys(r.device for r in self.ranks if r.local))
+
+    @property
+    def card_count(self) -> int:
+        """The physical cards the ranks occupy across every process."""
+        return len({r.card_key for r in self.ranks})
 
     @property
     def ranks_per_card(self) -> int:
-        """The most ranks any one device holds."""
-        devs = self.devices
-        return max(devs.count(d) for d in self.cards)
+        """The most ranks any one physical card holds."""
+        keys = [r.card_key for r in self.ranks]
+        return max(keys.count(k) for k in set(keys))
+
+    @property
+    def processes(self) -> list[int]:
+        """The processes that hold the ranks, in order."""
+        return sorted({r.process for r in self.ranks})
+
+    @property
+    def spans_processes(self) -> bool:
+        return len(self.processes) > 1
+
+    @property
+    def shared_card(self) -> bool:
+        """Every rank on one card and in one process: the rings store into
+        and forward to each other's memory only then."""
+        return not self.spans_processes and self.card_count == 1
+
+    @property
+    def first_local(self) -> torch.device:
+        """The device of this process's first rank (of the mesh's first
+        rank where it holds none)."""
+        return next((r.device for r in self.ranks if r.local), self.ranks[0].device)
 
     def coords(self, index: int) -> dict[str, int]:
         """Rank `index`'s coordinate on each axis (row-major placement)."""
@@ -134,8 +184,8 @@ class Mesh:
         """The 1-D mesh along `axis` of the group that holds rank `index`,
         its ranks renumbered from 0 in `axis` order."""
         group = next(g for g in self.axis_groups(axis) if index in g)
-        return Mesh(tuple(Rank(i, self.ranks[r].device) for i, r in enumerate(group)),
-                    (axis,))
+        return Mesh(tuple(dataclasses.replace(self.ranks[r], index=i)
+                          for i, r in enumerate(group)), (axis,))
 
 
 def _spec_axes(entry: Any) -> tuple[str, ...]:
@@ -201,7 +251,8 @@ def make_mesh(devices: Sequence[torch.device], axis_names: tuple[str, ...] = (AX
     'x', JAX's `make_mesh`)."""
     if not devices:
         raise ValueError("a mesh needs at least one rank")
-    kinds = {torch.device(d).type for d in devices}
+    devices = [torch.device(d) for d in devices]
+    kinds = {d.type for d in devices} - {"meta"}
     if len(kinds) > 1:
         raise ValueError(f"ranks on both the CPU and the card: {sorted(kinds)}")
     if shape is None:
@@ -210,8 +261,38 @@ def make_mesh(devices: Sequence[torch.device], axis_names: tuple[str, ...] = (AX
         shape = (len(devices),)
     if math.prod(shape) != len(devices):
         raise ValueError(f"mesh shape {tuple(shape)} does not cover {len(devices)} devices")
-    return Mesh(tuple(Rank(i, torch.device(d)) for i, d in enumerate(devices)),
-                tuple(axis_names), tuple(shape))
+    mesh = Mesh(_world_ranks(devices), tuple(axis_names), tuple(shape))
+    if mesh.spans_processes:
+        for axis in mesh.axis_names:
+            for line in mesh.axis_groups(axis):
+                group.ensure_group([mesh.ranks[r].process for r in line])
+    return mesh
+
+
+def _world_ranks(devices: list[torch.device]) -> tuple[Rank, ...]:
+    """The ranks of `devices`. Without meta entries every rank is this
+    process's. With them the list is a world of the process group
+    (`utils/device.py resolve_devices`): process p holds the p-th of
+    equal blocks of consecutive ranks, and only this process's block is
+    real here."""
+    me = group.process_index()
+    if not any(d.type == "meta" for d in devices):
+        cards = {d: group.card_id(d) for d in devices} if group.active() else {}
+        return tuple(Rank(i, d, me, cards.get(d)) for i, d in enumerate(devices))
+    nprocs = group.process_count()
+    if len(devices) % nprocs:
+        raise ValueError(f"{len(devices)} ranks do not split over {nprocs} processes")
+    per = len(devices) // nprocs
+    cards = group.process_cards()
+    ranks = []
+    for i, d in enumerate(devices):
+        p = i // per
+        if (p == me) == (d.type == "meta"):
+            raise ValueError(f"rank {i} belongs to process {p} but is "
+                             f"{'remote' if d.type == 'meta' else 'local'} "
+                             f"to process {me}")
+        ranks.append(Rank(i, d, p, cards[p]))
+    return tuple(ranks)
 
 
 def place_ranks(cards: Sequence[torch.device],
@@ -350,63 +431,127 @@ def _block_slices(sharded: Sharded, blocks: tuple[int, ...]) -> list[slice]:
     return out
 
 
+def _remote(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
+
+
+def home_device(sharded: Sharded) -> torch.device:
+    """The device of this process's first shard (another process's shards
+    lie on the meta device here)."""
+    return next((s.device for s in sharded if not _remote(s)), sharded[0].device)
+
+
+def first_local_shard(sharded: Sequence[torch.Tensor]) -> torch.Tensor:
+    """This process's first shard (another process's are placeholders)."""
+    return next(s for s in sharded if not _remote(s))
+
+
+def _pieces(sharded: Sharded, ranks: Sequence[int],
+            piece: Callable[[int, torch.Tensor], torch.Tensor]) -> dict[int, torch.Tensor]:
+    """{r: piece(r, shard r)} for each rank r of `ranks`: a local shard's
+    piece as it is, another process's fetched through the group into host
+    memory (its owner computes it by the same rule). Every process calls
+    this together; a sharded operand without placeholders exchanges
+    nothing."""
+    out = {r: piece(r, sharded[r]) for r in ranks}
+    if not any(_remote(s) for s in sharded):
+        return out
+    held = [r for r in range(len(sharded)) if not _remote(sharded[r])]
+    asks = group.share_objects((held, sorted(r for r in ranks if _remote(sharded[r]))))
+    owner = {r: p for p, (mine, _) in enumerate(asks) for r in mine}
+    needed = sorted({r for _, theirs in asks for r in theirs})
+    if not needed:
+        return out
+    got = group.all_gather_shards([owner[r] for r in needed],
+                                  [piece(r, sharded[r]) for r in needed],
+                                  processes=range(group.process_count()))
+    out.update((r, t) for r, t in zip(needed, got) if r in out)
+    return out
+
+
 def gather(sharded: Sharded, device: torch.device | str | None = None) -> torch.Tensor:
-    """The global tensor, put back together on `device` (default: the
-    first rank's) from one holder of each block; a replicated operand's
-    first copy."""
-    device = sharded[0].device if device is None else device
+    """The global tensor, put back together on `device` (default: this
+    process's first shard's) from one holder of each block; a replicated
+    operand's first copy."""
+    device = home_device(sharded) if device is None else device
     cuts = sharded.cuts
+    holders = sharded.holders()
+    got = _pieces(sharded, list(holders.values()), lambda r, s: s)
     if not cuts:
-        return sharded[0].to(device)
+        return got[holders[()]].to(device)
     shape = list(sharded[0].shape)
     for dim, n in cuts:
         shape[dim] *= n
     out = torch.empty(shape, dtype=sharded[0].dtype, device=device)
-    for blocks, r in sharded.holders().items():
-        out[tuple(_block_slices(sharded, blocks))] = sharded[r].to(device)
+    for blocks, r in holders.items():
+        out[tuple(_block_slices(sharded, blocks))] = got[r].to(device)
     return out
 
 
 def global_block(sharded: Sharded, rows: int, cols: int) -> torch.Tensor:
-    """global[:rows, :cols] of a 2-D operand on the first rank's device,
-    read from the shards that hold it, without putting the rest together."""
-    device = sharded[0].device
+    """global[:rows, :cols] of a 2-D operand on this process's first
+    shard's device, read from the shards that hold it, without putting
+    the rest together."""
+    device = home_device(sharded)
+    holders = sharded.holders()
     if not sharded.cuts:
-        return sharded[0][:rows, :cols]
+        r = holders[()]
+        return _pieces(sharded, [r], lambda _r, s: s[:rows, :cols])[r].to(device)
     h, w = sharded[0].shape
     extent = [h, w]
     for dim, n in sharded.cuts:
         extent[dim] *= n
     out = torch.empty((min(rows, extent[0]), min(cols, extent[1])),
                       dtype=sharded[0].dtype, device=device)
-    for blocks, r in sharded.holders().items():
-        (r0, r1), (c0, c1) = ((s.start, s.stop) for s in _block_slices(sharded, blocks))
-        if r0 < out.shape[0] and c0 < out.shape[1]:
-            r1, c1 = min(r1, out.shape[0]), min(c1, out.shape[1])
-            out[r0:r1, c0:c1] = sharded[r][:r1 - r0, :c1 - c0].to(device)
+
+    def span(r: int) -> tuple[int, int, int, int]:
+        (r0, r1), (c0, c1) = ((s.start, s.stop)
+                              for s in _block_slices(sharded, sharded.blocks(r)))
+        return r0, min(r1, out.shape[0]), c0, min(c1, out.shape[1])
+
+    inside = [r for r in holders.values()
+              if span(r)[0] < out.shape[0] and span(r)[2] < out.shape[1]]
+
+    def piece(r: int, s: torch.Tensor) -> torch.Tensor:
+        r0, r1, c0, c1 = span(r)
+        return s[:r1 - r0, :c1 - c0]
+
+    got = _pieces(sharded, inside, piece)
+    for r in inside:
+        r0, r1, c0, c1 = span(r)
+        out[r0:r1, c0:c1] = got[r].to(device)
     return out
 
 
 def stacked_item(sharded: Sharded, index: int) -> torch.Tensor:
     """global[index] of a stacked operand cut along dim 0 only: a view of
-    the first shard that holds it, on its rank's device."""
+    the first shard that holds it, on its rank's device; fetched from
+    another process onto this process's first shard's device."""
     if [dim for dim, _ in sharded.cuts] != [0]:
         raise ValueError(f"a stacked item needs dim 0 cut, got spec {sharded.spec}")
     per = sharded[0].shape[0]
-    return sharded[sharded.holders()[(index // per,)]][index % per]
+    r = sharded.holders()[(index // per,)]
+    piece = _pieces(sharded, [r], lambda _r, s: s[index % per])[r]
+    return piece if not _remote(sharded[r]) else piece.to(home_device(sharded))
 
 
 def sharded_normal(seed: int, shape: tuple[int, ...], dtype: torch.dtype,
                    mesh: Mesh, spec: tuple, *, count: int = 2) -> tuple[Sharded, ...]:
     """`count` random global arrays from the port's own generator
     (`ops/matmul.py random_operands`: standard normal, small uniform ints
-    for int8), each made on the first rank's device and cut by `spec`. The
-    JAX package's bits are not reproduced, as `random_operands` does not
+    for int8), each made on this process's first rank's device and cut by
+    `spec`: every process makes the one-process world's bits and keeps
+    its own shards (the global array goes once it is cut). The JAX
+    package's bits are not reproduced, as `random_operands` does not
     reproduce them either."""
-    from tpu_matmul_bench_torch.ops.matmul import random_operands
+    from tpu_matmul_bench_torch.ops.matmul import iter_random_operands
 
-    return tuple(shard_tensor(g, spec, mesh) for g in random_operands(
-        seed, tuple(shape), dtype, device=mesh.devices[0], count=count))
+    out = []
+    for g in iter_random_operands(seed, tuple(shape), dtype,
+                                  device=mesh.first_local, count=count):
+        out.append(shard_tensor(g, spec, mesh))
+        del g  # the global array goes before the next is drawn
+    return tuple(out)
 
 
 def ring_perm(n: int) -> list[tuple[int, int]]:
@@ -424,4 +569,4 @@ def mesh_device_kind(mesh: Mesh) -> str:
     """The ranks' device kind: the card's name, or 'cpu'."""
     from tpu_matmul_bench_torch.utils.device import device_kind_of
 
-    return device_kind_of(mesh.devices[0])
+    return device_kind_of(mesh.first_local)

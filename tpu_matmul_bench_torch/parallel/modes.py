@@ -49,6 +49,7 @@ from tpu_matmul_bench_torch.parallel.mesh import (
     Mesh,
     Sharded,
     global_block,
+    home_device,
     mesh_device_kind,
     sharded_normal,
     stacked_item,
@@ -243,7 +244,7 @@ def _stacked_corner_sum(a: Sharded, b: Sharded, indices: range) -> torch.Tensor:
     """`expected_corner_sum` over global[indices] of two stacked operands,
     reading only the corner's rows of A and columns of B."""
     c = VALIDATION_CORNER
-    device = a[0].device
+    device = home_device(a)
     return expected_corner_sum(
         torch.stack([stacked_item(a, i)[:c].to(device) for i in indices]),
         torch.stack([stacked_item(b, i)[:, :c].to(device) for i in indices]))
@@ -415,7 +416,7 @@ def _mode_record(config: BenchConfig, benchmark: str, mode: str, size: int,
     `tflops_per_device` that total over the cards the ranks occupy (the
     JAX per-device figure × world / cards), the card's name, and the
     extras `cards` and `ranks_per_card`."""
-    cards = len(mesh.cards)
+    cards = mesh.card_count
     return _record_base(
         config, benchmark, mode, size, world_size(mesh), timing,
         tflops_per_device=tflops_total / cards, tflops_total=tflops_total,
@@ -553,7 +554,8 @@ def matrix_parallel(config: BenchConfig, mesh: Mesh, size: int,
                          "matrix_parallel", config, d, size),
                      validate=make_corner_validate(
                          full, (a, b),
-                         lambda: expected_corner(a[0], global_block(b, size, c)),
+                         lambda: expected_corner(global_block(a, c, size),
+                                                 global_block(b, size, c)),
                          config.dtype, comm_quant=config.comm_quant, world=d))
 
 

@@ -100,7 +100,8 @@ class _SerialSchedule(_Schedule):
     def on(self, r: int, which: int, kind: str):
         with super().on(r, which, kind):
             yield
-        torch.cuda.synchronize(self.mesh.devices[r])
+        device = self.mesh.devices[r]
+        torch.cuda.synchronize(device if device.type != "meta" else self.mesh.first_local)
 
 
 class _RankStreamProgram:
@@ -178,7 +179,7 @@ class StepProgram(_RankStreamProgram):
         out = matmul_out_dtype(a[0].dtype)
         devices = self.mesh.devices
         outs = [torch.empty(self.steps, dtype=out, device=dev) for dev in devices]
-        sched = self._schedule(a[0].is_cuda)
+        sched = self._schedule(cuda_ring.on_card(a))
         if self.variant in ("compute_only", "no_overlap"):
             prod = [torch.empty((n, n), dtype=out, device=dev) for dev in devices]
             sched.enter()
@@ -364,7 +365,7 @@ class CollectiveMatmul(_RankStreamProgram):
             raise ValueError(
                 f"bidirectional ring needs ≥2 local rows per device "
                 f"(m/d = {mshard}); use collective_matmul instead")
-        sched = self._schedule(x[0].is_cuda)
+        sched = self._schedule(cuda_ring.on_card(x))
         if self.reduce_scatter:
             return self._reduce_scatter(sched, x, w, mshard)
         return self._allgather(sched, x, w, mshard)
@@ -409,7 +410,7 @@ class CollectiveMatmul(_RankStreamProgram):
                         sched.wait(r, way.copy, *freed, reuse=True)
                         # through the module, where a recorder's patch sees it
                         cuda_ring._hop(sched, r, slots[way.name][reader][(t + 1) % 2], chunk,
-                                       way.copy)
+                                       way.copy, reader)
                         hop_done[(way.name, r, t)] = sched.mark(r, way.copy)
                     reads[(way.name, r, t)] = (product, hop_done.get((way.name, r, t)))
         sched.leave()
@@ -457,7 +458,7 @@ class CollectiveMatmul(_RankStreamProgram):
                                    summed[(way.name, reader, t - 1)] if t >= 2 else None,
                                    reuse=True)
                         cuda_ring._hop(sched, r, recv[way.name][reader][(t + 1) % 2], dest,
-                                       way.copy)
+                                       way.copy, reader)
                         hop_done[(way.name, r, t)] = sched.mark(r, way.copy)
         sched.leave()
         return Sharded(y, ROWS)
@@ -544,7 +545,7 @@ def _vs_baseline_mode(config: BenchConfig, mesh: Mesh, size: int,
     occupy, so on one card it is that card's throughput and
     `peak_efficiency_pct` keeps its 0–100 meaning."""
     d = world_size(mesh)
-    cards = len(mesh.cards)
+    cards = mesh.card_count
     (x,) = sharded_normal(config.seed, (size, size), config.dtype, mesh,
                           x_spec, count=1)
     (w,) = sharded_normal(config.seed + 1, (size, size), config.dtype, mesh,
@@ -588,8 +589,9 @@ def hops_capturable(mesh: Mesh) -> bool:
     that the ring takes --timing fused: within one card a hop is
     cudaMemcpyAsync, which a graph captures; across cards it is
     cudaMemcpyPeerAsync (`csrc/ring.cu`), which no graph can capture, so
-    there the ring demotes to the dispatch protocol."""
-    return len(mesh.cards) == 1
+    there the ring demotes to the dispatch protocol, as it does across
+    processes, where a hop is a gloo send and receive."""
+    return mesh.shared_card
 
 
 def collective_matmul_mode(config: BenchConfig, mesh: Mesh, size: int,

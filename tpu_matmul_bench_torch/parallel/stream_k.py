@@ -142,7 +142,7 @@ def stream_benchmark(config: BenchConfig, mesh: Mesh, size: int) -> BenchmarkRec
     avg = (time.perf_counter() - t0) / config.iterations
 
     tflops_total = calculate_tflops(size, avg)
-    cards = len(mesh.cards)
+    cards = mesh.card_count
     rec = BenchmarkRecord(
         benchmark="stream", mode="stream_k", size=size, dtype=config.dtype_name,
         world=world, iterations=config.iterations, warmup=1, avg_time_s=avg,

@@ -31,6 +31,9 @@ _TRANSPORT_SIGNATURES = (
     "Connection refused",
     "Broken pipe",
     "Socket closed",
+    # gloo's own, in this torch: a peer that stopped answering
+    "Read timeout",
+    "Timed out waiting",
 )
 
 # A failed Gloo collective reports as "Gloo <Op> failed: <cause>".

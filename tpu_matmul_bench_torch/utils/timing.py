@@ -24,6 +24,13 @@ that stream time all of it.
 
 On the CPU the calls run synchronously, `time.perf_counter` stands in for
 the events, and the fused protocol runs the same chained loop eagerly.
+
+Across processes (`parallel/group.py`) every decision taken from a clock
+(the auto-scaled call count) uses process 0's reading (`group.agree`, ≙
+JAX `_agree`), so every process dispatches the same collectives. Another
+process's shards (placeholders on the meta device) are neither synced nor
+chained. A CUDA graph cannot hold a gloo exchange: on the card, a fused
+program whose calls cross processes raises before the capture.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from tpu_matmul_bench_torch.parallel import group
 from tpu_matmul_bench_torch.parallel.mesh import Sharded
 from tpu_matmul_bench_torch.utils import telemetry
 from tpu_matmul_bench_torch.utils.profiling import MEASURE_REGION
@@ -42,9 +50,10 @@ from tpu_matmul_bench_torch.utils.profiling import MEASURE_REGION
 
 def _tensors(out: Any) -> list[torch.Tensor]:
     """Every tensor in `out`: a tensor, or a tuple/list of them, such as a
-    list of per-rank shards (nested any depth)."""
+    list of per-rank shards (nested any depth); another process's shards
+    (meta placeholders) left out."""
     if isinstance(out, torch.Tensor):
-        return [out]
+        return [] if out.device.type == "meta" else [out]
     if isinstance(out, (tuple, list)):
         return [t for x in out for t in _tensors(x)]
     return []
@@ -157,13 +166,15 @@ def time_jitted(
     warm-up did, and the allocator does not grow inside the window.
     """
     out, overhead = _warm(lambda: fn(*args), warmup)
+    overhead = group.agree(overhead)
     card = _on_card(out)
     del out
     factor = 1
     with telemetry.span("measure", protocol="dispatch") as meta:
         while True:
             n = iterations * factor
-            device_total = _timed_loop(lambda: fn(*args), n, card, overhead)[1]
+            device_total = group.agree(
+                _timed_loop(lambda: fn(*args), n, card, overhead)[1])
             if device_total >= 5 * overhead or factor >= 256:
                 break
             per_iter = max(device_total / n, 1e-9)
@@ -180,7 +191,8 @@ def time_jitted(
 
 def _chainable(x: Any) -> bool:
     return (isinstance(x, torch.Tensor) and x.ndim >= 1 and x.numel() >= 2
-            and x.dtype != torch.bool and not x.is_complex())
+            and x.dtype != torch.bool and not x.is_complex()
+            and x.device.type != "meta")
 
 
 def _chain_targets(op: Any) -> list[torch.Tensor]:
@@ -267,9 +279,15 @@ def fuse_iterations(
         # cannot; then capture the chain and run it once
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
+        crossings = group.CROSSINGS
         with torch.cuda.stream(side):
             fn(*ops)
         torch.cuda.current_stream().wait_stream(side)
+        if group.CROSSINGS != crossings:
+            raise RuntimeError(
+                "--timing fused: this program exchanges data between "
+                "processes, which a CUDA graph cannot capture; time it "
+                "with --timing dispatch")
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             result = run_chain(ops)
