@@ -263,11 +263,20 @@ The paths:
   session killed whole afterwards: scaling `independent` at 16384 alone
   (world, cards, validation, each process's K1 launches from its
   `TMB_COUNTS_OUT` counts, the per-card TFLOPS beside the one-process
-  run's), then PROCESS_PROGRAMS at PROCESS_SIZE together, each
-  `validation_max_rel_err` equal to the one-process run's, and a fused
-  program that crosses processes, which must exit with its refusal; each
-  process's start-up seconds and a crossing's ms (host and loopback, not
-  the card's link).
+  run's), then PROCESS_PROGRAMS at PROCESS_SIZE together (slice 22 adds
+  K3–K5's rings and the wire formats at the card's block: fp8-block:128
+  on matrix_parallel's gather, the legacy int8 on data_parallel, and the
+  per-link `dcn=fp8-block:128,ici=none` on `dcn:2,ici:2` for hybrid and
+  summa), each `validation_max_rel_err` (rank 0's corner), `comm_quant`
+  extra and each process's wire calls equal to the one-process run's,
+  each ring's steps and its baseline's K1 in each process as predicted
+  (`process_ring_launches`), and a fused program that crosses
+  processes, which must exit with its refusal; then model_parallel at
+  PROCESS_WIRE_SIZE alone on the card, exact and on int8-block:128 and
+  fp8-block:128, each held to the same run in one process in the same
+  way, its comm ms and each process's crossings, their seconds and bytes
+  beside the one-process comm ms of this call; each process's start-up
+  seconds and a crossing's ms (host and loopback, not the card's link).
 
 Standard output is one JSON object per line: one per phase, the
 `seconds` line (each stretch's seconds), then the `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
@@ -341,13 +350,17 @@ RING_WORLD = 4  # ranks on the card for the overlap phases and the timings
 # 16384² (128 MiB chunks)
 RACE_REPEATS, RACE_SIZES = 20, (2048, SIZE)
 OVERLAP_ITERATIONS, OVERLAP_WARMUP = 10, 2
+# the collective-matmul modes' and the scaling programs' timed calls after
+# their warm-up (OVERLAP_ITERATIONS and 10 after 2 until slice 21; cut in
+# slice 22 to fit the script's time)
+CM_ITERATIONS, CM_WARMUP = 5, 1
 # the scaling and distributed programs: (program, mode) at bf16 SIZE² over
 # RING_WORLD ranks on the card, each under the kernel (dispatch, fused) and
 # the library (dispatch); matrix_parallel also over one rank (its fallback)
 SCALING_RUNS = [("scaling", "independent"), ("scaling", "batch_parallel"),
                 ("scaling", "matrix_parallel"), ("distributed", "data_parallel"),
                 ("distributed", "model_parallel")]
-SCALING_ITERATIONS, SCALING_WARMUP = 10, 2
+SCALING_ITERATIONS, SCALING_WARMUP = 5, 1
 # slice 21: `matmul` over MATMUL_RANKS ranks on the card (A4a), and ranks as
 # processes (A5a): the multihost launcher's PROCESSES processes on the card,
 # PROCESS_RANKS ranks each, over gloo through host memory; scaling
@@ -355,10 +368,36 @@ SCALING_ITERATIONS, SCALING_WARMUP = 10, 2
 # --validate, beside the one-process world of as many ranks
 MATMUL_RANKS = 4
 PROCESSES, PROCESS_RANKS, PROCESS_SIZE = 2, 2, 2048
-PROCESS_PROGRAMS = [("scaling", "batch_parallel"), ("summa", "summa"),
-                    ("hybrid", "hybrid"), ("overlap", "collective_matmul_bidir"),
-                    ("overlap", "cuda_ring_hbm")]
-PROCESS_TIMEOUT_S = 150
+# slice 22: the dcn groups of PROCESS_MESH span the processes, its ici
+# groups stay in one; PROCESS_PER_LINK quantizes only what crosses
+PROCESS_MESH, PROCESS_PER_LINK = "dcn:2,ici:2", "dcn=fp8-block:128,ici=none"
+# (program, mode, flags): slice 21's five; slice 22's K3–K5 and the wire
+# formats at the card's block across the processes (model_parallel's block
+# wires run at PROCESS_WIRE_SIZE, below)
+PROCESS_PROGRAMS = [
+    ("scaling", "batch_parallel", []), ("summa", "summa", []), ("hybrid", "hybrid", []),
+    ("overlap", "collective_matmul_bidir", []), ("overlap", "cuda_ring_hbm", []),
+    ("overlap", "cuda_ring_rs_hbm", []), ("overlap", "cuda_ring_bidir_hbm", []),
+    ("overlap", "cuda_ring_bidir_rs_hbm", []),
+    ("distributed", "data_parallel", ["--comm-quant", "int8"]),
+    ("scaling", "matrix_parallel", ["--comm-quant", "fp8-block:128"]),
+    ("hybrid", "hybrid", ["--mesh", PROCESS_MESH, "--comm-quant", PROCESS_PER_LINK]),
+    ("summa", "summa", ["--mesh", PROCESS_MESH, "--comm-quant", PROCESS_PER_LINK])]
+PROCESS_TIMEOUT_S = 240
+# the PROCESS_PROGRAMS runs read only their validation, launches and wire
+# calls, not their times: PROCESS_ITERATIONS timed
+# calls after PROCESS_WARMUP (slice 21 ran 10 after 2; cut in slice 22,
+# whose 26 processes start together, to fit the script's time)
+PROCESS_ITERATIONS, PROCESS_WARMUP = 1, 1
+# slice 22: model_parallel at PROCESS_WIRE_SIZE across the processes, alone
+# on the card, exact and on each wire of PROCESS_WIRE_SPECS, each
+# PROCESS_WIRE_ITERATIONS timed calls after PROCESS_WIRE_WARMUP, beside the
+# same runs in one process and the `scaling` and `comm_quant` phases'
+# one-process runs at SIZE. 8192 is the cut: at SIZE the exact run alone
+# took 95 s on an H100 (a call 5.2 s, 14 GB through host memory a process)
+PROCESS_WIRE_SIZE = 8192
+PROCESS_WIRE_SPECS = (None, "int8-block:128", "fp8-block:128")
+PROCESS_WIRE_ITERATIONS, PROCESS_WIRE_WARMUP = 1, 1
 # rounds of the interleaved compute/full timing (utils/timing.py time_variants)
 VARIANT_ROUNDS = 3
 # ROADMAP C2: each efficiency mode's leg that its TFLOPS formula reads,
@@ -418,7 +457,7 @@ STREAM_MESH = "dcn:2,ici:2"
 # the train step
 CURVE_MODE, CURVE_COUNTS = "batch_parallel", (1, 2, 4)
 MEMBW_SIZES, MEMBW_ITERATIONS, MEMBW_WARMUP = (8192, SIZE), 20, 3
-COMPARE_ITERATIONS, COMPARE_WARMUP = 3, 1
+COMPARE_ITERATIONS, COMPARE_WARMUP = 2, 1  # 3 until slice 21
 COMPARE_ISOLATED = ("single", "batch_parallel")
 COMPARE_AT_CAP = ("cuda_ring", "cuda_ring_hbm")
 # the step modes' programs give no corner verdict ("n/a ..."), in JAX too
@@ -472,7 +511,7 @@ SCALING_SHAPES = {"independent": (SIZE, SIZE, SIZE), "batch_parallel": (SIZE, SI
 # bf16 SIZE² over RING_WORLD ranks: the step programs run STEPS_PER_CALL
 # steps of one SIZE³ product a rank a call (about 0.4 s), so they time
 # STEP_ITERATIONS call after STEP_WARMUP; the collective-matmul rings
-# OVERLAP_ITERATIONS after OVERLAP_WARMUP, as the ring kernels
+# CM_ITERATIONS after CM_WARMUP
 STEP_MODES = {"no_overlap": 1, "overlap": 2, "pipeline": 3}  # mode: buffers (k)
 CM_MODES = ("collective_matmul", "collective_matmul_bidir", "collective_matmul_rs",
             "collective_matmul_bidir_rs")
@@ -2156,7 +2195,7 @@ def overlap_counts(mode: str, d: int, timing: str) -> tuple[int, int]:
     `iterations` captured ones), the ring fill of `overlap` and `pipeline`
     (k products a rank at set-up) and the validation call of the rings."""
     step = mode in STEP_MODES
-    it, wu = (STEP_ITERATIONS, STEP_WARMUP) if step else (OVERLAP_ITERATIONS, OVERLAP_WARMUP)
+    it, wu = (STEP_ITERATIONS, STEP_WARMUP) if step else (CM_ITERATIONS, CM_WARMUP)
     calls = 1 + it if timing == "fused" else wu + it + (VARIANT_ROUNDS - 1) * (1 + it)
     programs = overlap_programs(mode, d)
     launches = sum(p * calls for p, _ in programs)
@@ -2240,7 +2279,7 @@ def drive_overlap_mode(mode: str, impl: str, timing: str, out_dir: str) -> dict:
     from tpu_matmul_bench_torch.utils.telemetry import is_manifest
 
     step = mode in STEP_MODES
-    it, wu = (STEP_ITERATIONS, STEP_WARMUP) if step else (OVERLAP_ITERATIONS, OVERLAP_WARMUP)
+    it, wu = (STEP_ITERATIONS, STEP_WARMUP) if step else (CM_ITERATIONS, CM_WARMUP)
     tag = f"{mode},{impl},{timing}"
     path = f"{out_dir}/overlap-{tag.replace(',', '-')}.jsonl"
     argv = ["--mode", mode, "--sizes", str(SIZE), "--dtype", "bfloat16",
@@ -2415,16 +2454,18 @@ def overlap_modes_phase(out_dir: str) -> dict:
     return runs
 
 
-def scaling_calls(mode: str, d: int, timing: str) -> int:
-    """The mode's program calls in one run of SCALING_ITERATIONS after
-    SCALING_WARMUP: the validation's call, then the timed ones. Dispatch
+def scaling_calls(mode: str, d: int, timing: str, iterations: int = SCALING_ITERATIONS,
+                  warmup: int = SCALING_WARMUP) -> int:
+    """The mode's program calls in one run of `iterations` after `warmup`
+    (SCALING_ITERATIONS after SCALING_WARMUP unless given): the
+    validation's call, then the timed ones. Dispatch
     times each program warmup + iterations calls in the first of
     VARIANT_ROUNDS rounds and 1 + iterations in each other; fused captures
     each program's chain once (one eager call, then `iterations` captured)
     and replays it, which launches nothing from the host. `independent`
     (and `matrix_parallel` over one rank, its fallback) times its one
     program once."""
-    it, wu = SCALING_ITERATIONS, SCALING_WARMUP
+    it, wu = iterations, warmup
     single = mode == "independent" or (mode == "matrix_parallel" and d == 1)
     if timing == "fused":
         per_program = 1 + it
@@ -5846,15 +5887,33 @@ def torch_empty_cache() -> None:
     torch.cuda.empty_cache()
 
 
-def process_launches(mode: str, timing: str) -> int:
+def process_launches(mode: str, timing: str, iterations: int = SCALING_ITERATIONS,
+                     warmup: int = SCALING_WARMUP) -> int:
     """One process's K1 launches in a launcher run of a scaling mode over
     PROCESSES × PROCESS_RANKS ranks: its own ranks' products of every call
     (`scaling_calls`) and its own single-device baseline."""
     d = PROCESSES * PROCESS_RANKS
     per_rank = max(4 // d, 1) if mode == "batch_parallel" else 1
-    baseline = 1 + (1 + SCALING_ITERATIONS if timing == "fused"
-                    else SCALING_WARMUP + SCALING_ITERATIONS)
-    return PROCESS_RANKS * per_rank * scaling_calls(mode, d, timing) + baseline
+    baseline = 1 + (1 + iterations if timing == "fused" else warmup + iterations)
+    return (PROCESS_RANKS * per_rank * scaling_calls(mode, d, timing, iterations, warmup)
+            + baseline)
+
+
+def process_ring_launches(mode: str) -> dict[str, int]:
+    """One process's launches in a launcher run of an overlap ring mode over
+    PROCESSES × PROCESS_RANKS ranks, PROCESS_ITERATIONS timed calls after
+    PROCESS_WARMUP (dispatch): its own ranks' share of the ring's products
+    (`overlap_programs`) in every call and the validation's, and of the
+    baseline's in every call. Across processes no step forwards: K3 and K5
+    step on their pickup kernel (`rs_launches`), the others on K1."""
+    d = PROCESSES * PROCESS_RANKS
+    it, wu = PROCESS_ITERATIONS, PROCESS_WARMUP
+    calls = wu + it + (VARIANT_ROUNDS - 1) * (1 + it)
+    (base, _), (ring, _) = overlap_programs(mode, d)
+    steps, baseline = ring * (calls + 1) // PROCESSES, base * calls // PROCESSES
+    if COMPARE_RING_STEPS.get(mode) == "rs":
+        return {"k1_launches": baseline, "rs_launches": steps, "ag_launches": 0}
+    return {"k1_launches": steps + baseline, "rs_launches": 0, "ag_launches": 0}
 
 
 def start_processes(program: str, mode: str, extra: list[str], out_dir: str,
@@ -5908,19 +5967,23 @@ def finish_processes(run: dict) -> dict:
 
 def one_process(program: str, argv: list[str]):
     """The same program in this process over PROCESSES × PROCESS_RANKS
-    ranks on the card: its record."""
+    ranks on the card: its record and the wire calls it made."""
     import importlib
 
     from tpu_matmul_bench_torch.__main__ import _PROGRAMS
+    from tpu_matmul_bench_torch.parallel import collectives
 
     d = PROCESSES * PROCESS_RANKS
+    collectives.WIRE_CALLS.clear()
     with ranks_per_card(d), contextlib.redirect_stdout(sys.stderr):
         records = importlib.import_module(_PROGRAMS[program]).main(
             argv + ["--num-devices", str(d)])
+    wire_calls = {f"{spec},{kind}": n for (spec, kind), n
+                  in sorted(collectives.WIRE_CALLS.items())}
     torch_empty_cache()
     if len(records) != 1:
         fail(f"processes[{program}]", f"the one-process run gave {len(records)} records")
-    return records[0]
+    return records[0], wire_calls
 
 
 def crossing_ms(counts: list) -> list:
@@ -5932,41 +5995,69 @@ def crossing_ms(counts: list) -> list:
             for c in counts]
 
 
-def processes_phase(scaling: dict, out_dir: str) -> dict:
+def process_tag(mode: str, flags: list[str]) -> str:
+    """A launcher run's tag: its mode, and its --comm-quant value if any."""
+    if "--comm-quant" not in flags:
+        return mode
+    spec = flags[flags.index("--comm-quant") + 1]
+    return f"{mode}-{re.sub('[^a-z0-9]+', '-', spec)}"
+
+
+def processes_phase(scaling: dict, comm_quant: dict, out_dir: str) -> dict:
     """Ranks as processes on the card (ROADMAP A5a): the launcher's
     PROCESSES processes of PROCESS_RANKS ranks. Scaling `independent` at
     SIZE under K1 must give world 4 on 1 card, validation ok and, in each
     process, the K1 launches its own ranks and baseline make; its per-card
     TFLOPS goes beside the one-process 4-rank run's (the processes
     time-slice the card). Then PROCESS_PROGRAMS at PROCESS_SIZE under K1,
-    each with `validation_max_rel_err` equal to the one-process run's, and
-    a fused program that crosses processes must exit with its refusal. The
-    start-up seconds and a crossing's ms are the host's and loopback's,
-    not the card's link."""
+    each with `validation_max_rel_err` (rank 0's corner) equal to the
+    one-process run's, each wire run with each process's wire calls and
+    the `comm_quant` extra equal to the one-process run's, each ring with
+    its steps and its baseline's K1 in each process as predicted
+    (`process_ring_launches`); and a fused program that crosses processes must exit with its
+    refusal. Then (slice 22) model_parallel at PROCESS_WIRE_SIZE alone on
+    the card, exact and on each wire of PROCESS_WIRE_SPECS: its comm ms and
+    each process's crossings, their seconds and bytes, beside the
+    one-process comm ms of the `scaling` and `comm_quant` phases of this
+    call. The start-up seconds and the crossings' times are the host's
+    and loopback's, not the card's link."""
     torch_empty_cache()
     runs = {}
     common = ["--iterations", str(SCALING_ITERATIONS), "--warmup", str(SCALING_WARMUP),
               "--validate", "--matmul-impl", "cuda"]
 
     def check(tag: str, run: dict, world: int, want_launches: int | None,
-              one=None) -> dict:
+              one=None, extra_problems=(), expected_launches=None) -> dict:
         phase = f"processes[{tag}]"
         rec = run["record"] or {}
         x = rec.get("extras", {})
+        counts = run["counts"]
         summary = {"phase": phase, "rc": run["rc"], "seconds": run["seconds"],
                    "world": rec.get("world"), "cards": x.get("cards"),
                    "ranks_per_card": x.get("ranks_per_card"),
                    "avg_ms": rec.get("avg_time_s", 0) * 1e3,
+                   "comm_ms": (rec["comm_time_s"] * 1e3
+                               if rec.get("comm_time_s") is not None else None),
                    "tflops_per_device": rec.get("tflops_per_device"),
                    "validation": x.get("validation"),
                    "validation_max_rel_err": x.get("validation_max_rel_err"),
-                   "k1_launches": [c and c["k1_launches"] for c in run["counts"]],
-                   "launches_by_route": [c and c["launches_by_route"] for c in run["counts"]],
-                   "cross_hops": [c and c["cross_hops"] for c in run["counts"]],
-                   "crossings": [c and c["crossings"] for c in run["counts"]],
-                   "crossing_ms": crossing_ms(run["counts"]),
+                   "k1_launches": [c and c["k1_launches"] for c in counts],
+                   "launches_by_route": [c and c["launches_by_route"] for c in counts],
+                   "rs_launches": [c and c["rs_launches"] for c in counts],
+                   "ag_launches": [c and c["ag_launches"] for c in counts],
+                   "cross_hops": [c and c["cross_hops"] for c in counts],
+                   "crossings": [c and c["crossings"] for c in counts],
+                   "crossing_s": [c and c["crossing_s"] for c in counts],
+                   "crossing_ms": crossing_ms(counts),
+                   "crossing_bytes_in": [c and c["crossing_bytes_in"] for c in counts],
+                   "crossing_bytes_out": [c and c["crossing_bytes_out"] for c in counts],
+                   "crossing_bytes_in_by_dtype": [c and c["crossing_bytes_in_by_dtype"]
+                                                  for c in counts],
+                   "wire_calls": [c and c["wire_calls"] for c in counts],
                    "startup_s": run["startup_s"]}
-        problems = []
+        if expected_launches is not None:
+            summary["expected_launches"] = expected_launches
+        problems = list(extra_problems)
         if run["rc"] != 0:
             problems.append(f"exit {run['rc']}: {run['text'][-1500:]} {run['worker_tail']}")
         for line in (f"Number of devices: {world}",
@@ -5981,17 +6072,25 @@ def processes_phase(scaling: dict, out_dir: str) -> dict:
             problems.append("validation is not ok")
         if want_launches is not None:
             summary["expected_k1_launches"] = want_launches
-            for c in run["counts"]:
+            for c in counts:
                 if not c or c["k1_launches"] != want_launches or \
                         c["launches_by_route"] != {"wgmma": want_launches}:
                     problems.append(f"a process's K1 {c and c['launches_by_route']}, "
                                     f"not {want_launches} on wgmma")
         if one is not None:
+            one_rec, one_wire = one
             summary["one_process_validation_max_rel_err"] = \
-                one.extras.get("validation_max_rel_err")
-            summary["one_process_avg_ms"] = one.avg_time_s * 1e3
-            if x.get("validation_max_rel_err") != one.extras.get("validation_max_rel_err"):
+                one_rec.extras.get("validation_max_rel_err")
+            summary["one_process_avg_ms"] = one_rec.avg_time_s * 1e3
+            summary["one_process_wire_calls"] = one_wire
+            if x.get("validation_max_rel_err") != one_rec.extras.get("validation_max_rel_err"):
                 problems.append("validation_max_rel_err differs from the one-process run's")
+            if x.get("comm_quant") != json.loads(json.dumps(one_rec.extras.get("comm_quant"))):
+                problems.append(f"comm_quant {x.get('comm_quant')} differs from the "
+                                "one-process run's")
+            if any(c is None or c["wire_calls"] != one_wire for c in counts):
+                problems.append(f"wire calls {summary['wire_calls']}, not the one-process "
+                                f"run's {one_wire} in each process")
         summary["ok"] = not problems
         emit(summary)
         if problems:
@@ -6007,37 +6106,117 @@ def processes_phase(scaling: dict, out_dir: str) -> dict:
                                 process_launches("independent", "dispatch"))
     one_ind = scaling["independent"]["cuda,dispatch"]
     runs["independent"]["one_process_tflops_per_device"] = one_ind["tflops_per_device"]
-    # the programs at PROCESS_SIZE read only their bits: they run together
+    # the programs at PROCESS_SIZE are not timed: they run together
     # (each launcher's group on its own port), and so does the refusal of a
     # card-fused program whose calls cross processes (a CUDA graph cannot
     # hold a gloo exchange); the one-process runs go meanwhile, here
-    flags = ["--sizes", str(PROCESS_SIZE), *common]
-    started = {mode: start_processes(program, mode, flags, out_dir, mode)
-               for program, mode in PROCESS_PROGRAMS}
+    flags = ["--sizes", str(PROCESS_SIZE), "--iterations", str(PROCESS_ITERATIONS),
+             "--warmup", str(PROCESS_WARMUP), "--validate", "--matmul-impl", "cuda"]
+    tags = [process_tag(mode, extra) for _, mode, extra in PROCESS_PROGRAMS]
+    started = {tag: start_processes(program, mode, [*flags, *extra], out_dir, tag)
+               for tag, (program, mode, extra) in zip(tags, PROCESS_PROGRAMS)}
     started["fused-refusal"] = start_processes(
         "scaling", "batch_parallel", [*flags, "--timing", "fused"], out_dir, "fused-refusal")
-    ones = {mode: one_process(program, ([] if program in ("summa", "hybrid")
-                                        else ["--mode", mode]) + flags + ["--dtype", "bfloat16"])
-            for program, mode in PROCESS_PROGRAMS}
-    for program, mode in PROCESS_PROGRAMS:
-        want = process_launches(mode, "dispatch") if program == "scaling" else None
-        runs[mode] = check(mode, finish_processes(started[mode]), world, want, ones[mode])
+    t_ones = time.perf_counter()
+    ones = {tag: one_process(program, ([] if program in ("summa", "hybrid")
+                                       else ["--mode", mode]) + flags + extra
+                             + ["--dtype", "bfloat16"])
+            for tag, (program, mode, extra) in zip(tags, PROCESS_PROGRAMS)}
+    ones_s = time.perf_counter() - t_ones
+    for tag, (program, mode, extra) in zip(tags, PROCESS_PROGRAMS):
+        want = (process_launches(mode, "dispatch", PROCESS_ITERATIONS, PROCESS_WARMUP)
+                if program == "scaling" and not extra else None)
+        run = finish_processes(started[tag])
+        steps = []
+        if program == "overlap":
+            # each process's own ranks' ring steps (K3 and K5 on their pickup
+            # kernel, K2, K4 and the collective-matmul ring on K1, the hop
+            # route across processes) and its baseline's K1, as predicted
+            want_steps = process_ring_launches(mode)
+            for c in run["counts"]:
+                got = c and {k: c[k] for k in want_steps}
+                if got != want_steps:
+                    steps.append(f"a process's launches {got}, not {want_steps}")
+        runs[tag] = check(tag, run, world, want, ones[tag], steps,
+                          want_steps if program == "overlap" else None)
     refused = finish_processes(started["fused-refusal"])
     said = "exchanges data between processes" in refused["text"]
     emit({"phase": "processes[fused_refusal]", "rc": refused["rc"], "refused": said,
           "seconds": refused["seconds"], "ok": refused["rc"] != 0 and said})
     if refused["rc"] == 0 or not said:
         fail("processes[fused_refusal]", f"rc {refused['rc']}: {refused['text'][-1500:]}")
+    t_wire = time.perf_counter()
+    batch_s = t_wire - t_ones
+    wire = processes_wire(scaling, comm_quant, out_dir, check)
     emit({"phase": "processes", "card": card_line(), "processes": PROCESSES,
           "ranks_each": PROCESS_RANKS,
           "independent_per_card_tflops": runs["independent"]["tflops_per_device"],
           "one_process_independent_per_card_tflops": one_ind["tflops_per_device"],
           "startup_s": runs["independent"]["startup_s"],
           "crossing_ms": {k: r["crossing_ms"] for k, r in runs.items()},
+          "wire": wire,
           "note": "start-up and crossing times are the host's and loopback's "
                   "(gloo through host memory), not the card's link",
+          "batch_seconds": batch_s, "one_process_seconds": ones_s,
+          "wire_seconds": time.perf_counter() - t_wire,
           "seconds": time.perf_counter() - t0, "ok": True})
+    runs["wire"] = wire
     return runs
+
+
+def processes_wire(scaling: dict, comm_quant: dict, out_dir: str, check) -> dict:
+    """model_parallel at PROCESS_WIRE_SIZE across the processes, alone on
+    the card, exact and on each wire of PROCESS_WIRE_SPECS (slice 22): K1
+    in each process as its ranks' calls make, each process's wire calls
+    one a full call, validation, `comm_quant` extra and wire calls equal
+    to the same run's in one process; the comm leg's ms and each process's
+    crossings, their seconds and bytes, beside the one-process run's comm
+    ms and this call's `scaling` (exact) and `comm_quant` phases' at
+    SIZE."""
+    world = PROCESSES * PROCESS_RANKS
+    it, wu = PROCESS_WIRE_ITERATIONS, PROCESS_WIRE_WARMUP
+    calls = scaling_calls("model_parallel", world, "dispatch", it, wu)
+    table = {}
+    for spec in PROCESS_WIRE_SPECS:
+        label = spec or "none"
+        extra = ["--sizes", str(PROCESS_WIRE_SIZE), "--iterations", str(it), "--warmup",
+                 str(wu), "--validate", "--matmul-impl", "cuda"]
+        extra += ["--comm-quant", spec] if spec else []
+        run = finish_processes(start_processes(
+            "distributed", "model_parallel", extra, out_dir,
+            f"wire-{process_tag('model_parallel', extra)}"))
+        one = one_process("distributed", ["--mode", "model_parallel", *extra,
+                                          "--dtype", "bfloat16"])
+        at_size = (comm_quant[f"model_parallel,{spec},dispatch"] if spec
+                   else scaling["model_parallel"]["cuda,dispatch"])
+        want_wire = {f"{spec},all_reduce": 1 + (calls - 1) // 2} if spec else {}
+        problems = ([] if one[1] == want_wire
+                    else [f"one-process wire calls {one[1]}, not {want_wire}"])
+        summary = check(f"wire,{label}", run, world, PROCESS_RANKS * calls, one, problems)
+        table[label] = {
+            "size": PROCESS_WIRE_SIZE, "iterations": it, "warmup": wu,
+            "avg_ms": summary["avg_ms"], "comm_ms": summary["comm_ms"],
+            "one_process_comm_ms": one[0].comm_time_s * 1e3,
+            "one_process_avg_ms": one[0].avg_time_s * 1e3,
+            "at_size": {"size": SIZE, "one_process_comm_ms": at_size["comm_ms"],
+                        "one_process_avg_ms": at_size["avg_ms"]},
+            **{k: summary[k] for k in ("k1_launches", "crossings", "crossing_s",
+                                       "crossing_bytes_in", "crossing_bytes_out",
+                                       "crossing_bytes_in_by_dtype", "wire_calls",
+                                       "validation_max_rel_err")}}
+    exact = table["none"]
+    for row in table.values():
+        row["comm_over_exact"] = (row["comm_ms"] / exact["comm_ms"]
+                                  if row["comm_ms"] and exact["comm_ms"] else None)
+        row["bytes_in_over_exact"] = [w / e if e else None for w, e in zip(
+            row["crossing_bytes_in"], exact["crossing_bytes_in"])]
+        row["one_process_comm_over_exact"] = (
+            row["one_process_comm_ms"] / exact["one_process_comm_ms"]
+            if exact["one_process_comm_ms"] else None)
+        row["at_size"]["one_process_comm_over_exact"] = (
+            row["at_size"]["one_process_comm_ms"]
+            / exact["at_size"]["one_process_comm_ms"])
+    return table
 
 
 def residency_probe(cap: int, l2: int, runs: int = 20) -> dict:
@@ -6233,12 +6412,12 @@ def main(keep_ledgers: str | None = None) -> None:
         k2_at_cap, _ = drive_overlap("cuda_ring_hbm", out_dir, size=cap)
         lap("overlap_tune_ring")
         scaling = scaling_phase(out_dir)
-        comm_quant_phase(scaling, out_dir)
+        comm_quant = comm_quant_phase(scaling, out_dir)
         lap("scaling_comm_quant")
         # slice 21: `matmul` over every rank, and ranks as processes
         matmul_ranks = matmul_all_ranks_phase(fused["tflops"], out_dir)
         lap("matmul_all_ranks")
-        processes = processes_phase(scaling, out_dir)
+        processes = processes_phase(scaling, comm_quant, out_dir)
         lap("processes")
         wire_phase(card)
         collectives_phase(card, out_dir)
@@ -6330,6 +6509,14 @@ def main(keep_ledgers: str | None = None) -> None:
     entries["ring_fused"]["by_size"] = residency_probe(cap, l2)
     for label in RS_STEPS:
         entries[label].update(step=rs_step_ms(label), step_max_abs_err=rs_errors[label])
+    # K2–K5 across processes at PROCESS_SIZE (slices 21–22): each process's
+    # step launches and hops, its validation error against the one-process
+    # run's
+    for label, mode in TUNE_RINGS.items():
+        entries[label]["processes"] = {k: processes[mode][k] for k in (
+            "k1_launches", "rs_launches", "cross_hops", "crossings", "avg_ms",
+            "one_process_avg_ms", "validation_max_rel_err",
+            "one_process_validation_max_rel_err")}
     # the all-gather rings keep the main path's short timing in ms and
     # library_ms, as every ring does; their turns at steady clocks go beside it
     # each ring kernel beside the collective-matmul ring of its contract
@@ -6370,6 +6557,15 @@ def main(keep_ledgers: str | None = None) -> None:
         "cost_analysis": dispatch["cost_analysis"],
         "library_ms": library["avg_ms"], "library_fused_ms": library_fused["avg_ms"],
         "c1": c1, "card": card, "headline": headline,
+        # each process's K1 launches in the launcher runs across processes
+        # (slice 21; slice 22's wire runs), and the wire's comm ms across
+        # processes beside the one-process world's
+        "processes": {"launches": {tag: r["k1_launches"] for tag, r in processes.items()
+                                   if tag != "wire"},
+                      "wire": {label: {k: row[k] for k in (
+                          "size", "comm_ms", "one_process_comm_ms", "crossings",
+                          "crossing_bytes_in", "k1_launches")}
+                          for label, row in processes["wire"].items()}},
         "tiles_ms": {t: {"mnk": tiles_mnk[t], "nmk": tiles_nmk[t]}
                      for t in tiles_mnk},
         # each parallel mode's products over RING_WORLD ranks (dispatch)

@@ -7,18 +7,23 @@ killed whole at its timeout; a transport failure or a timeout reruns the
 whole group, as `test_multihost.py:_run_launcher` does.
 
 (a) the collectives across the processes, bitwise against JAX's on 4 host
-    devices for the same numpy operands, at bf16 and int8;
+    devices for the same numpy operands, at bf16 and int8, and the wire
+    formats' (block int8 and fp8, the legacy int8) at bf16; each call's
+    crossings and bytes from each process's counts (`TMB_COUNTS_OUT`);
 (b) the programs through the launcher (`python -m
     tpu_matmul_bench_torch.multihost`) and torchrun, each validated, with
-    `validation_max_rel_err` equal to the one-process 4-rank run's;
-(c) the refusals: an uneven world, a wire format, K6 across processes, a
-    rendezvous that fails;
+    `validation_max_rel_err` and the `comm_quant` extra equal to the
+    one-process 4-rank run's, with and without --comm-quant;
+(c) the refusals: an uneven world, K6 across processes, a rendezvous that
+    fails;
 and, in this process, the launcher's argument handling, the world's
-layout over the processes and the runner's fail-fast rule.
+layout over the processes, the wire's placeholders for another process's
+ranks and the runner's fail-fast rule.
 """
 
 import json
 import os
+import shutil
 import signal
 import socket
 import subprocess
@@ -35,14 +40,16 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from tpu_matmul_bench.parallel import collectives as jax_coll
 from tpu_matmul_bench.parallel import mesh as jax_mesh
+from tpu_matmul_bench.parallel import quantized as jax_quant
 from tpu_matmul_bench_torch import multihost
-from tpu_matmul_bench_torch.parallel import group, mesh
+from tpu_matmul_bench_torch.parallel import collectives, group, mesh
 from tpu_matmul_bench_torch.utils import errors
 
 REPO = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "torch_multiprocess_worker.py"
 SPAWN_TIMEOUT_S = 90
 SMALL = ["--sizes", "64", "--iterations", "2", "--warmup", "1"]
+PER_LINK = "dcn=fp8-block:32,ici=none"
 
 
 def _free_port() -> int:
@@ -149,40 +156,176 @@ def _jax_results(arr: np.ndarray, devices) -> dict[str, list[np.ndarray]]:
     return out
 
 
-def test_collectives_across_processes_are_jax_bitwise(tmp_path, devices):
+WIRE_SPECS = ("int8-block:8", "fp8-block:8", "int8")
+
+# the counted calls' operand: [32, COUNTED_COLS] bf16 over 4 ranks, so a
+# rank's shard holds N = 8 · COUNTED_COLS elements, and block 32
+COUNTED_COLS, COUNTED_BLOCK = 64, 32
+
+
+def _jax_wire_results(arr: np.ndarray, devices) -> dict[str, list[np.ndarray]]:
+    """JAX's wire collectives of the same names over 4 host devices, as
+    per-device arrays (the worker's `_wire_results`)."""
+    jmesh = jax_mesh.make_mesh(devices[:4])
+    x = jax.device_put(jnp.asarray(arr), NamedSharding(jmesh, P("x")))
+
+    def run(body):
+        f = jax_mesh.smap(lambda v: body(v, "x"), jmesh, in_specs=P("x"),
+                          out_specs=P("x"), check_vma=False)
+        return np.split(np.asarray(f(x)), 4)
+
+    out = {}
+    for spec in WIRE_SPECS:
+        tag, fmt = spec.replace(":", ""), jax_coll.parse_wire_format(spec)
+        if fmt.legacy:
+            out[f"wire_psum_{tag}"] = run(jax_quant.quantized_psum)
+        else:
+            out[f"wire_psum_{tag}"] = run(lambda v, a: jax_coll.wire_psum(v, a, fmt))
+            out[f"wire_rs_{tag}"] = run(
+                lambda v, a: jax_coll.wire_reduce_scatter(v, a, fmt))
+        for axis in (0, 1):
+            out[f"wire_ag{axis}_{tag}"] = run(
+                (lambda v, a: jax_quant.quantized_all_gather(v, a, axis=axis)) if fmt.legacy
+                else (lambda v, a: jax_coll.wire_all_gather(v, a, fmt, axis=axis)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def worker_run(tmp_path_factory):
+    """The worker's group of 2 processes, once a module: its operands, its
+    output directory, its counts directory and each process's output."""
+    tmp_path = tmp_path_factory.mktemp("collectives")
     rng = np.random.default_rng(21)
     operands = {
         "bfloat16": (rng.standard_normal((32, 24)) * 4).astype(ml_dtypes.bfloat16),
         "int8": rng.integers(-8, 8, size=(32, 24)).astype(np.int8),
     }
+    counted = rng.standard_normal((32, COUNTED_COLS)).astype(ml_dtypes.bfloat16)
     np.savez(tmp_path / "in.npz", bfloat16=operands["bfloat16"].view(np.uint16),
-             int8=operands["int8"])
-    out_dir = tmp_path / "out"
-    out_dir.mkdir()
+             int8=operands["int8"], counted=counted.view(np.uint16))
+    out_dir, counts = tmp_path / "out", tmp_path / "counts"
     cmds = [[sys.executable, str(WORKER), str(tmp_path / "in.npz"), str(out_dir)]] * 2
-    for _ in range(3):  # a fresh port for each try of the whole group
+    for _ in range(3):  # a fresh port and fresh directories for each try
+        for d in (out_dir, counts):
+            shutil.rmtree(d, ignore_errors=True)
+            d.mkdir()
         port = str(_free_port())
         envs = [_env(tmp_path, WORLD_SIZE="2", RANK=str(i), LOCAL_RANK=str(i),
-                     MASTER_ADDR="127.0.0.1", MASTER_PORT=port, TMB_RANKS_PER_CARD="2")
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=port, TMB_RANKS_PER_CARD="2",
+                     TMB_COUNTS_OUT=str(counts))
                 for i in range(2)]
         outs = _spawn(cmds, envs, attempts=1)
         if not any(_transient(o) for o in outs):
             break
-    for o in outs:
+    return {"operands": operands, "out_dir": out_dir, "counts": counts, "outs": outs}
+
+
+def _worker_ok(run: dict) -> None:
+    for o in run["outs"]:
         assert o.returncode == 0, o.stderr[-3000:]
-    said = "".join(o.stdout for o in outs)
+
+
+def _assert_results(run: dict, dtype: str, want: dict) -> None:
+    for name, per_rank in want.items():
+        for r in range(4):
+            got = np.load(run["out_dir"] / f"p{r // 2}_{dtype}_{name}_r{r}.npy")
+            expect = np.asarray(per_rank[r])
+            if dtype == "bfloat16":
+                expect = expect.view(np.uint16)
+            assert got.shape == expect.shape, (dtype, name, r)
+            assert np.array_equal(got, expect), (dtype, name, r)
+
+
+def test_collectives_across_processes_are_jax_bitwise(worker_run, devices):
+    _worker_ok(worker_run)
+    said = "".join(o.stdout for o in worker_run["outs"])
     assert said.count("REPORTING") == 1 and said.count("WORKER") == 1, said
     assert said.count("2 local ranks, verify True") == 2, said
-    for dtype, arr in operands.items():
-        want = _jax_results(arr, devices)
-        for name, per_rank in want.items():
-            for r in range(4):
-                got = np.load(out_dir / f"p{r // 2}_{dtype}_{name}_r{r}.npy")
-                expect = np.asarray(per_rank[r])
-                if dtype == "bfloat16":
-                    expect = expect.view(np.uint16)
-                assert got.shape == expect.shape, (dtype, name, r)
-                assert np.array_equal(got, expect), (dtype, name, r)
+    for dtype, arr in worker_run["operands"].items():
+        _assert_results(worker_run, dtype, _jax_results(arr, devices))
+
+
+def test_wire_collectives_across_processes_are_jax_bitwise(worker_run, devices):
+    """Every rank's result of each wire collective, in every format, equals
+    JAX's bit for bit; the worker's wire arithmetic never met another
+    process's placeholder (it would have raised)."""
+    _worker_ok(worker_run)
+    _assert_results(worker_run, "bfloat16",
+                    _jax_wire_results(worker_run["operands"]["bfloat16"], devices))
+
+
+def _counts(run: dict) -> dict[str, list[dict]]:
+    """Each checkpoint's counts of both processes, by label, in order."""
+    out = {}
+    for d in sorted(p for p in run["counts"].iterdir() if p.is_dir()):
+        out[d.name.split("-", 1)[1]] = [
+            json.loads((d / f"counts.p{p}.json").read_text()) for p in range(2)]
+    return out
+
+
+def _wire(elements: int) -> dict[str, int]:
+    """Bytes of `elements` values on a block-32 wire: 1-byte payload, one
+    fp32 scale a block."""
+    return {"payload": elements, "scales": elements // COUNTED_BLOCK * 4}
+
+
+def test_wire_crosses_once_a_hop_with_payload_and_scales_only(worker_run):
+    """Each process's crossings and received bytes a call, from its counts
+    (`TMB_COUNTS_OUT`, written after each counted call). At D = 4 over 2
+    processes and a shard of N elements a rank, chunk N/D: a wire psum
+    crosses D − 1 + 1 = 4 times and receives (D − 1)·N/D (the hops) + 2·N/D
+    (the gather of the other process's two chunks) payload bytes and their
+    scales, (5/4)(1 + 4/B)·N, against the exact psum's 4·N (the other
+    process's two bf16 shards): below 0.36× at B = 32. A reduce-scatter
+    crosses D − 1 times, a gather once. Under dcn=fp8-block:32,ici=none on
+    dcn:2,ici:2 the dcn groups cross processes and the ici groups do not:
+    every byte that crosses is fp8 payload or fp32 scales."""
+    _worker_ok(worker_run)
+    counts = _counts(worker_run)
+    labels = list(counts)
+    assert labels == ["start", "exact_psum", "wire_psum_int8", "wire_psum_fp8",
+                      "wire_rs_int8", "wire_ag_int8", "per_link_dcn", "per_link_ici"]
+    n, d = 8 * COUNTED_COLS, 4
+    chunk = _wire(n // d)
+    want = {
+        "exact_psum": (1, {"bfloat16": 2 * 2 * n}),
+        "wire_psum_int8": (4, {"int8": 5 * chunk["payload"], "float32": 5 * chunk["scales"]}),
+        "wire_psum_fp8": (4, {"float8_e4m3fn": 5 * chunk["payload"],
+                              "float32": 5 * chunk["scales"]}),
+        "wire_rs_int8": (3, {"int8": 3 * chunk["payload"], "float32": 3 * chunk["scales"]}),
+        "wire_ag_int8": (1, {"int8": 2 * _wire(n)["payload"],
+                             "float32": 2 * _wire(n)["scales"]}),
+        # 2 dcn groups of 2 ranks, one in each process: one hop and one
+        # gather of a half-shard chunk each
+        "per_link_dcn": (4, {"float8_e4m3fn": 2 * 2 * _wire(n // 2)["payload"],
+                             "float32": 2 * 2 * _wire(n // 2)["scales"]}),
+        "per_link_ici": (0, {}),
+    }
+    for before, label in zip(labels, labels[1:]):
+        crossings, by_dtype = want[label]
+        for p in range(2):
+            a, b = counts[before][p], counts[label][p]
+            got = {k: v - a["crossing_bytes_in_by_dtype"].get(k, 0)
+                   for k, v in b["crossing_bytes_in_by_dtype"].items()}
+            got = {k: v for k, v in got.items() if v}
+            assert b["crossings"] - a["crossings"] == crossings, (label, p)
+            assert got == by_dtype, (label, p)
+            assert b["crossing_bytes_in"] - a["crossing_bytes_in"] == sum(by_dtype.values())
+            assert b["crossing_bytes_out"] - a["crossing_bytes_out"] == sum(by_dtype.values())
+    wire_in = sum(want["wire_psum_int8"][1].values())
+    assert wire_in == 5 / 4 * (1 + 4 / COUNTED_BLOCK) * n
+    assert wire_in / sum(want["exact_psum"][1].values()) < 0.36
+    # the wire calls, by format and collective, in the counts each process
+    # writes as it exits: the worker's bf16 section and the counted calls
+    final = [json.loads((worker_run["counts"] / f"counts.p{p}.json").read_text())
+             for p in range(2)]
+    calls = {f"{s},{c}": 1 for s in ("int8-block:8", "fp8-block:8")
+             for c in ("all_reduce", "reduce_scatter")}
+    calls.update({f"{s},all_gather": 2 for s in WIRE_SPECS})
+    calls.update({"int8,all_reduce": 1, "int8-block:32,all_reduce": 1,
+                  "int8-block:32,reduce_scatter": 1, "int8-block:32,all_gather": 1,
+                  "fp8-block:32,all_reduce": 3})
+    assert [f["wire_calls"] for f in final] == [calls, calls]
 
 
 # ---------------------------------------------------------------------------
@@ -204,11 +347,26 @@ PROGRAMS = [
     ("overlap", "cuda_ring_hbm", [], "Results for 64x64 [cuda_ring_hbm]"),
     ("overlap", "cuda_ring_bidir_rs_hbm", [], "Results for 64x64 [cuda_ring_bidir_rs_hbm]"),
     ("matmul", "matmul", [], "Total TFLOPS (4 ranks; cards: 1, ranks_per_card: 4)"),
+    # the wire formats across the processes: block, legacy and per-link
+    ("distributed", "model_parallel", ["--comm-quant", "int8-block:32"],
+     "Results for 64x64 [model_parallel]"),
+    ("distributed", "data_parallel", ["--comm-quant", "int8"], "'wire_format': 'int8'"),
+    ("scaling", "matrix_parallel", ["--comm-quant", "fp8-block:16"],
+     "Results for 64x64 [matrix_parallel]"),
+    ("hybrid", "hybrid", ["--mesh=dcn:2,ici:2", "--comm-quant", PER_LINK],
+     "Mesh: dp=2 x tp=2 (dcn x ici)"),
+    ("summa", "summa", ["--mesh=dcn:2,ici:2", "--comm-quant", PER_LINK],
+     "Grid: 2 (dcn) x 2 (ici)"),
 ]
 
 
+def _program_id(program: str, mode: str, flags: list[str]) -> str:
+    quant = flags[flags.index("--comm-quant") + 1] if "--comm-quant" in flags else None
+    return f"{program}-{mode}" + (f"-{quant}" if quant else "")
+
+
 @pytest.mark.parametrize("program,mode,flags,expect", PROGRAMS,
-                         ids=[f"{p[0]}-{p[1]}" for p in PROGRAMS])
+                         ids=[_program_id(*p[:3]) for p in PROGRAMS])
 def test_launcher_runs_the_program(tmp_path, monkeypatch, program, mode, flags,
                                    expect):
     out_json = tmp_path / "rec.jsonl"
@@ -228,6 +386,8 @@ def test_launcher_runs_the_program(tmp_path, monkeypatch, program, mode, flags,
                        argv + flags + SMALL + ["--validate", "--dtype", "bfloat16"])
     assert rec["extras"]["validation_max_rel_err"] == \
         one.extras["validation_max_rel_err"]
+    assert rec["extras"].get("comm_quant") == \
+        json.loads(json.dumps(one.extras.get("comm_quant")))
 
 
 def test_launcher_runs_the_curve_in_process_multiples(tmp_path):
@@ -254,6 +414,35 @@ def test_torchrun_runs_the_scaling_program(tmp_path):
     assert out.stdout.count("Results for 64x64 [independent]") == 1
 
 
+def test_torchrun_runs_a_wire_format(tmp_path, monkeypatch):
+    out_json = tmp_path / "rec.jsonl"
+    flags = ["--mode", "model_parallel", "--comm-quant", "fp8-block:32", *SMALL,
+             "--validate", "--dtype", "bfloat16"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+           "--master-port", str(_free_port()), "-m", "tpu_matmul_bench_torch",
+           "distributed", "--device", "cpu", *flags, "--json-out", str(out_json)]
+    counts = tmp_path / "counts"
+    (out,) = _spawn([cmd], [_env(tmp_path, TMB_RANKS_PER_CARD="2",
+                                 TMB_COUNTS_OUT=str(counts))])
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "Processes: 2 (this is process 0)" in out.stdout
+    assert "validation: ok" in out.stdout
+    rec = _record(out_json)
+    monkeypatch.setattr(collectives, "WIRE_CALLS", {})
+    one = _one_process(monkeypatch, "distributed", flags)
+    assert rec["extras"]["validation_max_rel_err"] == one.extras["validation_max_rel_err"]
+    assert rec["extras"]["comm_quant"] == json.loads(json.dumps(one.extras["comm_quant"]))
+    # each process wrote its counts as it exited (`python -m
+    # tpu_matmul_bench_torch` under TMB_COUNTS_OUT), its wire calls those
+    # of the one-process run
+    want = {f"{spec},{kind}": n for (spec, kind), n in sorted(collectives.WIRE_CALLS.items())}
+    assert want
+    for p in range(2):
+        got = json.loads((counts / f"counts.p{p}.json").read_text())
+        assert got["process"] == p and got["wire_calls"] == want
+        assert got["crossings"] > 0
+
+
 # ---------------------------------------------------------------------------
 # (c) the refusals
 # ---------------------------------------------------------------------------
@@ -262,17 +451,19 @@ REFUSALS = [
     ("scaling", ["2", "independent", "bfloat16", "--device=cpu", *SMALL,
                  "--num-devices", "3"],
      "--num-devices 3 must be a multiple of the 2-process cluster size"),
-    ("scaling", ["2", "batch_parallel", "bfloat16", "--device=cpu", *SMALL,
-                 "--comm-quant", "int8-block:32"],
-     "over a mesh that spans processes [0, 1] is not ported"),
     ("overlap", ["2", "cuda_ring", "bfloat16", "--device=cpu", *SMALL],
      "the fused ring (cuda_ring) runs every rank in one cooperative launch "
      "in one process"),
+    # a wire collective that cannot run ends the group's run: nothing falls
+    # back to the exact collective or to one process
+    ("scaling", ["2", "matrix_parallel", "bfloat16", "--device=cpu", *SMALL,
+                 "--comm-quant", "fp8-block:32"],
+     "block size 32 must divide the collective payload's last dim (16)"),
 ]
 
 
 @pytest.mark.parametrize("program,args,message", REFUSALS,
-                         ids=["uneven-world", "wire-format", "fused-ring"])
+                         ids=["uneven-world", "fused-ring", "wire-block"])
 def test_launcher_refuses_with_a_message(tmp_path, program, args, message):
     out = _launch(tmp_path, program, args)
     assert out.returncode == 1
@@ -395,6 +586,78 @@ def test_shards_of_another_process_are_placeholders(two_processes):
     assert all(s.shape == (2, 4) for s in shards)
     assert torch.equal(shards[3], g[6:])
     assert mesh.first_local_shard(shards) is shards[2]
+
+
+@pytest.fixture
+def fake_transport(two_processes, monkeypatch):
+    """The group's transport replaced by one that hands this process (1 of
+    2) zeros for whatever it receives, logging each exchange's moves and
+    each all_gather; the wire's arithmetic raises on a placeholder."""
+    import torch
+
+    from tpu_matmul_bench_torch.parallel import collectives as col
+
+    calls = []
+
+    def exchange_pairs(moves):
+        calls.append(("exchange", [(src, dst, t.dtype) for src, dst, t in moves]))
+        return {i: torch.zeros(t.shape, dtype=t.dtype) for i, (src, dst, t)
+                in enumerate(moves) if dst == 1 and src != 1}
+
+    def all_gather_shards(owners, shards, processes=None):
+        calls.append(("all_gather", [s.dtype for s in shards]))
+        return [s if o == 1 else torch.zeros(s.shape, dtype=s.dtype)
+                for o, s in zip(owners, shards)]
+
+    monkeypatch.setattr(group, "exchange_pairs", exchange_pairs)
+    monkeypatch.setattr(group, "all_gather_shards", all_gather_shards)
+    for name in ("_wire_quantize", "_dequantize_add", "_wire_dequantize"):
+        def guarded(*args, _real=getattr(col, name), _name=name):
+            if any(isinstance(a, torch.Tensor) and a.is_meta for a in args):
+                raise AssertionError(f"{_name} met another process's placeholder")
+            return _real(*args)
+        monkeypatch.setattr(col, name, guarded)
+    return calls
+
+
+# (collective, format): the legacy int8 has no reduce_scatter
+WIRE_CASES = [(c, f) for c in ("psum", "reduce_scatter", "all_gather") for f in WIRE_SPECS
+              if not (c == "reduce_scatter" and f == "int8")]
+
+
+@pytest.mark.parametrize("collective,spec", WIRE_CASES)
+def test_the_wire_computes_nothing_for_another_process(fake_transport, collective,
+                                                       spec):
+    """On process 1 of 2 (ranks 2 and 3 of 4), a wire collective quantizes,
+    dequantizes and sums only its own ranks' values; ranks 0 and 1 get
+    placeholders of the result's shape and dtype. Each hop moves its
+    payload and its fp32 scales in one exchange, and the gather fetches
+    both in one all_gather."""
+    import torch
+
+    from tpu_matmul_bench_torch.parallel import collectives as col
+
+    fmt = col.parse_wire_format(spec)
+    m = mesh.make_mesh(_world(4))
+    g = torch.arange(32 * 24, dtype=torch.float32).reshape(32, 24).to(torch.bfloat16)
+    shards = mesh.shard_tensor(g, mesh.ROWS, m)
+    if collective == "psum":
+        out, want, hops = col.psum_impl(spec)(m, shards), (8, 24), 3
+    elif collective == "reduce_scatter":
+        out, want, hops = col.reduce_scatter_impl(spec)(m, shards), (2, 24), 3
+    else:
+        out, want, hops = col.allgather_impl(spec)(m, shards, axis=1), (8, 96), 0
+    assert [o.device.type for o in out] == ["meta", "meta", "cpu", "cpu"]
+    assert all(tuple(o.shape) == want and o.dtype == torch.bfloat16 for o in out)
+    wire = (fmt.wire_dtype, torch.float32)
+    kinds = [kind for kind, _ in fake_transport]
+    assert kinds == ["exchange"] * hops + (["all_gather"] if collective != "reduce_scatter"
+                                           else [])
+    for kind, moved in fake_transport:
+        if kind == "exchange":  # the ring's 4 moves of payloads, then of scales
+            assert [t for _, _, t in moved] == [wire[0]] * 4 + [wire[1]] * 4
+        else:
+            assert moved == [wire[0]] * 4 + [wire[1]] * 4
 
 
 @pytest.mark.parametrize("impl", ["torch", "cuda", "auto"])

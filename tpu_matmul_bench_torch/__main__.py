@@ -9,6 +9,8 @@ from __future__ import annotations
 import importlib
 import sys
 
+from tpu_matmul_bench_torch import counts
+
 _PROGRAMS = {
     "matmul": "tpu_matmul_bench_torch.benchmarks.matmul_benchmark",
     # the tuning database's front end, `tune {show,prune,promote,selftest}`
@@ -73,6 +75,8 @@ def main(argv: list[str] | None = None, _cli: bool = False):
               f"Per-program flags: add --help after the program name.",
               file=sys.stdout if is_help else sys.stderr)
         raise SystemExit(0 if is_help else 2)
+    if _cli:  # each process's counters for a launcher's caller
+        counts.write_at_exit()
     module = importlib.import_module(_PROGRAMS[argv[0]])
     if argv[0] == "doctor" and _cli:
         module.cli_main(argv[1:])

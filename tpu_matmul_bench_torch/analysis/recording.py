@@ -8,10 +8,11 @@ it does:
 
 - **collectives** (`record`, `record_collectives`): the doors of
   `parallel/collectives.py` (`psum_over`, `pmean_over`,
-  `psum_scatter_over`, `all_gather_over`, `all_to_all_over`, `ppermute`)
-  are wrapped while the block runs, and each call is logged as (kind,
-  axis, per-rank payload bytes, dtype), one entry for each group of the
-  axis it runs over. A door is looked up in the module at call time by
+  `psum_scatter_over`, `all_gather_over`, `all_to_all_over`, `ppermute`,
+  and the wire's `ppermute_together` and `all_gather_together_over`, one
+  entry for each list they move) are wrapped while the block runs, and
+  each call is logged as (kind, axis, per-rank payload bytes, dtype), one
+  entry for each group of the axis it runs over. A door is looked up in the module at call time by
   every program of the port (`psum_impl(None)` and the wire formats
   alike); a program that bound a door before the block began would call
   the unwrapped one, and its collective would be missing from the log:
@@ -58,11 +59,12 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 #: the collective doors of `parallel/collectives.py`: factory name -> kind
-#: (each is called as `door(mesh, **kw)(shards)`); `ppermute(mesh,
-#: shards, perm)` is called directly
+#: (each is called as `door(mesh, **kw)(shards)`, the together door with
+#: several lists); `ppermute(mesh, shards, perm)` and
+#: `ppermute_together(mesh, lists, perm)` are called directly
 DOORS = {"psum_over": "all_reduce", "pmean_over": "all_reduce",
          "psum_scatter_over": "reduce_scatter", "all_gather_over": "all_gather",
-         "all_to_all_over": "all_to_all"}
+         "all_gather_together_over": "all_gather", "all_to_all_over": "all_to_all"}
 
 #: the kernels' plain versions (`ops/cuda_matmul.py`), each one primitive
 #: under `record(opaque=True)`
@@ -187,21 +189,24 @@ class _FunctionRecorder(TorchFunctionMode):
 
 
 def _door(rec: Recording, kind: str, make: Callable, opaque: bool) -> Callable:
+    """A door `make(mesh, **kw)(*lists)` that logs one `kind` collective
+    (and one primitive) for each per-rank list it moves."""
     def wrapped(mesh, **kw):
         inner = make(mesh, **kw)
 
-        def fn(shards):
-            rec.add_collective(kind, mesh, shards)
-            with _primitive(rec, opaque, kind):
-                return inner(shards)
+        def fn(*lists):
+            for shards in lists:
+                rec.add_collective(kind, mesh, shards)
+            with _primitive(rec, opaque, kind, len(lists)):
+                return inner(*lists)
         return fn
     return wrapped
 
 
 @contextlib.contextmanager
-def _primitive(rec: Recording, opaque: bool, name: str) -> Iterator[None]:
+def _primitive(rec: Recording, opaque: bool, name: str, count: int = 1) -> Iterator[None]:
     if opaque and not rec.opaque:
-        rec.primitives.append(name)
+        rec.primitives.extend([name] * count)
     rec.opaque += opaque
     try:
         yield
@@ -230,13 +235,20 @@ def record(*, collectives: bool = True, dtypes: bool = True,
     if collectives:
         for name, kind in DOORS.items():
             patch(coll, name, _door(rec, kind, getattr(coll, name), opaque))
-        real_ppermute = coll.ppermute
+        real_ppermute, real_together = coll.ppermute, coll.ppermute_together
 
         def ppermute(mesh, shards, perm):
             rec.add_collective("ppermute", mesh, shards)
             with _primitive(rec, opaque, "ppermute"):
                 return real_ppermute(mesh, shards, perm)
+
+        def ppermute_together(mesh, lists, perm):
+            for shards in lists:
+                rec.add_collective("ppermute", mesh, shards)
+            with _primitive(rec, opaque, "ppermute", len(lists)):
+                return real_together(mesh, lists, perm)
         patch(coll, "ppermute", ppermute)
+        patch(coll, "ppermute_together", ppermute_together)
     if opaque:
         entries = [(cuda_matmul, name) for name in PLAIN_PRODUCTS]
         entries += [(importlib.import_module(m), name) for m, name in PRODUCT_ENTRIES]

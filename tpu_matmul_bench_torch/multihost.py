@@ -22,6 +22,15 @@ Process 0 runs in the foreground; the others write to log files. If
 process 0 fails, the others get TERM, then KILL after a short grace, and
 the launcher exits 1 naming the logs.
 
+Every program flag passes through, `--comm-quant` included: the wire
+formats cross the processes with the one-process world's bits, each ring
+hop's payload and scales in one exchange (`parallel/collectives.py`).
+With `--mesh=dcn:R,ici:C` and R = NPROCS the process boundary is the dcn
+link, as in the JAX launcher, so `--comm-quant dcn=<fmt>,ici=none`
+quantizes exactly what crosses. The fused ring `cuda_ring` (K6) and, on
+the card, a `--timing fused` program whose calls cross processes exit
+with a message.
+
 Several hosts: run the launcher once a host with `MULTIHOST_PROC_ID` (the
 host's process index) and `MULTIHOST_COORDINATOR=<host0>:<port>`; it then
 runs one process that joins the group there. That form is not exercised

@@ -14,8 +14,15 @@ all_gather; `ppermute`: sends and receives of the moved shards only), then
 run the one-process code, which computes the local ranks' results and
 placeholders for the others: the sums keep their fp32 rank-order
 accumulation and one rounding, so every result is the one-process world's
-bits. The wire formats do not cross processes yet: a quantized collective
-over a mesh that spans processes raises. Two halves:
+bits. The wire formats cross processes the same way, with only what a
+hop moves on the wire: each hop of the ring sends its quantized payload
+and fp32 scales together, in one exchange (`ppermute_together`), and the
+closing gather fetches the payloads and scales in one all_gather
+(`_fetch_together`), so a wire psum over D ranks makes D − 1 + 1
+crossings a call on each process and a wire reduce-scatter D − 1. A rank
+of another process gets no quantize or dequantize here: its payload,
+scales and result are placeholders of the shapes the format fixes
+(`_quantize_ranks`). Two halves:
 
 1. **Wire formats** (`--comm-quant`, JAX `:71-538`): `WireFormat` and its
    grammar, `wire_psum`, `wire_reduce_scatter` and `wire_all_gather`, the
@@ -64,17 +71,22 @@ def _check(mesh: Mesh, shards: Shards) -> None:
 def _fetch(mesh: Mesh, shards: Shards) -> list[torch.Tensor]:
     """The shards with every other process's placeholder replaced by its
     bytes (host tensors), where the mesh spans processes; else as given."""
+    return _fetch_together(mesh, shards)[0]
+
+
+def _fetch_together(mesh: Mesh, *lists: Shards) -> list[list[torch.Tensor]]:
+    """`_fetch` of several per-rank lists in one all_gather."""
     if not mesh.spans_processes:
-        return list(shards)
-    return group.all_gather_shards([r.process for r in mesh.ranks], shards)
+        return [list(shards) for shards in lists]
+    owners = [r.process for r in mesh.ranks]
+    flat = group.all_gather_shards(owners * len(lists), [t for ts in lists for t in ts])
+    n = len(owners)
+    return [flat[i * n:(i + 1) * n] for i in range(len(lists))]
 
 
-def _refuse_wire(mesh: Mesh, what: str) -> None:
-    if mesh.spans_processes:
-        raise ValueError(
-            f"--comm-quant: the quantized {what} over a mesh that spans "
-            f"processes {mesh.processes} is not ported; run it in one "
-            "process, or without --comm-quant")
+def _placeholder(shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
+    """What another process's rank holds here: shape and dtype, no data."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
 def _sum_on(shards: Shards, device: torch.device,
@@ -135,13 +147,32 @@ def pmean_over(mesh: Mesh) -> Callable[[Shards], list[torch.Tensor]]:
 def all_gather_over(mesh: Mesh, *, gather_axis: int = 0
                     ) -> Callable[[Shards], list[torch.Tensor]]:
     """all_gather: every rank ends with the concatenation of all shards
-    along `gather_axis` (≙ `jax.lax.all_gather(..., tiled=True)`)."""
-    def fn(shards: Shards) -> list[torch.Tensor]:
+    along `gather_axis` (≙ `jax.lax.all_gather(..., tiled=True)`); another
+    process's rank gets a placeholder of the gathered shape."""
+    return lambda shards: _all_gather_lists(mesh, gather_axis, [shards])[0]
+
+
+def all_gather_together_over(mesh: Mesh, *, gather_axis: int = 0
+                             ) -> Callable[..., list[list[torch.Tensor]]]:
+    """`all_gather_over` of each per-rank list it is called with, the
+    lists fetched from other processes in one all_gather (a wire gather's
+    payloads and scales). A door as `all_gather_over` is: one all_gather a
+    list."""
+    return lambda *lists: _all_gather_lists(mesh, gather_axis, lists)
+
+
+def _all_gather_lists(mesh: Mesh, gather_axis: int,
+                      lists: Sequence[Shards]) -> list[list[torch.Tensor]]:
+    for shards in lists:
         _check(mesh, shards)
-        shards = _fetch(mesh, shards)
-        return [torch.cat([s.to(d) for s in shards], dim=gather_axis)
-                for d in mesh.devices]
-    return fn
+    outs = []
+    for shards in _fetch_together(mesh, *lists):
+        shape = list(shards[0].shape)
+        shape[gather_axis] *= len(shards)
+        outs.append([torch.cat([s.to(r.device) for s in shards], dim=gather_axis)
+                     if r.local else _placeholder(shape, shards[0].dtype)
+                     for r in mesh.ranks])
+    return outs
 
 
 def psum_scatter_over(mesh: Mesh, *, scatter_dimension: int = 0
@@ -169,18 +200,37 @@ def ppermute(mesh: Mesh, shards: Shards,
              perm: Sequence[tuple[int, int]]) -> list[torch.Tensor | None]:
     """Rank dst receives the shard of rank src for each (src, dst) in
     `perm` (≙ `jax.lax.ppermute`); a rank that receives nothing gets None."""
-    _check(mesh, shards)
-    shards = list(shards)
+    return _ppermute_lists(mesh, [shards], perm)[0]
+
+
+def ppermute_together(mesh: Mesh, lists: Sequence[Shards],
+                      perm: Sequence[tuple[int, int]]
+                      ) -> list[list[torch.Tensor | None]]:
+    """`ppermute` of each per-rank list in `lists` by one permutation, the
+    moves of all of them between processes in one exchange (a wire hop's
+    payload and scales). A door as `ppermute` is: one ppermute a list."""
+    return _ppermute_lists(mesh, lists, perm)
+
+
+def _ppermute_lists(mesh: Mesh, lists: Sequence[Shards],
+                    perm: Sequence[tuple[int, int]]) -> list[list[torch.Tensor | None]]:
+    for shards in lists:
+        _check(mesh, shards)
+    lists = [list(shards) for shards in lists]
     if mesh.spans_processes:
         # only the moved shards cross, each from its holder to its reader
         procs = [r.process for r in mesh.ranks]
-        moves = [(procs[src], procs[dst], shards[src]) for src, dst in perm]
+        moves = [(procs[src], procs[dst], shards[src])
+                 for shards in lists for src, dst in perm]
         for i, t in group.exchange_pairs(moves).items():
-            shards[perm[i][0]] = t
-    out: list[torch.Tensor | None] = [None] * len(shards)
-    for src, dst in perm:
-        out[dst] = shards[src].to(mesh.devices[dst], copy=True)
-    return out
+            lists[i // len(perm)][perm[i % len(perm)][0]] = t
+    outs = []
+    for shards in lists:
+        out: list[torch.Tensor | None] = [None] * len(shards)
+        for src, dst in perm:
+            out[dst] = shards[src].to(mesh.devices[dst], copy=True)
+        outs.append(out)
+    return outs
 
 
 def all_to_all_over(mesh: Mesh, *, split_axis: int = 0, concat_axis: int = 0
@@ -465,34 +515,74 @@ def _dequantize_add(q: torch.Tensor, scales: torch.Tensor,
                          scales[:, :, None]).reshape(rows, cols)
 
 
+def _quantize_ranks(mesh: Mesh, xs: Sequence[torch.Tensor | None], fmt: WireFormat,
+                    shape: Sequence[int]) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """Each local rank's `_wire_quantize` of its [rows, cols] tensor; for a
+    rank of another process (its entry None or a placeholder), a payload
+    and scales that are placeholders of the shapes `fmt` fixes."""
+    rows, cols = shape
+    q, s = [], []
+    for rank, x in zip(mesh.ranks, xs):
+        if rank.local:
+            qr, sr = _wire_quantize(x, fmt)
+        else:
+            qr = _placeholder((rows, cols), fmt.wire_dtype)
+            sr = _placeholder((rows, fmt.scale_blocks(cols)), torch.float32)
+        q.append(qr)
+        s.append(sr)
+    return q, s
+
+
+def _gather_dequantize(mesh: Mesh, q: Shards, s: Shards, axis: int,
+                       res_dtype: torch.dtype, shape: Sequence[int] | None = None
+                       ) -> list[torch.Tensor]:
+    """Gather every rank's payload and scales along `axis` (one crossing
+    where the mesh spans processes) and dequantize them on each local rank
+    in `res_dtype`, reshaped to `shape` where one is given; another
+    process's rank gets a placeholder. Gathered columns and their scale
+    blocks line up in rank order along either axis, so the block width
+    comes out of the shapes."""
+    q_all, s_all = all_gather_together_over(mesh, gather_axis=axis)(q, s)
+    out = []
+    for rank, qa, sa in zip(mesh.ranks, q_all, s_all):
+        if not rank.local:
+            out.append(_placeholder(shape or qa.shape, res_dtype))
+            continue
+        x = _wire_dequantize(qa, sa)
+        out.append((x if shape is None else x.reshape(shape)).to(res_dtype))
+    return out
+
+
 def quantized_ring(mesh: Mesh, shards: Shards, fmt: WireFormat) -> list[torch.Tensor]:
     """The reduce-scatter ring of `wire_psum` and `wire_reduce_scatter`
     (JAX `:254-268`; the legacy `quantized_psum`'s, `quantized.py:86-92`,
     is this ring in its per-row int8 format): each rank's shard flattened
     to rows × cols and cut into D row chunks; rank r's accumulator starts
     at chunk (r + 2D − 1) mod D in fp32, and at hop t it is quantized
-    (payload and its [rows, blocks] scales), moved to rank r + 1
-    (`ppermute`), dequantized there and added to that rank's chunk
-    (r + 2D − 1 − t) mod D. After D − 1 hops rank r holds chunk r fully
-    summed (fp32, [rows / D, cols])."""
-    _refuse_wire(mesh, "reduce-scatter ring")
+    (payload and its [rows, blocks] scales), moved to rank r + 1 with its
+    scales in one exchange (`ppermute_together`), dequantized there and
+    added to that rank's chunk (r + 2D − 1 − t) mod D. After D − 1 hops
+    rank r holds chunk r fully summed (fp32, [rows / D, cols]); another
+    process's rank holds a placeholder, and nothing is computed for it."""
     d = len(shards)
     rows = [s.reshape(-1, s.shape[-1]) for s in shards]
-    chunk = rows[0].shape[0] // d
+    chunk, cols = rows[0].shape[0] // d, rows[0].shape[1]
     perm = ring_perm(d)
+    local = [r.local for r in mesh.ranks]
 
     def my_chunk(r: int, c: int) -> torch.Tensor:
         return rows[r][c * chunk:(c + 1) * chunk].float()
 
-    acc = [my_chunk(r, (r + 2 * d - 1) % d) for r in range(d)]
+    acc = [my_chunk(r, (r + 2 * d - 1) % d) if local[r] else None for r in range(d)]
     for t in range(1, d):
-        q, s = zip(*(_wire_quantize(a, fmt) for a in acc))
+        q, s = _quantize_ranks(mesh, acc, fmt, (chunk, cols))
         del acc  # the hop's partials go once quantized
-        q, s = ppermute(mesh, q, perm), ppermute(mesh, s, perm)
+        q, s = ppermute_together(mesh, [q, s], perm)
         acc = [_dequantize_add(q[r], s[r], my_chunk(r, (r + 2 * d - 1 - t) % d))
-               for r in range(d)]
+               if local[r] else None for r in range(d)]
         del q, s
-    return acc
+    return [a if a is not None else _placeholder((chunk, cols), torch.float32)
+            for a in acc]
 
 
 def wire_psum(mesh: Mesh, shards: Shards, fmt: WireFormat,
@@ -515,16 +605,13 @@ def wire_psum(mesh: Mesh, shards: Shards, fmt: WireFormat,
         return list(shards)  # fully inert: the exact program's
     shape = shards[0].shape
     res_dtype = out_dtype or shards[0].dtype
-    _ring_rows(shape, d)
+    m = _ring_rows(shape, d)
     fmt.scale_blocks(shape[-1])
     _tick(fmt.spec, "all_reduce")
     acc = quantized_ring(mesh, shards, fmt)
-    q, s = zip(*(_wire_quantize(a, fmt) for a in acc))
+    q, s = _quantize_ranks(mesh, acc, fmt, (m // d, shape[-1]))
     del acc
-    q_all, s_all = all_gather_over(mesh)(q), all_gather_over(mesh)(s)
-    del q, s
-    return [_wire_dequantize(qa, sa).reshape(shape).to(res_dtype)
-            for qa, sa in zip(q_all, s_all)]
+    return _gather_dequantize(mesh, q, s, 0, res_dtype, shape)
 
 
 def wire_reduce_scatter(mesh: Mesh, shards: Shards, fmt: WireFormat,
@@ -547,7 +634,9 @@ def wire_reduce_scatter(mesh: Mesh, shards: Shards, fmt: WireFormat,
     _tick(fmt.spec, "reduce_scatter")
     acc = quantized_ring(mesh, shards, fmt)
     out_shape = (shape[0] // d,) + tuple(shape[1:])
-    return [a.reshape(out_shape).to(res_dtype) for a in acc]
+    return [a.reshape(out_shape).to(res_dtype) if rank.local
+            else _placeholder(out_shape, res_dtype)
+            for rank, a in zip(mesh.ranks, acc)]
 
 
 def wire_all_gather(mesh: Mesh, shards: Shards, fmt: WireFormat, axis: int = 0,
@@ -566,7 +655,6 @@ def wire_all_gather(mesh: Mesh, shards: Shards, fmt: WireFormat, axis: int = 0,
         return list(shards)  # fully inert: the exact program's
     res_dtype = out_dtype or shards[0].dtype
     ndim = shards[0].ndim
-    _refuse_wire(mesh, "all_gather")
     if ndim > 2:
         if axis != ndim - 1:
             raise ValueError(f"unsupported gather axis {axis} for rank {ndim}")
@@ -576,15 +664,11 @@ def wire_all_gather(mesh: Mesh, shards: Shards, fmt: WireFormat, axis: int = 0,
         return [o.reshape(*lead, -1) for o in out]
     if axis not in (0, 1):
         raise ValueError(f"unsupported gather axis {axis}")
-    fmt.scale_blocks(shards[0].shape[-1])
+    rows, cols = shards[0].shape
+    fmt.scale_blocks(cols)
     _tick(fmt.spec, "all_gather")
-    q, s = zip(*(_wire_quantize(x, fmt) for x in shards))
-    q_all = all_gather_over(mesh, gather_axis=axis)(q)
-    s_all = all_gather_over(mesh, gather_axis=axis)(s)
-    del q, s
-    # gathered columns and their scale blocks line up in rank order along
-    # either axis, so the block width comes out of the shapes
-    return [_wire_dequantize(qa, sa).to(res_dtype) for qa, sa in zip(q_all, s_all)]
+    q, s = _quantize_ranks(mesh, shards, fmt, (rows, cols))
+    return _gather_dequantize(mesh, q, s, axis, res_dtype)
 
 
 def check_wire_payload(comm_quant: str | None, collective: str,

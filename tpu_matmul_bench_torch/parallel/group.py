@@ -15,19 +15,23 @@ Tensors cross as `uint8` views of their bytes, staged through host
 memory, so every dtype crosses (gloo refuses int16 and float8 by type)
 and nothing on the wire is summed or rounded: a collective gathers the
 remote shards' bytes and then runs the one-process world's rank-order
-code, so its results are that world's bits. Gloo's own reductions are
+code, so its results are that world's bits. A wire format's collectives
+move its quantized payloads and fp32 scales the same way, never a
+dequantized value. Gloo's own reductions are
 used only on control values (a verdict, a clock reading).
 
 `CROSSINGS` counts the exchanges of data this process made through the
 group; the fused timing protocol reads it to refuse a program that would
-put a crossing inside a CUDA graph.
+put a crossing inside a CUDA graph. `CROSSING_BYTES_OUT` and
+`CROSSING_BYTES_IN` count the bytes it sent to and received from other
+processes (an all_gather's padded payload once for each peer), and
+`CROSSING_BYTES_IN_BY_DTYPE` the received shards' bytes by their dtype,
+which tells a wire format's payload and scales from exact values.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
-import os
 import socket
 import time
 from typing import Any, Sequence
@@ -39,6 +43,9 @@ import torch
 CROSSINGS = 0
 CROSSING_S = 0.0
 CROSSING_MIN_S = float("inf")  # the quickest, where no peer kept it waiting
+CROSSING_BYTES_OUT = 0
+CROSSING_BYTES_IN = 0
+CROSSING_BYTES_IN_BY_DTYPE: dict[str, int] = {}
 # each process's card identity, in process order, exchanged at init
 _PROCESS_CARDS: list[str] = []
 _STARTUP_S: list[float] = []
@@ -147,6 +154,20 @@ def nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _count_bytes(out: int, received: Sequence[torch.Tensor] = (),
+                 padding: int = 0) -> None:
+    """Add `out` bytes sent, and the `received` tensors' bytes (plus
+    `padding` bytes that carried no shard) to the bytes received."""
+    global CROSSING_BYTES_OUT, CROSSING_BYTES_IN
+    CROSSING_BYTES_OUT += out
+    CROSSING_BYTES_IN += padding
+    for t in received:
+        n = nbytes(t)
+        CROSSING_BYTES_IN += n
+        key = str(t.dtype).removeprefix("torch.")
+        CROSSING_BYTES_IN_BY_DTYPE[key] = CROSSING_BYTES_IN_BY_DTYPE.get(key, 0) + n
+
+
 def all_gather_shards(owners: Sequence[int], shards: Sequence[torch.Tensor],
                       processes: Sequence[int] | None = None) -> list[torch.Tensor]:
     """Every shard of `shards` (one a rank, `owners[i]` the process that
@@ -181,6 +202,10 @@ def all_gather_shards(owners: Sequence[int], shards: Sequence[torch.Tensor],
         else:
             out.append(_from_bytes(by_proc[o][offset[o]:offset[o] + n], s))
         offset[o] += n
+    peers = [p for p in procs if p != me]
+    _count_bytes(longest * len(peers),
+                 [s for o, s in zip(owners, shards) if o != me],
+                 sum(longest - sizes[p] for p in peers))
     return out
 
 
@@ -209,6 +234,8 @@ def exchange_pairs(moves: Sequence[tuple[int, int, torch.Tensor]]) -> dict[int, 
                 works.append(dist.irecv(buf, src=src, tag=tag))
         for w in works:
             w.wait()
+    _count_bytes(sum(nbytes(t) for _, src, _, t in mine if src == me),
+                 [like for _, like in arrived.values()])
     return {tag: _from_bytes(buf, like) for tag, (buf, like) in arrived.items()}
 
 
@@ -216,6 +243,7 @@ def send_tensor(t: torch.Tensor, dst: int) -> None:
     """Blocking send of a tensor's bytes to process `dst`."""
     with _crossing():
         _dist().send(_bytes(t), dst=dst)
+    _count_bytes(nbytes(t))
 
 
 def recv_tensor(like: torch.Tensor, src: int) -> torch.Tensor:
@@ -224,6 +252,7 @@ def recv_tensor(like: torch.Tensor, src: int) -> torch.Tensor:
     buf = torch.empty(nbytes(like), dtype=torch.uint8)
     with _crossing():
         _dist().recv(buf, src=src)
+    _count_bytes(0, [like])
     return _from_bytes(buf, like)
 
 
@@ -262,23 +291,12 @@ def barrier() -> None:
         _dist().barrier()
 
 
-COUNTS_OUT_ENV = "TMB_COUNTS_OUT"
-
-
-def write_counts(directory: str) -> str:
-    """This process's counters, as JSON in `directory`/counts.p<process>.json:
-    K1's launches (all and by route), the rings' hops within the card and
-    between processes, and the crossings with their seconds. A launcher's
-    caller reads them after the processes have exited (`TMB_COUNTS_OUT`)."""
-    from tpu_matmul_bench_torch.ops import cuda_matmul, cuda_ring
-
-    path = os.path.join(directory, f"counts.p{process_index()}.json")
-    with open(path, "w") as fh:
-        json.dump({"process": process_index(), "k1_launches": cuda_matmul.LAUNCHES,
-                   "launches_by_route": {k: v for k, v in
-                                         cuda_matmul.LAUNCHES_BY_ROUTE.items() if v},
-                   "hop_launches": cuda_ring.HOP_LAUNCHES,
-                   "cross_hops": cuda_ring.CROSS_HOPS,
-                   "crossings": CROSSINGS, "crossing_s": CROSSING_S,
-                   "crossing_min_s": CROSSING_MIN_S if CROSSINGS else None}, fh)
-    return path
+def crossing_counts() -> dict:
+    """This process's crossings: their number, seconds (all, and the
+    quickest) and bytes sent and received (`counts.write_counts` writes
+    them beside the kernels' launches)."""
+    return {"crossings": CROSSINGS, "crossing_s": CROSSING_S,
+            "crossing_min_s": CROSSING_MIN_S if CROSSINGS else None,
+            "crossing_bytes_out": CROSSING_BYTES_OUT,
+            "crossing_bytes_in": CROSSING_BYTES_IN,
+            "crossing_bytes_in_by_dtype": dict(CROSSING_BYTES_IN_BY_DTYPE)}

@@ -15,7 +15,8 @@ it. Structure of its all_reduce (`quantized_psum`):
 Quantization is symmetric per row (scale = max|row| / 127), accumulation is
 fp32, and the result is downcast to the operand dtype at every collective
 (unlike the fused block formats). Integer operands take the exact
-collective; one rank is inert.
+collective; one rank is inert. Across processes the tier runs the wire's
+ring and gather as they are, one crossing a hop and one for the gather.
 """
 
 from __future__ import annotations

@@ -15,12 +15,11 @@ ranks on card `LOCAL_RANK % device_count` (or on the CPU), and
 of ranks each, a rank of another process on the meta device
 (`parallel/group.py`). A rendezvous that fails raises: a process never
 goes on alone. With `TMB_COUNTS_OUT=DIR` each process writes its kernel
-launches and crossings to DIR as it exits (`group.write_counts`).
+launches and crossings to DIR as it exits (`counts.py`).
 """
 
 from __future__ import annotations
 
-import atexit
 import dataclasses
 import datetime
 import os
@@ -110,9 +109,6 @@ def maybe_init_process_group() -> bool:
     t0 = os.environ.get("TMB_LAUNCH_T0")  # set by the multihost launcher
     group.share_cards(group.card_id(_process_card()),
                       time.time() - float(t0) if t0 else None)
-    counts = os.environ.get(group.COUNTS_OUT_ENV)
-    if counts:  # each process's counters, written as it exits
-        atexit.register(group.write_counts, counts)
     return True
 
 
