@@ -6,7 +6,8 @@ Run from the repository root, on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port (`tpu_matmul_bench_torch/csrc/`)
-from the sources in the checkout, prints each kernel's registers and spill
+from the sources in the checkout (`ops/_build.py`: one nvcc for every unit
+of every source, all started together, then one link a source), prints each kernel's registers and spill
 bytes and the resident blocks per SM of the tensor-core kernels, and fails
 if ptxas serialised a wgmma kernel's wgmma or ignored its setmaxnreg. It
 holds each kernel against its plain PyTorch version on the card (every tile
@@ -257,32 +258,40 @@ The paths:
   and the library with both protocols, `world` and cards held, K1's
   launches MATMUL_RANKS × the protocol's calls, the per-card TFLOPS beside
   the one-rank fused run's;
-- ranks as processes (the `processes` phase): `python -m
-  tpu_matmul_bench_torch.multihost` with PROCESSES processes of
-  PROCESS_RANKS ranks on the card (gloo through host memory), each in a
-  session killed whole afterwards: scaling `independent` at 16384 alone
-  (world, cards, validation, each process's K1 launches from its
-  `TMB_COUNTS_OUT` counts, the per-card TFLOPS beside the one-process
-  run's), then PROCESS_PROGRAMS at PROCESS_SIZE together (slice 22 adds
-  K3–K5's rings and the wire formats at the card's block: fp8-block:128
-  on matrix_parallel's gather, the legacy int8 on data_parallel, and the
-  per-link `dcn=fp8-block:128,ici=none` on `dcn:2,ici:2` for hybrid and
-  summa), each `validation_max_rel_err` (rank 0's corner), `comm_quant`
-  extra and each process's wire calls equal to the one-process run's,
-  each ring's steps and its baseline's K1 in each process as predicted
-  (`process_ring_launches`), and a fused program that crosses
-  processes, which must exit with its refusal; then model_parallel at
-  PROCESS_WIRE_SIZE alone on the card, exact and on int8-block:128 and
+- ranks as processes (the `processes` phase): PROCESSES processes of
+  PROCESS_RANKS ranks on the card (gloo through host memory), started once
+  as one group (`chip_smoke.py --process-plan PLAN`, the environment the
+  launcher gives a process, each process in a session killed whole
+  afterwards) that runs every program across processes in turn, each
+  entry's counts taken as the difference of each process's counts around
+  it: PROCESS_PROGRAMS at PROCESS_SIZE (slice 22 adds K3–K5's rings and
+  the wire formats at the card's block: fp8-block:128 on matrix_parallel's
+  gather, the legacy int8 on data_parallel, and the per-link
+  `dcn=fp8-block:128,ici=none` on `dcn:2,ici:2` for hybrid and summa),
+  each `validation_max_rel_err` (rank 0's corner), `comm_quant` extra and
+  each process's wire calls equal to the one-process run's, each ring's
+  steps and its baseline's K1 in each process as predicted
+  (`process_ring_launches`), while a launcher run beside the group
+  (`python -m tpu_matmul_bench_torch.multihost`) checks that a fused
+  program that crosses processes exits with its refusal; then, alone on
+  the card, scaling `independent` at 16384 (world, cards, validation, each
+  process's K1 launches, the per-card TFLOPS beside the one-process run's)
+  and model_parallel at PROCESS_WIRE_SIZE, exact and on int8-block:128 and
   fp8-block:128, each held to the same run in one process in the same
   way, its comm ms and each process's crossings, their seconds and bytes
   beside the one-process comm ms of this call; each process's start-up
   seconds and a crossing's ms (host and loopback, not the card's link).
+  A group, or the refusal's run, whose every failed process failed on the
+  loopback (a dropped gloo transport, a port taken before it was bound)
+  runs once more, held to the same checks; any other failure, or a second
+  one, ends the phase.
 
 Standard output is one JSON object per line: one per phase, the
 `seconds` line (each stretch's seconds), then the `kernels` line, then `{"ok": true, "device": {...}}` as the last line. The
 programs' own reports go to standard error. The script exits nonzero,
-without the last line, at the first phase that fails, when no CUDA device
-is present, and when the port's package is not beside it.
+without the last line, at the first phase that fails (its reason on both
+streams), when no CUDA device is present, and when the port's package is
+not beside it.
 """
 
 from __future__ import annotations
@@ -350,16 +359,19 @@ RING_WORLD = 4  # ranks on the card for the overlap phases and the timings
 # 16384² (128 MiB chunks)
 RACE_REPEATS, RACE_SIZES = 20, (2048, SIZE)
 OVERLAP_ITERATIONS, OVERLAP_WARMUP = 10, 2
-# the collective-matmul modes' and the scaling programs' timed calls after
-# their warm-up (OVERLAP_ITERATIONS and 10 after 2 until slice 21; cut in
-# slice 22 to fit the script's time)
-CM_ITERATIONS, CM_WARMUP = 5, 1
+# the collective-matmul modes' timed calls after their warm-up (cut to 5
+# after 1 in slice 22 to fit the script's time; given back in slice 23,
+# once the build and the `processes` phase had shrunk: PERF.md §4)
+CM_ITERATIONS, CM_WARMUP = OVERLAP_ITERATIONS, OVERLAP_WARMUP
 # the scaling and distributed programs: (program, mode) at bf16 SIZE² over
 # RING_WORLD ranks on the card, each under the kernel (dispatch, fused) and
 # the library (dispatch); matrix_parallel also over one rank (its fallback)
 SCALING_RUNS = [("scaling", "independent"), ("scaling", "batch_parallel"),
                 ("scaling", "matrix_parallel"), ("distributed", "data_parallel"),
                 ("distributed", "model_parallel")]
+# their timed calls after the warm-up: 10 after 2 until slice 21, cut in
+# slice 22 to fit the script's time; still cut: 10 after 2 took the whole
+# run over 1000 s on an H100 (scripts/smoke_restore_cost.py, PERF.md §4)
 SCALING_ITERATIONS, SCALING_WARMUP = 5, 1
 # slice 21: `matmul` over MATMUL_RANKS ranks on the card (A4a), and ranks as
 # processes (A5a): the multihost launcher's PROCESSES processes on the card,
@@ -385,16 +397,20 @@ PROCESS_PROGRAMS = [
     ("summa", "summa", ["--mesh", PROCESS_MESH, "--comm-quant", PROCESS_PER_LINK])]
 PROCESS_TIMEOUT_S = 240
 # the PROCESS_PROGRAMS runs read only their validation, launches and wire
-# calls, not their times: PROCESS_ITERATIONS timed
-# calls after PROCESS_WARMUP (slice 21 ran 10 after 2; cut in slice 22,
-# whose 26 processes start together, to fit the script's time)
+# calls, never their times, so more calls would buy nothing: PROCESS_ITERATIONS
+# timed calls after PROCESS_WARMUP (slice 21 ran 10 after 2)
 PROCESS_ITERATIONS, PROCESS_WARMUP = 1, 1
+# slice 23: every run across processes is an entry of one plan, run in order
+# by one group of PROCESSES processes started once (`chip_smoke.py
+# --process-plan PLAN`), within PLAN_TIMEOUT_S
+PLAN_TIMEOUT_S = 600
 # slice 22: model_parallel at PROCESS_WIRE_SIZE across the processes, alone
 # on the card, exact and on each wire of PROCESS_WIRE_SPECS, each
 # PROCESS_WIRE_ITERATIONS timed calls after PROCESS_WIRE_WARMUP, beside the
 # same runs in one process and the `scaling` and `comm_quant` phases'
 # one-process runs at SIZE. 8192 is the cut: at SIZE the exact run alone
-# took 95 s on an H100 (a call 5.2 s, 14 GB through host memory a process)
+# took 95 s on an H100 (a call 5.2 s, 14 GB through host memory a process);
+# SIZE would add more than 53 s (scripts/smoke_restore_cost.py, PERF.md §4)
 PROCESS_WIRE_SIZE = 8192
 PROCESS_WIRE_SPECS = (None, "int8-block:128", "fp8-block:128")
 PROCESS_WIRE_ITERATIONS, PROCESS_WIRE_WARMUP = 1, 1
@@ -457,7 +473,9 @@ STREAM_MESH = "dcn:2,ici:2"
 # the train step
 CURVE_MODE, CURVE_COUNTS = "batch_parallel", (1, 2, 4)
 MEMBW_SIZES, MEMBW_ITERATIONS, MEMBW_WARMUP = (8192, SIZE), 20, 3
-COMPARE_ITERATIONS, COMPARE_WARMUP = 2, 1  # 3 until slice 21
+# 3 timed calls until slice 21; still cut: 3 would add about 14 s on an
+# H100 (scripts/smoke_restore_cost.py, PERF.md §4)
+COMPARE_ITERATIONS, COMPARE_WARMUP = 2, 1
 COMPARE_ISOLATED = ("single", "batch_parallel")
 COMPARE_AT_CAP = ("cuda_ring", "cuda_ring_hbm")
 # the step modes' programs give no corner verdict ("n/a ..."), in JAX too
@@ -659,7 +677,11 @@ def emit(obj: dict) -> None:
 
 
 def fail(phase: str, why: str) -> None:
+    """End the run with exit 1: the phase's failure as a JSON line on the
+    standard output, and the same words on the standard error, whose end is
+    what a caller that keeps only the error stream sees."""
     emit({"phase": phase, "ok": False, "error": why})
+    print(f"chip_smoke: phase {phase} failed: {why}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -5965,6 +5987,219 @@ def finish_processes(run: dict) -> dict:
             "startup_s": [float(t) for t in startup.group(1).split(",")] if startup else None}
 
 
+def plan_entry(tag: str, program: str, mode: str, flags: list[str],
+               after: str | None = None) -> dict:
+    """One entry of a process plan: the program's argv as the launcher
+    builds it (`multihost.build_command`, bf16), run once `after` exists
+    when it is given."""
+    from tpu_matmul_bench_torch import multihost
+
+    argv = multihost.build_command(program, mode, "bfloat16", flags)[4:]
+    return {"tag": tag, "program": program, "argv": argv, "after": after}
+
+
+def start_plan(entries: list[dict], out_dir: str) -> dict:
+    """PROCESSES processes of `chip_smoke.py --process-plan` that run
+    `entries` in order in one gloo group, PROCESS_RANKS ranks a process,
+    each in a session of its own with the environment the launcher gives
+    a process (`multihost.main`); `finish_plan` waits for them. Entry i
+    writes its record, each process's log and each process's counts in
+    `<out_dir>/plan/<ii>-<tag>/`."""
+    from tpu_matmul_bench_torch import counts, multihost
+
+    where = os.path.join(out_dir, "plan")
+    os.makedirs(where, exist_ok=True)
+    dirs = {e["tag"]: os.path.join(where, f"{i:02d}-{e['tag']}") for i, e in enumerate(entries)}
+    path = os.path.join(where, "plan.json")
+    with open(path, "w") as fh:
+        json.dump({"entries": [dict(e, dir=dirs[e["tag"]]) for e in entries]}, fh)
+    env = {k: v for k, v in os.environ.items() if k != counts.COUNTS_OUT_ENV}
+    env.update(WORLD_SIZE=str(PROCESSES), LOCAL_WORLD_SIZE=str(PROCESSES),
+               OMP_NUM_THREADS="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(multihost.free_port()),
+               TMB_RANKS_PER_CARD=str(PROCESS_RANKS),
+               **{multihost.LAUNCH_T0_ENV: repr(time.time())})
+    procs, logs = [], []
+    for p in range(PROCESSES):
+        logs.append(os.path.join(where, f"process{p}.log"))
+        with open(logs[-1], "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--process-plan", path],
+                stdout=fh, stderr=subprocess.STDOUT, start_new_session=True,
+                env=dict(env, RANK=str(p), LOCAL_RANK=str(p))))
+    return {"procs": procs, "logs": logs, "dirs": dirs, "t0": time.perf_counter()}
+
+
+def finish_plan(plan: dict, timeout: float) -> tuple[int, str]:
+    """Wait for a `start_plan` group. When a process fails, or `timeout`
+    seconds pass (rc 124), the others get TERM, then KILL after the
+    launcher's grace (`multihost.GRACE_S`); every session is killed whole.
+    Returns (rc, the failed entry's tag and the processes' log tails); the
+    exit codes before the kill stay in `plan["codes"]`."""
+    from tpu_matmul_bench_torch import multihost
+
+    procs, deadline = plan["procs"], time.monotonic() + timeout
+    while any(p.poll() is None for p in procs) and time.monotonic() < deadline \
+            and not any(p.poll() for p in procs):
+        time.sleep(0.2)
+    codes = plan["codes"] = [p.poll() for p in procs]
+    for sig, grace in ((signal.SIGTERM, multihost.GRACE_S), (signal.SIGKILL, 0)):
+        for p in procs:
+            try:
+                os.killpg(p.pid, sig)
+            except (ProcessLookupError, PermissionError):
+                pass
+        t_end = time.monotonic() + grace
+        while grace and any(p.poll() is None for p in procs) and time.monotonic() < t_end:
+            time.sleep(0.05)
+    for p in procs:
+        p.wait()
+    if codes == [0] * len(procs):
+        return 0, ""
+    tails = []
+    for log in plan["logs"]:
+        with open(log) as fh:
+            tails.append(fh.read()[-1500:])
+    said = re.findall(r"plan entry (\S+) failed", "".join(tails))
+    # a process that ended nonzero (a signal too) failed; else time ran out
+    ended = any(codes)
+    why = (f"entry {said[0]} failed" if said else
+           f"exit codes {codes}" if ended else "timed out")
+    return (1 if said or ended else 124), f"{why}: {' | '.join(tails)}"
+
+
+def transient_failure(text: str) -> bool:
+    """Whether the last error in `text` is the loopback's, not the
+    program's: a dropped gloo transport or a port taken between choosing
+    it and binding it, the signs on which the CPU tests run a group again.
+    Only the text from the last traceback on is read."""
+    from tpu_matmul_bench_torch.utils import errors
+
+    at = text.rfind("Traceback (most recent call last)")
+    if at < 0:
+        return False
+    last = text[at:]
+    return errors.is_transport_message(last) or "address already in use" in last.lower()
+
+
+def plan_transient(plan: dict) -> bool:
+    """Whether a failed `finish_plan` group failed only on the loopback:
+    every process that exited nonzero before the others were killed
+    reports a `transient_failure` in its log. A timeout, or a process that
+    ended without a traceback (a signal), is not transient."""
+    failed = [log for code, log in zip(plan["codes"], plan["logs"]) if code]
+    if not failed:
+        return False
+    for log in failed:
+        with open(log) as fh:
+            if not transient_failure(fh.read()):
+                return False
+    return True
+
+
+def plan_run(plan: dict, tag: str) -> dict:
+    """Entry `tag` of a finished plan, as `finish_processes` gives a
+    launcher run: process 0's log, its record, each process's counts of the
+    entry, process 0's seconds in it and the start-up seconds its banner
+    prints."""
+    where = plan["dirs"][tag]
+    counts = []
+    for p in range(PROCESSES):
+        try:
+            with open(f"{where}/counts.p{p}.json") as fh:
+                counts.append(json.load(fh))
+        except (OSError, ValueError):
+            counts.append(None)
+    with open(f"{where}/log.p0.txt") as fh:
+        text = fh.read()
+    record = None
+    if os.path.exists(f"{where}/record.jsonl"):
+        with open(f"{where}/record.jsonl") as fh:
+            lines = [json.loads(line) for line in fh if line.strip()]
+        record = lines[-1] if len(lines) == 2 else None
+    startup = re.search(r"Process start-up \(s\): ([0-9., ]+)", text)
+    return {"rc": 0 if None not in counts else 1, "text": text, "record": record,
+            "counts": counts, "seconds": counts[0] and counts[0]["seconds"], "worker_tail": "",
+            "startup_s": [float(t) for t in startup.group(1).split(",")] if startup else None}
+
+
+def counts_since(before: dict, after: dict) -> dict:
+    """`counts.counts()` of one plan entry: every count `after` less
+    `before` (the ones that are 0 left out of a by-key count), the
+    process's index, and the quickest crossing as `after` reads it."""
+    out = {}
+    for key, now in after.items():
+        was = before.get(key)
+        if isinstance(now, dict):
+            diff = {k: v - (was or {}).get(k, 0) for k, v in now.items()}
+            out[key] = {k: v for k, v in diff.items() if v}
+        elif key == "crossing_min_s":
+            out[key] = None if now is None or math.isinf(now) else now
+        elif key == "process" or now is None:
+            out[key] = now
+        else:
+            out[key] = now - was
+    return out
+
+
+def process_plan_child(plan_path: str) -> None:
+    """One process of a process plan (`--process-plan PLAN`): joins the
+    gloo group once, then runs PLAN's entries in order, each as a fresh
+    launcher run would (no cached single-device baseline, no quickest
+    crossing yet): `_PROGRAMS[program].main(argv + ["--json-out", ...])`
+    with its output in the entry's `log.p<process>.txt`, then the entry's
+    counts (`counts_since`) and seconds in `counts.p<process>.json`, the
+    allocator's cache emptied and a group barrier. A failed entry ends the
+    process with exit 1, naming the entry; nothing carries on past it."""
+    import importlib
+    import traceback
+
+    import torch
+
+    from tpu_matmul_bench_torch import counts
+    from tpu_matmul_bench_torch.__main__ import _PROGRAMS
+    from tpu_matmul_bench_torch.benchmarks import matmul_scaling_benchmark
+    from tpu_matmul_bench_torch.parallel import group
+    from tpu_matmul_bench_torch.utils.device import maybe_init_process_group
+
+    with open(plan_path) as fh:
+        entries = json.load(fh)["entries"]
+    if not maybe_init_process_group():
+        sys.exit("--process-plan runs in a group: WORLD_SIZE must be above 1")
+    me = group.process_index()
+    for entry in entries:
+        while entry["after"] and not os.path.exists(entry["after"]):
+            time.sleep(0.1)
+        os.makedirs(entry["dir"], exist_ok=True)
+        matmul_scaling_benchmark._BASELINE_CACHE.clear()
+        group.CROSSING_MIN_S = float("inf")
+        before, t0 = counts.counts(), time.perf_counter()
+        log_path = os.path.join(entry["dir"], f"log.p{me}.txt")
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log), \
+                contextlib.redirect_stderr(log):
+            try:
+                importlib.import_module(_PROGRAMS[entry["program"]]).main(
+                    entry["argv"] + ["--json-out", os.path.join(entry["dir"], "record.jsonl")])
+                failed = None
+            except BaseException:  # noqa: BLE001 — reported, and the process ends
+                failed = traceback.format_exc()
+                print(failed, flush=True)
+        if failed:
+            # the traceback's end, then the line that names the entry, in
+            # the process's own log, which `finish_plan` and
+            # `plan_transient` read
+            print(f"{failed[-2000:]}process {me}: plan entry {entry['tag']} failed "
+                  f"(log {log_path})", file=sys.stderr, flush=True)
+            sys.stdout.flush()
+            os._exit(1)  # no teardown that could wait on the peer
+        now = counts_since(before, counts.counts())
+        now["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(entry["dir"], f"counts.p{me}.json"), "w") as fh:
+            json.dump(now, fh)
+        torch.cuda.empty_cache()
+        group.barrier()
+
+
 def one_process(program: str, argv: list[str]):
     """The same program in this process over PROCESSES × PROCESS_RANKS
     ranks on the card: its record and the wire calls it made."""
@@ -6004,23 +6239,27 @@ def process_tag(mode: str, flags: list[str]) -> str:
 
 
 def processes_phase(scaling: dict, comm_quant: dict, out_dir: str) -> dict:
-    """Ranks as processes on the card (ROADMAP A5a): the launcher's
-    PROCESSES processes of PROCESS_RANKS ranks. Scaling `independent` at
-    SIZE under K1 must give world 4 on 1 card, validation ok and, in each
-    process, the K1 launches its own ranks and baseline make; its per-card
-    TFLOPS goes beside the one-process 4-rank run's (the processes
-    time-slice the card). Then PROCESS_PROGRAMS at PROCESS_SIZE under K1,
-    each with `validation_max_rel_err` (rank 0's corner) equal to the
-    one-process run's, each wire run with each process's wire calls and
-    the `comm_quant` extra equal to the one-process run's, each ring with
-    its steps and its baseline's K1 in each process as predicted
-    (`process_ring_launches`); and a fused program that crosses processes must exit with its
-    refusal. Then (slice 22) model_parallel at PROCESS_WIRE_SIZE alone on
-    the card, exact and on each wire of PROCESS_WIRE_SPECS: its comm ms and
-    each process's crossings, their seconds and bytes, beside the
-    one-process comm ms of the `scaling` and `comm_quant` phases of this
-    call. The start-up seconds and the crossings' times are the host's
-    and loopback's, not the card's link."""
+    """Ranks as processes on the card (ROADMAP A5a): PROCESSES processes
+    of PROCESS_RANKS ranks, started once as one group that runs every
+    program across processes in turn (`start_plan`; slice 23). First
+    PROCESS_PROGRAMS at PROCESS_SIZE under K1, each with
+    `validation_max_rel_err` (rank 0's corner) equal to the one-process
+    run's, each wire run with each process's wire calls and the
+    `comm_quant` extra equal to the one-process run's, each ring with its
+    steps and its baseline's K1 in each process as predicted
+    (`process_ring_launches`); beside the group, a fused program that
+    crosses processes must exit with its refusal. Then, alone on the card,
+    scaling `independent` at SIZE: world 4 on 1 card, validation ok and,
+    in each process, the K1 launches its own ranks and baseline make; its
+    per-card TFLOPS goes beside the one-process 4-rank run's (the
+    processes time-slice the card). Then (slice 22) model_parallel at
+    PROCESS_WIRE_SIZE, exact and on each wire of PROCESS_WIRE_SPECS: its
+    comm ms and each process's crossings, their seconds and bytes, beside
+    the one-process comm ms of the `scaling` and `comm_quant` phases of
+    this call. The start-up seconds and the crossings' times are the
+    host's and loopback's, not the card's link. A group or refusal run
+    that failed only on the loopback (`plan_transient`,
+    `transient_failure`) runs once more under the same checks."""
     torch_empty_cache()
     runs = {}
     common = ["--iterations", str(SCALING_ITERATIONS), "--warmup", str(SCALING_WARMUP),
@@ -6099,23 +6338,25 @@ def processes_phase(scaling: dict, comm_quant: dict, out_dir: str) -> dict:
 
     world = PROCESSES * PROCESS_RANKS
     t0 = time.perf_counter()
-    # alone on the card: its per-card TFLOPS is read
-    run = finish_processes(start_processes(
-        "scaling", "independent", ["--sizes", str(SIZE), *common], out_dir, "independent"))
-    runs["independent"] = check("independent", run, world,
-                                process_launches("independent", "dispatch"))
-    one_ind = scaling["independent"]["cuda,dispatch"]
-    runs["independent"]["one_process_tflops_per_device"] = one_ind["tflops_per_device"]
-    # the programs at PROCESS_SIZE are not timed: they run together
-    # (each launcher's group on its own port), and so does the refusal of a
-    # card-fused program whose calls cross processes (a CUDA graph cannot
-    # hold a gloo exchange); the one-process runs go meanwhile, here
+    # one group runs every program across processes in turn: the programs
+    # at PROCESS_SIZE, not timed, while this process runs the same programs
+    # in one process and a launcher run beside the group checks the
+    # refusal of a card-fused program whose calls cross processes (a CUDA
+    # graph cannot hold a gloo exchange); then, once `go` exists and the
+    # card is the group's alone, `independent` at SIZE, whose per-card
+    # TFLOPS is read, and the wire runs at PROCESS_WIRE_SIZE
     flags = ["--sizes", str(PROCESS_SIZE), "--iterations", str(PROCESS_ITERATIONS),
              "--warmup", str(PROCESS_WARMUP), "--validate", "--matmul-impl", "cuda"]
     tags = [process_tag(mode, extra) for _, mode, extra in PROCESS_PROGRAMS]
-    started = {tag: start_processes(program, mode, [*flags, *extra], out_dir, tag)
-               for tag, (program, mode, extra) in zip(tags, PROCESS_PROGRAMS)}
-    started["fused-refusal"] = start_processes(
+    go = os.path.join(out_dir, "processes-go")
+    entries = [plan_entry(tag, program, mode, [*flags, *extra])
+               for tag, (program, mode, extra) in zip(tags, PROCESS_PROGRAMS)]
+    entries.append(plan_entry("independent", "scaling", "independent",
+                              ["--sizes", str(SIZE), *common], after=go))
+    entries += [plan_entry(f"wire-{process_tag('model_parallel', extra)}", "distributed",
+                           "model_parallel", extra) for extra in wire_flags()]
+    plan = start_plan(entries, out_dir)
+    refusal = start_processes(
         "scaling", "batch_parallel", [*flags, "--timing", "fused"], out_dir, "fused-refusal")
     t_ones = time.perf_counter()
     ones = {tag: one_process(program, ([] if program in ("summa", "hybrid")
@@ -6123,10 +6364,45 @@ def processes_phase(scaling: dict, comm_quant: dict, out_dir: str) -> dict:
                              + ["--dtype", "bfloat16"])
             for tag, (program, mode, extra) in zip(tags, PROCESS_PROGRAMS)}
     ones_s = time.perf_counter() - t_ones
+    refused = finish_processes(refusal)
+    said = "exchanges data between processes" in refused["text"]
+    refusal_runs = 1
+    if refused["rc"] != 0 and not said and transient_failure(refused["text"]):
+        # process 0 failed on the loopback before it could refuse: the same
+        # launcher run once more, held to the same check
+        print(f"chip_smoke: the refusal's run failed on the loopback, run again: "
+              f"{refused['text'][-1500:]}", file=sys.stderr, flush=True)
+        refused = finish_processes(start_processes(
+            "scaling", "batch_parallel", [*flags, "--timing", "fused"], out_dir,
+            "fused-refusal-again"))
+        said = "exchanges data between processes" in refused["text"]
+        refusal_runs = 2
+    emit({"phase": "processes[fused_refusal]", "rc": refused["rc"], "refused": said,
+          "seconds": refused["seconds"], "runs": refusal_runs,
+          "ok": refused["rc"] != 0 and said})
+    if refused["rc"] == 0 or not said:
+        fail("processes[fused_refusal]", f"rc {refused['rc']}: {refused['text'][-1500:]}")
+    with open(go, "w"):
+        pass
+    t_go = time.perf_counter()
+    rc, why = finish_plan(plan, PLAN_TIMEOUT_S - (t_go - t0))
+    group_runs = 1
+    if rc != 0 and plan_transient(plan):
+        # every failed process failed on the loopback (`plan_transient`):
+        # the group once more, alone on the card, every entry held to the
+        # same checks; a second failure of any kind ends the phase
+        print(f"chip_smoke: the group failed on the loopback, run again: {why[-3000:]}",
+              file=sys.stderr, flush=True)
+        plan = start_plan(entries, os.path.join(out_dir, "again"))
+        rc, why = finish_plan(plan, PLAN_TIMEOUT_S - (time.perf_counter() - t0))
+        group_runs = 2
+    group_s = time.perf_counter() - plan["t0"]
+    if rc != 0:
+        fail("processes", f"the group's run (rc {rc}): {why}")
     for tag, (program, mode, extra) in zip(tags, PROCESS_PROGRAMS):
         want = (process_launches(mode, "dispatch", PROCESS_ITERATIONS, PROCESS_WARMUP)
                 if program == "scaling" and not extra else None)
-        run = finish_processes(started[tag])
+        run = plan_run(plan, tag)
         steps = []
         if program == "overlap":
             # each process's own ranks' ring steps (K3 and K5 on their pickup
@@ -6139,52 +6415,58 @@ def processes_phase(scaling: dict, comm_quant: dict, out_dir: str) -> dict:
                     steps.append(f"a process's launches {got}, not {want_steps}")
         runs[tag] = check(tag, run, world, want, ones[tag], steps,
                           want_steps if program == "overlap" else None)
-    refused = finish_processes(started["fused-refusal"])
-    said = "exchanges data between processes" in refused["text"]
-    emit({"phase": "processes[fused_refusal]", "rc": refused["rc"], "refused": said,
-          "seconds": refused["seconds"], "ok": refused["rc"] != 0 and said})
-    if refused["rc"] == 0 or not said:
-        fail("processes[fused_refusal]", f"rc {refused['rc']}: {refused['text'][-1500:]}")
+    runs["independent"] = check("independent", plan_run(plan, "independent"), world,
+                                process_launches("independent", "dispatch"))
+    one_ind = scaling["independent"]["cuda,dispatch"]
+    runs["independent"]["one_process_tflops_per_device"] = one_ind["tflops_per_device"]
     t_wire = time.perf_counter()
-    batch_s = t_wire - t_ones
-    wire = processes_wire(scaling, comm_quant, out_dir, check)
+    wire = processes_wire(scaling, comm_quant, plan, check)
+    batch = [plan_run(plan, tag)["seconds"] for tag in tags]
     emit({"phase": "processes", "card": card_line(), "processes": PROCESSES,
           "ranks_each": PROCESS_RANKS,
           "independent_per_card_tflops": runs["independent"]["tflops_per_device"],
           "one_process_independent_per_card_tflops": one_ind["tflops_per_device"],
-          "startup_s": runs["independent"]["startup_s"],
+          "startup_s": runs[tags[0]]["startup_s"],
           "crossing_ms": {k: r["crossing_ms"] for k, r in runs.items()},
           "wire": wire,
           "note": "start-up and crossing times are the host's and loopback's "
                   "(gloo through host memory), not the card's link",
-          "batch_seconds": batch_s, "one_process_seconds": ones_s,
-          "wire_seconds": time.perf_counter() - t_wire,
+          "group_runs": group_runs, "refusal_runs": refusal_runs,
+          "group_seconds": group_s, "entry_seconds": {
+              tag: plan_run(plan, tag)["seconds"] for tag in plan["dirs"]},
+          "batch_seconds": sum(batch), "one_process_seconds": ones_s,
+          "wait_for_go_seconds": t_go - plan["t0"],
+          "wire_one_process_seconds": time.perf_counter() - t_wire,
           "seconds": time.perf_counter() - t0, "ok": True})
     runs["wire"] = wire
     return runs
 
 
-def processes_wire(scaling: dict, comm_quant: dict, out_dir: str, check) -> dict:
+def wire_flags() -> list[list[str]]:
+    """model_parallel's flags at PROCESS_WIRE_SIZE, exact and on each wire
+    of PROCESS_WIRE_SPECS."""
+    it, wu = PROCESS_WIRE_ITERATIONS, PROCESS_WIRE_WARMUP
+    return [["--sizes", str(PROCESS_WIRE_SIZE), "--iterations", str(it), "--warmup", str(wu),
+             "--validate", "--matmul-impl", "cuda", *(["--comm-quant", spec] if spec else [])]
+            for spec in PROCESS_WIRE_SPECS]
+
+
+def processes_wire(scaling: dict, comm_quant: dict, plan: dict, check) -> dict:
     """model_parallel at PROCESS_WIRE_SIZE across the processes, alone on
-    the card, exact and on each wire of PROCESS_WIRE_SPECS (slice 22): K1
-    in each process as its ranks' calls make, each process's wire calls
-    one a full call, validation, `comm_quant` extra and wire calls equal
-    to the same run's in one process; the comm leg's ms and each process's
-    crossings, their seconds and bytes, beside the one-process run's comm
-    ms and this call's `scaling` (exact) and `comm_quant` phases' at
-    SIZE."""
+    the card (the plan's last entries), exact and on each wire of
+    PROCESS_WIRE_SPECS (slice 22): K1 in each process as its ranks' calls
+    make, each process's wire calls one a full call, validation,
+    `comm_quant` extra and wire calls equal to the same run's in one
+    process; the comm leg's ms and each process's crossings, their seconds
+    and bytes, beside the one-process run's comm ms and this call's
+    `scaling` (exact) and `comm_quant` phases' at SIZE."""
     world = PROCESSES * PROCESS_RANKS
     it, wu = PROCESS_WIRE_ITERATIONS, PROCESS_WIRE_WARMUP
     calls = scaling_calls("model_parallel", world, "dispatch", it, wu)
     table = {}
-    for spec in PROCESS_WIRE_SPECS:
+    for spec, extra in zip(PROCESS_WIRE_SPECS, wire_flags()):
         label = spec or "none"
-        extra = ["--sizes", str(PROCESS_WIRE_SIZE), "--iterations", str(it), "--warmup",
-                 str(wu), "--validate", "--matmul-impl", "cuda"]
-        extra += ["--comm-quant", spec] if spec else []
-        run = finish_processes(start_processes(
-            "distributed", "model_parallel", extra, out_dir,
-            f"wire-{process_tag('model_parallel', extra)}"))
+        run = plan_run(plan, f"wire-{process_tag('model_parallel', extra)}")
         one = one_process("distributed", ["--mode", "model_parallel", *extra,
                                           "--dtype", "bfloat16"])
         at_size = (comm_quant[f"model_parallel,{spec},dispatch"] if spec
@@ -6715,6 +6997,8 @@ def main(keep_ledgers: str | None = None) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--pod-warm-start"]:
         pod_warm_start_child(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--process-plan"] and len(sys.argv) == 3:
+        process_plan_child(sys.argv[2])
     elif sys.argv[1:2] == ["--keep-ledgers"] and len(sys.argv) == 3:
         main(keep_ledgers=os.path.abspath(sys.argv[2]))
     else:

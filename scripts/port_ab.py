@@ -9,9 +9,12 @@ commit unpacked with `git archive` into a directory that .gitignore lists
 (`build/parent`). Run it on a machine with one NVIDIA card, from the
 repository root.
 
-For each checkout it compiles `tpu_matmul_bench_torch/csrc/matmul.cu` with
-`nvcc -Xptxas -v` and prints the registers and spill bytes of its bf16
-tensor-core kernels at the default tile. Then it times that checkout's
+For each checkout it builds K1's library through that checkout's own
+`ops/_build.py` (in a process run in the checkout, into the checkout's own
+`build/kernels/`), so a checkout whose `csrc/matmul.cu` is one file and one
+whose source is split into units each build their own way, and prints the
+registers and spill bytes ptxas gave its bf16 wmma kernels at the default
+tile. Then it times that checkout's
 `cuda_matmul` (default tile) at bf16 SIZE^3 between two CUDA events, one
 fresh process per run, in the order base, change, change, base, so that
 drift on the card falls on both alike. Standard output is one JSON line
@@ -25,13 +28,9 @@ import json
 import re
 import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-
-from tpu_matmul_bench_torch.ops import _build  # noqa: E402
 
 TIME_K1 = r"""
 import sys, torch
@@ -53,17 +52,22 @@ print(start.elapsed_time(end) / runs)
 """
 
 
+BUILD_K1 = r"""
+import json
+from tpu_matmul_bench_torch.ops import _build
+_build.build("matmul")
+print(json.dumps(_build.resource_usage("matmul")))
+"""
+
+
 def default_tile_kernels(checkout: Path) -> dict[str, dict[str, int]]:
     """ptxas's registers and spill bytes of the checkout's bf16 wmma
-    kernels at the default tile (a checkout whose kernel has one fixed tile
-    names no tile in its template arguments; one with the pickup epilogue
-    adds its flag after the tile)."""
-    source = checkout / "tpu_matmul_bench_torch" / "csrc" / "matmul.cu"
-    with tempfile.TemporaryDirectory() as tmp:
-        out = subprocess.run(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", f"{tmp}/lib.so",
-             str(source)], capture_output=True, text=True, check=True)
-    usage = _build.readable_usage(out.stdout + out.stderr)
+    kernels at the default tile, from its own build (a checkout whose
+    kernel has one fixed tile names no tile in its template arguments; one
+    with the pickup epilogue adds its flag after the tile)."""
+    out = subprocess.run([sys.executable, "-c", BUILD_K1], cwd=checkout,
+                         capture_output=True, text=True, check=True)
+    usage = json.loads(out.stdout.strip().splitlines()[-1])
     return {name: v for name, v in usage.items()
             if name.startswith("wmma_gemm<__nv_bfloat16")
             and ("128, 128, 32" in name or not re.search(r"\d+, \d+, \d+[,>]", name))}

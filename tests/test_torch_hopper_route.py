@@ -9,6 +9,7 @@ the Python mirrors of their geometry (`wgmma_plan`, `fused_plan`) run here,
 with the build key and the ptxas report parser of `ops/_build.py`.
 """
 
+import os
 import re
 import shutil
 from pathlib import Path
@@ -140,19 +141,36 @@ def test_wgmma_plan_at_the_headline_tiles():
 
 
 def test_both_tensor_core_routes_instantiate_every_tile():
-    text = (CSRC / "matmul.cu").read_text()
-    macro = re.search(r"#define TMB_TILES\(X\)(.*?)\n\n", text, re.S).group(1)
+    # the tile list and the kernel templates are in csrc/matmul.cuh; each
+    # unit of csrc/matmul/ instantiates one route and dtype (and, on wmma,
+    # one epilogue) at every tile, and csrc/matmul.cu's tmb_init inits them all
+    header = (CSRC / "matmul.cuh").read_text()
+    macro = re.search(r"#define TMB_TILES\(X\)(.*?)\n\n", header, re.S).group(1)
     listed = tuple(tuple(int(v) for v in t.split(","))
                    for t in re.findall(r"X\(([\d, ]+)\)", macro))
     assert listed == cm.TILES
-    for dispatcher in ("launch_wmma", "launch_wgmma", "occupancy_wmma", "occupancy_wgmma"):
-        body = text[text.index(f"cudaError_t {dispatcher}("):]
+    for dispatcher in ("launch_wmma", "launch_wgmma", "occupancy_wmma", "occupancy_wgmma",
+                       "init_wmma", "init_wgmma"):
+        body = header[re.search(rf"cudaError_t {dispatcher}\(", header).start():]
         body = body[:body.index("\n}\n")]
         assert "TMB_TILES(" in body, dispatcher
-    init = text[text.index("#define TMB_INIT"):text.index("#undef TMB_INIT")]
-    for kernel in ("init_tile<__nv_bfloat16", "init_wgmma_tile<__nv_bfloat16",
-                   "init_wgmma_tile<__half", "init_tile<signed char"):
-        assert kernel in init
+    units = {p.stem: p.read_text() for p in (CSRC / "matmul").glob("*.cu")}
+    for kernel, unit in (("launch_wmma<__nv_bfloat16, false>", "wmma_bf16"),
+                         ("launch_wmma<__nv_bfloat16, true>", "wmma_bf16_acc"),
+                         ("launch_wmma<__half, false>", "wmma_f16"),
+                         ("launch_wmma<__half, true>", "wmma_f16_acc"),
+                         ("launch_wmma<signed char, false>", "wmma_i8"),
+                         ("launch_wmma<signed char, true>", "wmma_i8_acc"),
+                         ("launch_wgmma<__nv_bfloat16>", "wgmma_bf16"),
+                         ("launch_wgmma<__half>", "wgmma_f16")):
+        assert kernel in units[unit], unit
+        init = kernel.replace("launch_", "init_")
+        assert f"{unit}_init() {{ return {init}(); }}" in units[unit], unit
+    init = (CSRC / "matmul.cu").read_text()
+    init = init[init.index("int tmb_init()"):]
+    init = init[:init.index("\n}\n")]
+    for unit in units:
+        assert f"{unit}_init" in init, unit
 
 
 def test_default_tile_is_a_tile():
@@ -240,6 +258,146 @@ def test_a_new_header_changes_the_build_key(tmp_path, monkeypatch):
     before = _build.library_path("matmul")
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert _build.library_path("matmul") != before
+
+
+# A stand-in for nvcc: logs when each call starts and ends, sleeps, and
+# writes its output. `-c`: an object holding the unit's name, and a ptxas
+# report of one kernel named for the unit (registers: the unit name's
+# length); a unit whose name holds "bad" fails. `-shared`: the library, its
+# objects' contents joined.
+FAKE_NVCC = """#!{python}
+import sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+with open({log!r}, "a") as fh:
+    fh.write(f"start {{time.monotonic()}} {{' '.join(args)}}\\n")
+time.sleep(0.4)
+if "-c" in args:
+    unit = args[-1]
+    if "bad" in unit:
+        print(f"{{unit}}(1): error: nothing here")
+        sys.exit(2)
+    stem = unit.rsplit("/", 1)[-1].removesuffix(".cu")
+    open(out, "w").write(unit + "\\n")
+    print(f"ptxas info    : Compiling entry function '_Z{{len(stem)}}{{stem}}v' for 'sm_90a'")
+    print(f"ptxas info    : Used {{len(unit)}} registers")
+else:
+    with open(out, "w") as fh:
+        for obj in args[args.index("-o") + 2:]:
+            fh.write(open(obj).read())
+with open({log!r}, "a") as fh:
+    fh.write(f"end {{time.monotonic()}} {{' '.join(args)}}\\n")
+"""
+
+
+@pytest.fixture
+def fake_build(tmp_path, monkeypatch):
+    """A csrc tree of two sources, `split` (csrc/split.cu and two units in
+    csrc/split/) and `whole`, a header, a build directory of its own, and
+    the fake nvcc first on PATH; returns (csrc, the nvcc log)."""
+    import sys
+
+    csrc, bin_dir, log = tmp_path / "csrc", tmp_path / "bin", tmp_path / "nvcc.log"
+    (csrc / "split").mkdir(parents=True)
+    for rel in ("split.cu", "split/alpha.cu", "split/beta.cu", "whole.cu"):
+        (csrc / rel).write_text(f"// {rel}\n")
+    (csrc / "common.cuh").write_text("#pragma once\n")
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable, log=str(log)))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bin_dir}:{os.environ['PATH']}")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    return csrc, log
+
+
+def _calls(log: Path) -> list[tuple[str, float, str]]:
+    return [(kind, float(t), args) for kind, t, args in
+            (line.split(" ", 2) for line in log.read_text().splitlines())]
+
+
+def test_build_starts_every_unit_before_waiting_then_links_each_source(fake_build):
+    csrc, log = fake_build
+    runs = _build.NVCC_RUNS
+    libs = _build.build()
+    calls = _calls(log)
+    compiles = [c for c in calls if " -c " in c[2]]
+    links = [c for c in calls if "-shared" in c[2]]
+    assert len([c for c in compiles if c[0] == "start"]) == 4  # every unit, once
+    assert len([c for c in links if c[0] == "start"]) == 2  # one link a source
+    first_end = min(t for kind, t, _ in compiles if kind == "end")
+    assert max(t for kind, t, _ in compiles if kind == "start") < first_end
+    assert _build.NVCC_RUNS - runs == 6
+    for name, units in (("split", ["split.cu", "split/alpha.cu", "split/beta.cu"]),
+                        ("whole", ["whole.cu"])):
+        assert libs[name] == _build.library_path(name)
+        assert libs[name].name.startswith(f"lib{name}-") and libs[name].suffix == ".so"
+        # one library of every unit's object
+        assert libs[name].read_text().splitlines() == [str(csrc / u) for u in units]
+    # nothing of the build is left beside the libraries and their reports
+    assert sorted(p.name for p in _build.BUILD_DIR.iterdir()) == sorted(
+        [lib.name for lib in libs.values()] + [lib.name + ".ptxas.txt" for lib in libs.values()])
+    # built: a second build starts no nvcc
+    _build.build()
+    assert _build.NVCC_RUNS - runs == 6
+
+
+def test_a_split_report_gives_each_units_kernels(fake_build):
+    csrc, _ = fake_build
+    _build.build("split")
+    usage = _build.parse_ptxas(_build._ptxas_log(_build.library_path("split")).read_text())
+    assert usage == {"_Z5splitv": {"registers": len(str(csrc / "split.cu"))},
+                     "_Z5alphav": {"registers": len(str(csrc / "split/alpha.cu"))},
+                     "_Z4betav": {"registers": len(str(csrc / "split/beta.cu"))}}
+
+
+def test_a_failed_unit_raises_naming_it(fake_build):
+    csrc, _ = fake_build
+    (csrc / "split" / "bad.cu").write_text("// bad\n")
+    with pytest.raises(_build.KernelBuildError, match=r"nvcc failed on csrc/split/bad\.cu"):
+        _build.build("split")
+    assert not _build.library_path("split").exists()
+    assert list(_build.BUILD_DIR.iterdir()) == []  # no object, no report, no library
+
+
+def test_two_processes_building_at_once_write_apart(fake_build, monkeypatch):
+    pid = [101]
+    monkeypatch.setattr(_build.os, "getpid", lambda: pid[0])
+    first = _build._start("split")
+    pid[0] = 202
+    second = _build._start("split")
+    objects = [obj for job in (first, second) for _, obj, _ in job.procs]
+    assert len(set(objects)) == 6
+    _build._finish(first)
+    _build._finish(second)
+    assert _build.library_path("split").is_file()
+    assert not [p for p in _build.BUILD_DIR.iterdir() if p.suffix in (".o", ".tmp")]
+
+
+@pytest.mark.parametrize("edit", ["split.cu", "split/alpha.cu", "split/beta.cu",
+                                  "split/gamma.cu"])
+def test_editing_any_unit_changes_its_sources_key(fake_build, edit):
+    csrc, _ = fake_build
+    before = {name: _build.library_path(name) for name in ("split", "whole")}
+    path = csrc / edit
+    path.write_text((path.read_text() if path.exists() else "") + "// an edit\n")
+    assert _build.library_path("split") != before["split"]
+    assert _build.library_path("whole") == before["whole"]
+
+
+def test_k1s_units_are_its_source_and_its_directory():
+    names = [p.relative_to(CSRC).as_posix() for p in _build.units("matmul")]
+    assert names[0] == "matmul.cu"
+    assert sorted(names[1:]) == sorted(f"matmul/{u}.cu" for u in (
+        "wmma_bf16", "wmma_bf16_acc", "wmma_f16", "wmma_f16_acc", "wmma_i8", "wmma_i8_acc",
+        "wgmma_bf16", "wgmma_f16"))
+    assert [p.name for p in _build.units("ring_rs")] == ["ring_rs.cu"]
+    # the units compile to objects with the library's flags, the link makes it shared
+    assert "-shared" not in _build.COMPILE_FLAGS and "-c" in _build.COMPILE_FLAGS
+    assert set(_build.COMPILE_FLAGS) - {"-c"} == set(_build.NVCC_FLAGS) - {"-shared"}
+    assert "-shared" in _build.LINK_FLAGS
 
 
 PTXAS_WARNINGS = """\

@@ -28,6 +28,7 @@ import signal
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -482,6 +483,229 @@ def test_a_failed_rendezvous_raises(tmp_path):
     assert out.returncode != 0
     assert "process-group rendezvous at tcp://127.0.0.1:" in out.stderr
     assert "Results for" not in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# (d) one group that runs several programs in turn (`chip_smoke.py
+#     --process-plan`, the card's `processes` phase)
+# ---------------------------------------------------------------------------
+
+# (tag, program, mode, flags): each entry of the plan, and a launcher run
+PLAN = [("batch_parallel", "scaling", "batch_parallel", []),
+        ("cuda_ring_rs_hbm", "overlap", "cuda_ring_rs_hbm", []),
+        ("summa-per-link", "summa", "summa",
+         ["--mesh", "dcn:2,ici:2", "--comm-quant", PER_LINK])]
+# the counts a plan entry and a launcher run must share, process by process
+PLAN_COUNTS = ("k1_launches", "launches_by_route", "rs_launches", "ag_launches",
+               "hop_launches", "cross_hops", "crossings", "crossing_bytes_out",
+               "crossing_bytes_in", "crossing_bytes_in_by_dtype", "wire_calls")
+
+
+def _plan_flags(flags: list[str]) -> list[str]:
+    return ["--device", "cpu", *SMALL, "--validate", *flags]
+
+
+def _run_plan(tmp_path, monkeypatch, entries: list[dict]) -> tuple[dict, int, str]:
+    """The plan's group of 2 on the CPU, rerun on a transport failure."""
+    import chip_smoke
+
+    for k, v in _env(tmp_path).items():
+        monkeypatch.setenv(k, v)
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    for attempt in range(3):
+        where = tmp_path / f"try{attempt}"
+        plan = chip_smoke.start_plan(
+            [dict(e, after=None) for e in entries], str(where))
+        rc, why = chip_smoke.finish_plan(plan, 3 * SPAWN_TIMEOUT_S)
+        if rc == 0 or not (rc == 124 or errors.is_transport_message(why)
+                           or "address already in use" in why.lower()):
+            break
+    return plan, rc, why
+
+
+@pytest.fixture(scope="module")
+def plan_group(tmp_path_factory):
+    """PLAN run once a module by one group of 2 processes."""
+    import chip_smoke
+
+    tmp_path = tmp_path_factory.mktemp("plan")
+    with pytest.MonkeyPatch.context() as mp:
+        entries = [chip_smoke.plan_entry(tag, program, mode, _plan_flags(flags))
+                   for tag, program, mode, flags in PLAN]
+        plan, rc, why = _run_plan(tmp_path, mp, entries)
+    return {"plan": plan, "rc": rc, "why": why}
+
+
+@pytest.mark.parametrize("tag,program,mode,flags", PLAN, ids=[p[0] for p in PLAN])
+def test_one_group_runs_each_program_as_a_launcher_run(plan_group, tmp_path, monkeypatch,
+                                                       tag, program, mode, flags):
+    import chip_smoke
+
+    assert plan_group["rc"] == 0, plan_group["why"]
+    entry = chip_smoke.plan_run(plan_group["plan"], tag)
+    assert entry["rc"] == 0
+    assert "Processes: 2 (this is process 0)" in entry["text"]
+    assert entry["text"].count("Results for") == 1
+    assert "validation: ok" in entry["text"]
+    rec = entry["record"]
+    assert rec["world"] == 4 and rec["extras"]["cards"] == 1
+    # the same program as a launcher run of its own, its exit counts
+    out_json, counts_dir = tmp_path / "rec.jsonl", tmp_path / "counts"
+    cmd = [sys.executable, "-m", "tpu_matmul_bench_torch.multihost", "2", mode, "bfloat16",
+           "--device=cpu", *SMALL, "--validate", "--json-out", str(out_json), *flags]
+    (out,) = _spawn([cmd], [_env(tmp_path, MULTIHOST_PROGRAM=program,
+                                 TMB_COUNTS_OUT=str(counts_dir))])
+    assert out.returncode == 0, out.stderr[-3000:]
+    alone = _record(out_json)
+    assert alone["world"] == 4
+    assert rec["extras"]["validation_max_rel_err"] == \
+        alone["extras"]["validation_max_rel_err"]
+    assert rec["extras"].get("comm_quant") == alone["extras"].get("comm_quant")
+    for p in range(2):
+        got = entry["counts"][p]
+        want = json.loads((counts_dir / f"counts.p{p}.json").read_text())
+        assert got["process"] == want["process"] == p
+        assert {k: got[k] for k in PLAN_COUNTS} == {k: want[k] for k in PLAN_COUNTS}, tag
+        assert got["crossings"] > 0
+    # and the one-process run's validation error
+    argv = [] if program in multihost.MODELESS else ["--mode", mode]
+    one = _one_process(monkeypatch, program,
+                       argv + flags + SMALL + ["--validate", "--dtype", "bfloat16"])
+    assert rec["extras"]["validation_max_rel_err"] == one.extras["validation_max_rel_err"]
+
+
+def test_a_failed_plan_entry_ends_both_processes_naming_it(tmp_path, monkeypatch):
+    import chip_smoke
+
+    # a block that does not divide the payload raises when the mode is built
+    entries = [chip_smoke.plan_entry("batch_parallel", "scaling", "batch_parallel",
+                                     _plan_flags([])),
+               chip_smoke.plan_entry("bad-block", "scaling", "matrix_parallel",
+                                     _plan_flags(["--comm-quant", "fp8-block:32"])),
+               chip_smoke.plan_entry("never", "scaling", "independent", _plan_flags([]))]
+    plan, rc, why = _run_plan(tmp_path, monkeypatch, entries)
+    assert rc == 1
+    assert "entry bad-block failed" in why
+    assert all(p.returncode not in (None, 0) for p in plan["procs"])
+    assert (Path(plan["dirs"]["batch_parallel"]) / "counts.p1.json").is_file()
+    assert not Path(plan["dirs"]["never"]).exists()
+    # the process log holds the entry's own error, and a program's error
+    # is no reason to run the group again
+    assert "ValueError" in why or "Error" in why
+    assert not chip_smoke.plan_transient(plan)
+
+
+def test_a_failed_process_ends_its_peer(tmp_path):
+    import chip_smoke
+
+    logs = [tmp_path / "p0.log", tmp_path / "p1.log"]
+    cmds = [[sys.executable, "-c",
+             "import sys; print('process 0: plan entry x failed'); sys.exit(1)"],
+            [sys.executable, "-c", "import time; time.sleep(60)"]]
+    procs = []
+    for cmd, log in zip(cmds, logs):
+        with open(log, "w") as fh:
+            procs.append(subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                                          start_new_session=True))
+    t0 = time.monotonic()
+    rc, why = chip_smoke.finish_plan({"procs": procs, "logs": [str(p) for p in logs]}, 50)
+    assert rc == 1 and why.startswith("entry x failed")
+    assert time.monotonic() - t0 < 20
+    assert procs[0].returncode == 1 and procs[1].returncode == -signal.SIGTERM
+
+
+_TRACE = "Traceback (most recent call last):\n  File \"x.py\", line 1, in <module>\n"
+
+
+@pytest.mark.parametrize("text,want", [
+    (_TRACE + "RuntimeError: [gloo] Connection closed by peer [127.0.0.1]:4242", True),
+    (_TRACE + "RuntimeError: process-group rendezvous at tcp://127.0.0.1:1 failed "
+              "for process 0 of 2: The server socket has failed to listen on any "
+              "local network address. port: 1, useIpv6: 0, code: -98, name: EADDRINUSE, "
+              "message: address already in use", True),
+    (_TRACE + "ValueError: block 32 does not divide 48", False),
+    # an earlier transport error handled, then the program's own
+    (_TRACE + "RuntimeError: Connection reset by peer\n\nDuring handling of the above "
+              "exception, another exception occurred:\n\n" + _TRACE
+              + "AssertionError: launches differ", False),
+    ("RuntimeError: Connection closed by peer, printed without a traceback", False),
+    ("", False),
+])
+def test_a_transient_failure_is_the_last_errors_own(text, want):
+    import chip_smoke
+
+    assert chip_smoke.transient_failure(text) is want
+
+
+@pytest.mark.parametrize("script,want", [
+    ("print('Traceback (most recent call last):'); "
+     "print('RuntimeError: [gloo] Connection closed by peer'); "
+     "print('process 0: plan entry x failed'); sys.exit(1)", True),
+    ("print('Traceback (most recent call last):'); print('KeyError: 3'); "
+     "print('process 0: plan entry x failed'); sys.exit(1)", False),
+    ("import os, signal; os.kill(os.getpid(), signal.SIGSEGV)", False),
+], ids=["transport", "program", "signal"])
+def test_only_a_group_that_failed_on_the_loopback_runs_again(tmp_path, script, want):
+    import chip_smoke
+
+    logs = [tmp_path / "p0.log", tmp_path / "p1.log"]
+    cmds = [[sys.executable, "-c", f"import sys; {script}"],
+            # the peer, killed once process 0 has failed, is not read
+            [sys.executable, "-c", "import time; print('Connection reset by peer'); "
+                                   "time.sleep(60)"]]
+    procs = []
+    for cmd, log in zip(cmds, logs):
+        with open(log, "w") as fh:
+            procs.append(subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                                          start_new_session=True))
+    plan = {"procs": procs, "logs": [str(p) for p in logs]}
+    rc, _ = chip_smoke.finish_plan(plan, 50)
+    assert rc == 1 and plan["codes"][0] != 0 and plan["codes"][1] is None
+    assert chip_smoke.plan_transient(plan) is want
+
+
+def test_a_timed_out_group_is_not_transient(tmp_path):
+    import chip_smoke
+
+    log = tmp_path / "p0.log"
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(60)"],
+                                stdout=fh, stderr=subprocess.STDOUT, start_new_session=True)
+    plan = {"procs": [proc], "logs": [str(log)]}
+    rc, why = chip_smoke.finish_plan(plan, 1)
+    assert rc == 124 and "timed out" in why and plan["codes"] == [None]
+    assert not chip_smoke.plan_transient(plan)
+
+
+def test_a_failed_phase_is_reported_on_both_streams(capsys):
+    import chip_smoke
+
+    with pytest.raises(SystemExit) as e:
+        chip_smoke.fail("processes", "the group's run (rc 1): entry x failed")
+    assert e.value.code == 1
+    out, err = capsys.readouterr()
+    assert json.loads(out) == {"phase": "processes", "ok": False,
+                               "error": "the group's run (rc 1): entry x failed"}
+    assert err == ("chip_smoke: phase processes failed: the group's run (rc 1): "
+                   "entry x failed\n")
+
+
+@pytest.mark.parametrize("before,after,want", [
+    ({"process": 1, "k1_launches": 5, "launches_by_route": {"wgmma": 5},
+      "crossing_min_s": None, "wire_calls": {}},
+     {"process": 1, "k1_launches": 9, "launches_by_route": {"wgmma": 7, "simt": 2},
+      "crossing_min_s": 0.5, "wire_calls": {"int8,all_reduce": 3}},
+     {"process": 1, "k1_launches": 4, "launches_by_route": {"wgmma": 2, "simt": 2},
+      "crossing_min_s": 0.5, "wire_calls": {"int8,all_reduce": 3}}),
+    ({"crossings": 3, "crossing_min_s": 0.1, "wire_calls": {"int8,all_reduce": 3}},
+     {"crossings": 3, "crossing_min_s": float("inf"), "wire_calls": {"int8,all_reduce": 3}},
+     {"crossings": 0, "crossing_min_s": None, "wire_calls": {}}),
+])
+def test_plan_counts_are_the_entrys_own(before, after, want):
+    import chip_smoke
+
+    assert chip_smoke.counts_since(before, after) == want
 
 
 # ---------------------------------------------------------------------------

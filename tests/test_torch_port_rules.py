@@ -42,7 +42,8 @@ from tpu_matmul_bench_torch.utils.reporting import BenchmarkRecord
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "tpu_matmul_bench_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "scripts" / "port_ab.py"]
+    REPO / "chip_smoke.py", REPO / "scripts" / "port_ab.py",
+    REPO / "scripts" / "smoke_restore_cost.py", REPO / "scripts" / "k1_build_probe.py"]
 DTYPES = ["float32", "float16", "bfloat16", "int8"]
 
 pytestmark = pytest.mark.usefixtures("single_torch_thread")

@@ -53,7 +53,7 @@ def _tiles(records):
 # ------------------------------------------------------------- tile rules
 
 def test_tiles_match_the_cuda_source():
-    src = (REPO / "tpu_matmul_bench_torch/csrc/matmul.cu").read_text()
+    src = (REPO / "tpu_matmul_bench_torch/csrc/matmul.cuh").read_text()
     macro = re.search(r"#define TMB_TILES\(X\)(.*?)\n\n", src, re.S).group(1)
     listed = tuple(tuple(int(v) for v in t.split(","))
                    for t in re.findall(r"X\(([\d, ]+)\)", macro))

@@ -62,9 +62,9 @@ SPAWN_ALLOWLIST = {
         "reaped with TERM then KILL when it fails; a launcher, not a "
         "workload",
     "ops/_build.py":
-        "the kernel build: one nvcc a source, started together and "
-        "awaited, plus the demangler over ptxas's kernel names; a "
-        "compiler, not a workload",
+        "the kernel build: one nvcc a unit of a source, all started "
+        "together and awaited, then one link a source, plus the demangler "
+        "over ptxas's kernel names; a compiler, not a workload",
     "bench.py":
         "the headline entry's ladder: each `matmul` attempt a child with "
         "a soft deadline, killed on overrun; the root bench.py's "

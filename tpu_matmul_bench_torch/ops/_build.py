@@ -3,24 +3,32 @@
 Each source is compiled by `nvcc` for Hopper (sm_90a) into a shared
 library with a plain C interface and loaded with `ctypes`: a few seconds
 per source, where a PyTorch extension that includes PyTorch's headers
-takes minutes. Libraries go to `build/kernels/` at the repository root,
-named by a hash of the source, every header in `csrc/` (`*.cuh`) and the
-flags, so an edited source or header is rebuilt on its next use and an
-unchanged one is loaded as it is. The CUDA driver API's
-`cuTensorMapEncodeTiled` is reached through the runtime
-(`cudaGetDriverEntryPoint`), so nothing links `-lcuda`.
+takes minutes. A source may be split into units: `csrc/<name>.cu` and
+every `csrc/<name>/*.cu` (K1's library, `matmul`, is nine units, one for
+each tensor-core route, operand dtype and epilogue: its 108 kernels take
+over two minutes in one nvcc, PERF.md). `build` starts one `nvcc -c` for
+every unit of every source at once, each into an object named for this
+process, then links each source's objects into its library. Libraries go
+to `build/kernels/` at the repository root, named by a hash of the
+source's units, every header in `csrc/` (`*.cuh`) and the flags, so an
+edited unit or header is rebuilt on its next use and an unchanged one is
+loaded as it is. The CUDA driver API's `cuTensorMapEncodeTiled` is reached
+through the runtime (`cudaGetDriverEntryPoint`), so nothing links
+`-lcuda`.
 
 `ptxas` reports each kernel's registers, stack and spill bytes (`-Xptxas
 -v`), and warns where it serialises a kernel's `wgmma` instructions or
-ignores its `setmaxnreg`; the report is kept beside the library, as
-`<library>.ptxas.txt`, and `resource_usage` reads it back.
+ignores its `setmaxnreg`; the reports of a library's units are kept
+beside it, as `<library>.ptxas.txt`, and `resource_usage` reads them back.
 
-A missing `nvcc` or a failed compile raises: nothing falls back.
+A missing `nvcc`, a failed unit or a failed link raises: nothing falls
+back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import re
@@ -32,15 +40,19 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a unit compiles to an object (NVCC_FLAGS without -shared), and a source's
+# objects link into its library
+COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
-# nvcc processes this process started: a warm start from the kernel-library
-# store (tune/artifacts.py) starts none
+# nvcc processes this process started (a unit's compile or a link): a warm
+# start from the kernel-library store (tune/artifacts.py) starts none
 NVCC_RUNS = 0
 
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused a source."""
+    """nvcc is missing or refused a unit or a link."""
 
 
 def nvcc_path() -> str:
@@ -58,54 +70,98 @@ def nvcc_path() -> str:
         "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
+def units(name: str) -> list[Path]:
+    """The units of source `name`: `csrc/<name>.cu`, then `csrc/<name>/*.cu`."""
+    return [CSRC / f"{name}.cu", *sorted((CSRC / name).glob("*.cu"))]
+
+
 def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to: keyed by the source, every header
-    of `csrc/` (a source may include any of them) and the flags."""
+    """Where `csrc/<name>.cu` builds to: keyed by its units, every header of
+    `csrc/` (a unit may include any of them) and the flags."""
     digest = hashlib.sha256()
-    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
-        digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    for path in (*units(name), *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.relative_to(CSRC).as_posix().encode() + b"\0"
+                      + path.read_bytes())
+    digest.update(" ".join((*NVCC_FLAGS, *LINK_FLAGS)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
-    """Start compiling `name` unless its library is already built."""
+@dataclasses.dataclass
+class _Job:
+    """One source's build in flight: each unit's nvcc and its object."""
+
+    name: str
+    lib: Path
+    procs: list[tuple[Path, Path, subprocess.Popen]]  # (unit, object, nvcc)
+
+
+def _start(name: str) -> _Job | None:
+    """Start one `nvcc -c` for each unit of `name` unless its library is
+    already built; each object is named for this process, so two processes
+    that build at once write apart."""
     global NVCC_RUNS
     lib = library_path(name)
     if lib.is_file():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    NVCC_RUNS += 1
-    return lib, tmp, proc
+    nvcc, procs = nvcc_path(), []
+    for unit in units(name):
+        stem = unit.relative_to(CSRC).with_suffix("").as_posix().replace("/", ".")
+        obj = lib.with_name(f"{lib.stem}.{stem}.{os.getpid()}.o")
+        proc = subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", str(obj), str(unit)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        NVCC_RUNS += 1
+        procs.append((unit, obj, proc))
+    return _Job(name, lib, procs)
 
 
 def _ptxas_log(lib: Path) -> Path:
     return lib.with_name(lib.name + ".ptxas.txt")
 
 
-def _finish(name: str, lib: Path, tmp: Path, proc: subprocess.Popen) -> None:
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
+def _finish(job: _Job) -> None:
+    """Wait for every unit of `job`, then link its objects into the
+    library; a failed unit or link raises, naming it."""
+    global NVCC_RUNS
+    reports, failed = [], []
+    for unit, _, proc in job.procs:
+        out, _ = proc.communicate()
+        where = f"csrc/{unit.relative_to(CSRC).as_posix()}"
+        reports.append(f"// {where}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {where} (exit {proc.returncode}):\n{out}")
+    objects = [obj for _, obj, _ in job.procs]
+    tmp = job.lib.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+        link = subprocess.run([nvcc_path(), *LINK_FLAGS, "-o", str(tmp),
+                               *map(str, objects)],
+                              capture_output=True, text=True)
+        NVCC_RUNS += 1
+        if link.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed to link csrc/{job.name}.cu's units (exit "
+                f"{link.returncode}):\n{link.stdout}{link.stderr}")
+        # the report first, so that a built library always has one
+        _ptxas_log(job.lib).write_text("".join(reports))
+        os.replace(tmp, job.lib)  # atomic: a reader never sees a half-written file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(f"nvcc failed on csrc/{name}.cu "
-                               f"(exit {proc.returncode}):\n{out}")
-    # the report first, so that a built library always has one
-    _ptxas_log(lib).write_text(out)
-    os.replace(tmp, lib)  # atomic: a reader never sees a half-written file
+        for obj in objects:
+            obj.unlink(missing_ok=True)
 
 
 def build(*names: str) -> dict[str, Path]:
-    """Build the named sources (all of `csrc/` when none are named), one
-    `nvcc` per source, all started together. Returns name -> library."""
+    """Build the named sources (all of `csrc/` when none are named): one
+    `nvcc -c` for every unit of every source, all started before any is
+    waited on, then one link a source. Returns name -> library."""
     names = names or tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
-    started = {name: _start(name) for name in names}
-    for name, job in started.items():
+    started = [_start(name) for name in names]
+    for job in started:
         if job is not None:
-            _finish(name, *job)
+            _finish(job)
     return {name: library_path(name) for name in names}
 
 
